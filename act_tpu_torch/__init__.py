@@ -1,0 +1,8 @@
+"""ACT on PyTorch and CUDA: the port of ``act_tpu`` to an NVIDIA H100.
+
+The package imports ``torch`` and never JAX or ``act_tpu``; it mirrors
+``act_tpu``'s module names. Its entry points run on the card unless the caller
+passes ``device="cpu"``, where every CUDA kernel takes its plain PyTorch
+version. Slice one serves the finetuned PointTransformer classifier
+(``engine/serve.py``, ``serve_http.py``).
+"""
