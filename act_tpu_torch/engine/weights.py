@@ -1,7 +1,8 @@
 """Weight bridge: JAX (flax) parameters, given as numpy arrays, to port state dicts.
 
 Inverts the torch -> flax rules of ``act_tpu/engine/torch_convert.py``
-(``student_rules`` and ``point_transformer_rules``, :369-424), so the port's
+(``student_rules``, ``point_transformer_rules`` and
+``act_distillation_rules``, :346-443), so the port's
 modules, which keep the reference PyTorch key layout, run the same weights as
 the JAX package:
 
@@ -145,4 +146,89 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
         sd["side_alpha"] = _t(params["side_alpha"])
         sd.update(encoder_state(params["side"], bs["side"], "side"))
         sd.update(dense_state(params["side_projection"], "side_projection"))
+    return sd
+
+
+def blocks_state(p: Mapping, prefix: str) -> StateDict:
+    """A stack's blocks (``blocks_N`` subtrees or one scanned ``blocks``) ->
+    ``{prefix}.N.*``."""
+    sd: StateDict = {}
+    for name, blk in unstack_blocks(p).items():
+        if name.startswith("blocks_"):
+            sd.update(block_state(blk, f"{prefix}.{name.split('_')[1]}"))
+    return sd
+
+
+def dgcnn_state(p: Mapping, prefix: str) -> StateDict:
+    """DGCNN input_trans (Conv1d), layer1-4 (Conv2d + GroupNorm) and layer5
+    (Conv1d + GroupNorm) in the reference layout (``torch_convert.py:109-117``)."""
+    sd = dense_state(p["input_trans"], _key(prefix, "input_trans"), conv=True)
+    for i in range(1, 6):
+        w = np.asarray(p[f"layer{i}"]["conv"]["kernel"]).T
+        sd[_key(prefix, f"layer{i}.0.weight")] = _t(
+            w[:, :, None] if i == 5 else w[:, :, None, None])
+        sd.update(norm_state(p[f"layer{i}"]["gn"], _key(prefix, f"layer{i}.1")))
+    return sd
+
+
+def teacher_state(p: Mapping, prefix: str) -> StateDict:
+    """A ViT PromptedTeacher's params (flax ``visual_embed``) -> the
+    reference's sibling keys of the tokenizer (``torch_convert.py:197-215,
+    328-343``)."""
+    sd = {**dense_state(p["proj_pre"], _key(prefix, "proj_pre")),
+          **dense_state(p["proj_post"], _key(prefix, "proj_post")),
+          **dense_state(p["pos_fc1"], _key(prefix, "visual_pos_embed.0")),
+          **dense_state(p["pos_fc2"], _key(prefix, "visual_pos_embed.2")),
+          **norm_state(p["norm"], _key(prefix, "visual_embed.1"))}
+    for name in ("visual_prompt_token", "visual_prompt_pos", "deep_prompt_tokens",
+                 "deep_prompt_pos"):
+        if name in p:
+            sd[_key(prefix, name)] = _t(p[name])
+    sd.update(blocks_state(p, _key(prefix, "visual_embed.0")))
+    return sd
+
+
+def tokenizer_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
+    """ACTPromptedDiscreteVAEwithVIT's Stage-II params (no FoldingNet decoder)."""
+    sd = {**encoder_state(p["encoder"], stats["encoder"], _key(prefix, "encoder")),
+          **dgcnn_state(p["dgcnn_1"], _key(prefix, "dgcnn_1")),
+          **dgcnn_state(p["dgcnn_2"], _key(prefix, "dgcnn_2")),
+          _key(prefix, "codebook"): _t(p["codebook"])}
+    if "visual_embed" in p:
+        sd.update(teacher_state(p["visual_embed"], prefix))
+    return sd
+
+
+def student_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
+    """VisableOnlyMaskTransformer's params (``torch_convert.py:369-393``)."""
+    sd = encoder_state(p["encoder"], stats["encoder"], _key(prefix, "encoder"))
+    if "reduce_dim" in p:
+        sd.update(dense_state(p["reduce_dim"], _key(prefix, "reduce_dim")))
+    sd[_key(prefix, "cls_token")] = _t(p["cls_token"])
+    sd[_key(prefix, "cls_pos")] = _t(p["cls_pos"])
+    sd.update(pos_embed_state(p["pos_embed"], _key(prefix, "pos_embed")))
+    sd.update(blocks_state(p["blocks"], _key(prefix, "blocks.blocks")))
+    sd.update(norm_state(p["norm"], _key(prefix, "norm")))
+    sd.update(dense_state(p["cls_head"]["layers_0"], _key(prefix, "cls_head.0")))
+    sd.update(dense_state(p["cls_head"]["layers_2"], _key(prefix, "cls_head.2")))
+    return sd
+
+
+def distillation_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """A JAX ACT_PointDistillation's (params, batch_stats) -> the port's
+    state dict, the inverse of ``torch_convert.act_distillation_rules``
+    (``torch_convert.py:346-443``); unrolled or scanned stacks."""
+    bs = batch_stats
+    sd = student_state(params["ACT_encoder"], bs["ACT_encoder"], "ACT_encoder")
+    sd.update(tokenizer_state(params["dvae_tokenizer"], bs["dvae_tokenizer"],
+                              "dvae_tokenizer"))
+    if "proj_head" in params:
+        sd.update(dense_state(params["proj_head"], "proj_head"))
+    if "mask_token" in params:
+        sd["mask_token"] = _t(params["mask_token"])
+        sd.update(pos_embed_state(params["decoder_pos_embed"], "decoder_pos_embed"))
+        sd.update(blocks_state(params["ACT_decoder"], "ACT_decoder.blocks"))
+        sd.update(norm_state(params["ACT_decoder"]["norm"], "ACT_decoder.norm"))
+    if "cls_pos" in params:
+        sd["cls_pos"] = _t(params["cls_pos"])
     return sd

@@ -1,0 +1,286 @@
+"""Stage-II pretraining: the masked student and ACT_PointDistillation.
+
+Counterpart of ``act_tpu/models/act.py:38-182, 305-471`` (reference
+models/act.py:148-309, 1099-1258). Masks have a fixed count
+``int(ratio * G)``, so the visible and masked token sets are index gathers of
+a stable sort of the mask, in token order. The frozen tokenizer runs under
+``torch.no_grad()`` in the model's own mode: in training mode its BatchNorms
+take batch statistics (and update their running ones) and its prompt dropout
+is live, as in the reference.
+
+Random draws come from the generators in ``rngs``: 'mask' (masking),
+'gumbel' (the tokenizer's sample), 'dropout' (prompt dropout) and
+'droppath' (stochastic depth).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from act_tpu_torch import ops
+from act_tpu_torch.models.build import MODELS
+from act_tpu_torch.models.common import (Dense, GroupEncoder, LayerNorm, PosEmbedMLP,
+                                         Rngs, TransformerDecoder, TransformerEncoder,
+                                         dtype_from_cfg, init_weights, rng,
+                                         trunc_normal_)
+from act_tpu_torch.models.dvae import ACTPromptedDiscreteVAEwithVIT
+from act_tpu_torch.models.teacher import init_teacher_prompts
+from act_tpu_torch.utils.config import as_cfg
+
+
+# ---------------------------------------------------------------------------
+# masking (static mask counts)
+# ---------------------------------------------------------------------------
+
+def random_mask(generator: torch.Generator, batch: int, num_group: int,
+                num_mask: int) -> torch.Tensor:
+    """(B, G) bool with exactly ``num_mask`` True per row, uniformly at random
+    (reference _mask_center_rand, models/act.py:244-267)."""
+    scores = torch.rand(batch, num_group, generator=generator, device=generator.device)
+    return torch.argsort(torch.argsort(scores, dim=-1), dim=-1) < num_mask
+
+
+def block_mask(generator: torch.Generator, center: torch.Tensor, num_mask: int
+               ) -> torch.Tensor:
+    """Mask the ``num_mask`` groups nearest to a random seed group
+    (reference _mask_center_block, models/act.py:215-242)."""
+    B, G, _ = center.shape
+    seed_idx = torch.randint(0, G, (B,), generator=generator, device=generator.device)
+    seed = center[torch.arange(B, device=center.device), seed_idx][:, None, :]
+    d = torch.sum((center - seed) ** 2, dim=-1)
+    return torch.argsort(torch.argsort(d, dim=-1), dim=-1) < num_mask
+
+
+def split_by_mask(mask: torch.Tensor, num_mask: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, G) bool -> (visible idx (B, G - num_mask), masked idx (B,
+    num_mask)), each in token order (a stable sort on the 0/1 key)."""
+    order = torch.argsort(mask.to(torch.int32), dim=-1, stable=True)
+    G = mask.shape[1]
+    return order[:, :G - num_mask], order[:, G - num_mask:]
+
+
+def take_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, G, ...), idx (B, S) -> (B, S, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+# ---------------------------------------------------------------------------
+# distillation losses (reference models/act.py:1184-1195 via lightly)
+# ---------------------------------------------------------------------------
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+
+
+def negative_cosine_loss(student: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
+    """Mean over all tokens of 1 - cos(student, teacher)."""
+    return torch.mean(1.0 - torch.sum(_unit(student) * _unit(teacher), dim=-1))
+
+
+def ntxent_loss(student: torch.Tensor, teacher: torch.Tensor,
+                temperature: float = 0.07) -> torch.Tensor:
+    """NT-Xent between corresponding tokens, per sample, in-sample negatives."""
+    logits = torch.einsum("bmc,bnc->bmn", _unit(student), _unit(teacher)) / temperature
+    return -torch.diagonal(F.log_softmax(logits, dim=-1), dim1=-2, dim2=-1).mean()
+
+
+def barlow_twins_loss(student: torch.Tensor, teacher: torch.Tensor,
+                      lambda_param: float = 5e-3) -> torch.Tensor:
+    """Barlow Twins cross-correlation loss per sample, averaged over the batch."""
+    m = student.shape[1]
+    s = (student - student.mean(1, keepdim=True)) / (student.std(1, correction=0, keepdim=True) + 1e-5)
+    t = (teacher - teacher.mean(1, keepdim=True)) / (teacher.std(1, correction=0, keepdim=True) + 1e-5)
+    c = torch.einsum("bmi,bmj->bij", s, t) / m
+    diag = torch.diagonal(c, dim1=-2, dim2=-1)
+    on = torch.sum((diag - 1.0) ** 2, dim=-1)
+    off = torch.sum(c ** 2, dim=(-2, -1)) - torch.sum(diag ** 2, dim=-1)
+    return torch.mean(on + lambda_param * off)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0
+                   ) -> torch.Tensor:
+    d = torch.abs(pred - target)
+    return torch.mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta))
+
+
+LOSSES = {"cosine": negative_cosine_loss,
+          "l2": lambda s, t: torch.mean((s - t) ** 2),
+          "smoothl1": smooth_l1_loss, "ntxent": ntxent_loss, "barlow": barlow_twins_loss}
+
+
+# ---------------------------------------------------------------------------
+# the student
+# ---------------------------------------------------------------------------
+
+class VisableOnlyMaskTransformer(nn.Module):
+    """MAE-style student: embed the visible groups, encode them with a cls
+    token (reference models/act.py:148-309; the name keeps checkpoint-key
+    parity). Under 'rand' masking only the visible groups are embedded, so
+    train-mode BatchNorm statistics come from them (``act.py:150-159``)."""
+
+    def __init__(self, config: Any):
+        super().__init__()
+        cfg = as_cfg(config)
+        tc = cfg.transformer_config
+        self.mask_ratio = tc.mask_ratio
+        self.mask_type = tc.mask_type
+        self.embed_dim = C = tc.embed_dim
+        dtype = dtype_from_cfg(tc)
+        enc = cfg.dvae_config.encoder_dims
+        self.encoder = GroupEncoder(enc, dtype=dtype)
+        self.use_reduce = enc != C
+        if self.use_reduce:
+            self.reduce_dim = Dense(enc, C)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, C))
+        self.cls_pos = nn.Parameter(torch.empty(1, 1, C))
+        self.pos_embed = PosEmbedMLP(C, dtype=dtype)
+        self.blocks = TransformerEncoder(C, tc.depth, tc.num_heads, dtype=dtype,
+                                         drop_path_rate=tc.drop_path_rate)
+        self.norm = LayerNorm(C, eps=1e-5)
+        # flax's default nn.gelu is the tanh form (act.py:122-123), in f32
+        self.cls_head = nn.Sequential(Dense(C, tc.cls_dim), nn.GELU(approximate="tanh"),
+                                      Dense(tc.cls_dim, tc.cls_dim))
+
+    def make_mask(self, center: torch.Tensor, noaug: bool, rngs: Rngs
+                  ) -> Tuple[torch.Tensor, int]:
+        B, G, _ = center.shape
+        num_mask = 0 if noaug else int(self.mask_ratio * G)
+        if num_mask == 0:
+            return torch.zeros(B, G, dtype=torch.bool, device=center.device), 0
+        if self.mask_type == "rand":
+            return random_mask(rng(rngs, "mask"), B, G, num_mask), num_mask
+        return block_mask(rng(rngs, "mask"), center, num_mask), num_mask
+
+    def forward(self, neighborhood: torch.Tensor, center: torch.Tensor,
+                rngs: Rngs = None, noaug: bool = False, only_cls_tokens: bool = False,
+                register_shallow_hook: int = -1, mask: Optional[torch.Tensor] = None):
+        """-> cls feature (only_cls_tokens), else (visible tokens (B, V, C),
+        mask) or, with a shallow hook, (visible, cls, hooked visible, mask).
+        ``mask`` pins the (B, G) mask instead of drawing one."""
+        B = center.shape[0]
+        if mask is None:
+            mask, num_mask = self.make_mask(center, noaug, rngs)
+        else:
+            num_mask = int(mask[0].sum())
+        vis_idx, _ = split_by_mask(mask, num_mask)
+        if self.mask_type == "block" and num_mask > 0:
+            # a contiguous masked block would bias the BN statistics of the
+            # visible subset: embed all groups, then gather (act.py:141-148)
+            x_vis = take_tokens(self.encoder(neighborhood), vis_idx)
+        else:
+            x_vis = self.encoder(take_tokens(neighborhood, vis_idx))
+        if self.use_reduce:
+            x_vis = self.reduce_dim(x_vis)
+        pos = self.pos_embed(take_tokens(center, vis_idx))
+        x = torch.cat([self.cls_token.expand(B, -1, -1), x_vis], dim=1)
+        pos = torch.cat([self.cls_pos.expand(B, -1, -1), pos], dim=1)
+        hooks = (register_shallow_hook,) if register_shallow_hook > 0 else ()
+        x, hidden = self.blocks(x, pos, rngs, return_hidden=hooks)
+        x = self.norm(x)
+        if only_cls_tokens:
+            return self.cls_head(x[:, 0])
+        if hooks:
+            return x[:, 1:], x[:, 0], hidden[0][:, 1:], mask
+        return x[:, 1:], mask
+
+
+# ---------------------------------------------------------------------------
+# Stage-II pretrain model
+# ---------------------------------------------------------------------------
+
+@MODELS.register_module()
+class ACT_PointDistillation(nn.Module):
+    """Masked point modeling with latent-feature distillation from the frozen
+    prompted dVAE teacher (reference models/act.py:1099-1258)."""
+
+    def __init__(self, config: Any):
+        super().__init__()
+        cfg = as_cfg(config)
+        tc = cfg.transformer_config
+        self.embed_dim = C = tc.embed_dim
+        self.mask_ratio = tc.mask_ratio
+        self.num_group = cfg.dvae_config.num_group
+        self.group_size = cfg.dvae_config.group_size
+        if cfg.loss not in LOSSES:
+            raise ValueError(f"unknown loss {cfg.loss}")
+        self.loss_fn = LOSSES[cfg.loss]
+        self.cls_loss = bool(tc.get("cls_loss", False))
+        self.shallow_hook = int(tc.get("register_shallow_hook", -1))
+        self.ACT_encoder = VisableOnlyMaskTransformer(cfg)
+        self.dvae_tokenizer = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config)
+        if tc.get("proj", "linear") in ("linear", "conv"):
+            self.proj_head = Dense(C, cfg.dvae_config.tokens_dims)
+        else:
+            self.proj_head = nn.Identity()
+        if self.mask_ratio > 0:
+            self.mask_token = nn.Parameter(torch.empty(1, 1, C))
+            self.decoder_pos_embed = PosEmbedMLP(C)
+            self.ACT_decoder = TransformerDecoder(C, tc.decoder_depth, tc.decoder_num_heads,
+                                                  drop_path_rate=tc.drop_path_rate,
+                                                  dtype=dtype_from_cfg(tc))
+        if self.cls_loss:
+            self.cls_pos = nn.Parameter(torch.empty(1, 1, C))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's initializers: lecun-normal
+        kernels, N(0, 1) codebook and student cls token/pos, truncated-normal
+        (std 0.02) mask token and prompts."""
+        init_weights(self, generator)
+        with torch.no_grad():
+            enc = self.ACT_encoder
+            enc.cls_token.normal_(0.0, 1.0, generator=generator)
+            enc.cls_pos.normal_(0.0, 1.0, generator=generator)
+            self.dvae_tokenizer.codebook.normal_(0.0, 1.0, generator=generator)
+            if self.mask_ratio > 0:
+                trunc_normal_(self.mask_token, 0.02, generator)
+            if self.cls_loss:
+                self.cls_pos.normal_(0.0, 1.0, generator=generator)
+        init_teacher_prompts(self.dvae_tokenizer, generator)
+
+    def forward_eval(self, pts: torch.Tensor) -> torch.Tensor:
+        """(B, N, 3) -> the student's cls feature (B, cls_dim), no masking."""
+        neighborhood, center = ops.group_points(pts, self.num_group, self.group_size)
+        return self.ACT_encoder(neighborhood, center, noaug=True, only_cls_tokens=True)
+
+    def forward(self, pts: torch.Tensor, rngs: Rngs = None, noaug: bool = False,
+                mask: Optional[torch.Tensor] = None,
+                gumbel_u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, N, 3) clouds -> the scalar distillation loss.
+
+        ``mask`` (B, G) and ``gumbel_u`` (B, G, num_tokens) pin the draws,
+        replaying the JAX model's sown intermediates."""
+        if noaug:
+            return self.forward_eval(pts)
+        neighborhood, center = ops.group_points(pts, self.num_group, self.group_size)
+        enc = self.ACT_encoder
+        if self.cls_loss:
+            x_vis, x_cls, x_shallow, mask = enc(neighborhood, center, rngs,
+                                                register_shallow_hook=self.shallow_hook,
+                                                mask=mask)
+        else:
+            x_vis, mask = enc(neighborhood, center, rngs, mask=mask)
+        B, V, C = x_vis.shape
+        num_mask = self.num_group - V
+        with torch.no_grad():
+            teacher_feat = self.dvae_tokenizer.forward_tokenizer_features(
+                neighborhood, center, return_global=True, rngs=rngs, gumbel_u=gumbel_u)
+        if num_mask == 0:
+            # no decoder: distill the visible (= all) tokens (act.py:441-447)
+            return self.loss_fn(self.proj_head(x_vis), teacher_feat)
+        vis_idx, mask_idx = split_by_mask(mask, num_mask)
+        pos_full = torch.cat([self.decoder_pos_embed(take_tokens(center, vis_idx)),
+                              self.decoder_pos_embed(take_tokens(center, mask_idx))], dim=1)
+        mask_tok = self.mask_token.expand(B, num_mask, C)
+        x_rec = self.ACT_decoder(torch.cat([x_vis, mask_tok], dim=1), pos_full, num_mask, rngs)
+        teacher_masked = take_tokens(teacher_feat, mask_idx)
+        loss = self.loss_fn(self.proj_head(x_rec), teacher_masked)
+        if self.cls_loss:
+            x_shallow_full = torch.cat([x_cls[:, None, :], x_shallow, mask_tok], dim=1)
+            pos_shallow = torch.cat([self.cls_pos.expand(B, 1, C), pos_full], dim=1)
+            x_rec_shallow = self.ACT_decoder(x_shallow_full, pos_shallow, num_mask, rngs)
+            loss = loss + self.loss_fn(self.proj_head(x_rec_shallow), teacher_masked)
+        return loss

@@ -1,28 +1,37 @@
-"""Shared neural building blocks, eval forward only.
+"""Shared neural building blocks.
 
-Counterpart of ``act_tpu/models/common.py``: the transformer stack, the
-positional-embedding MLP and the mini-PointNet group encoder. Parameters keep
-the reference PyTorch key layout and shapes (``encoder.first_conv.0.weight``
-is (128, 3, 1), ``attn.qkv.weight`` is (3C, C)), so a released checkpoint loads
-with ``strict=True``; ``act_tpu_torch.engine.weights`` carries JAX parameters
-over. Activations are channels-last and every 1x1 conv is a product on the
-last axis (``F.linear``), never cuDNN.
+Counterpart of ``act_tpu/models/common.py``: the transformer stack and
+decoder, the positional-embedding MLP, the mini-PointNet group encoder and the
+DGCNN. Parameters keep the reference PyTorch key layout and shapes
+(``encoder.first_conv.0.weight`` is (128, 3, 1), ``attn.qkv.weight`` is
+(3C, C), a DGCNN ``layer1.0.weight`` is (256, 256, 1, 1)), so a released
+checkpoint loads with ``strict=True``; ``act_tpu_torch.engine.weights``
+carries JAX parameters over. Activations are channels-last and every 1x1 conv
+is a product on the last axis (``F.linear``), never cuDNN.
 
 Numerics follow the flax modules cast for cast. With a compute ``dtype``
-(bf16), a dense layer casts its input and f32 weight to it, emits it, and adds
-its bias in it afterwards. LayerNorm, BatchNorm statistics and the attention
-softmax run in f32; BatchNorm emits the compute dtype.
+(bf16), a dense layer casts its input and weight to it, emits it, and adds its
+bias in it afterwards. LayerNorm, BatchNorm and GroupNorm statistics and the
+attention softmax run in f32; Batch/GroupNorm emit the compute dtype. In
+training mode (``module.train()``) BatchNorm uses batch statistics and updates
+its running statistics as flax does (momentum 0.9, biased variance), and
+dropout and drop path draw from the generators passed as ``rngs``
+(``{'dropout': ..., 'droppath': ...}``); nothing uses the global RNG.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from act_tpu_torch import ops
+
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
+Rngs = Optional[Mapping[str, torch.Generator]]
 
 
 def dtype_from_cfg(cfg) -> Optional[torch.dtype]:
@@ -33,6 +42,20 @@ def dtype_from_cfg(cfg) -> Optional[torch.dtype]:
     if d in ("f32", "float32", None):
         return None
     raise ValueError(f"unknown dtype {d}")
+
+
+def rng(rngs: Rngs, name: str) -> torch.Generator:
+    """The generator of stream ``name``; a training-mode draw needs one."""
+    if rngs is None or name not in rngs:
+        raise ValueError(f"training mode draws from the {name!r} stream: pass "
+                         f"rngs={{'{name}': torch.Generator(...)}}")
+    return rngs[name]
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor in ``like``'s dtype and device: a python
+    float meets a bf16 array in flax as a bf16 constant."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -60,34 +83,137 @@ class Dense(nn.Linear):
 
 
 class Conv1x1(nn.Module):
-    """A kernel-size-1 ``nn.Conv1d``'s parameters ((out, in, 1) weight, bias)
-    applied channels-last as a dense layer."""
+    """A kernel-size-1 ``nn.Conv1d`` (``kernel_dims=1``, weight (out, in, 1))
+    or ``nn.Conv2d`` (``kernel_dims=2``, (out, in, 1, 1)) applied
+    channels-last as a dense layer."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bias: bool = True,
+                 kernel_dims: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1))
-        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               *([1] * kernel_dims)))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight[..., 0], self.bias, self.compute_dtype)
+        return dense(x, self.weight.flatten(1), self.bias, self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm emitting the promoted type of its input and parameters, as
+    flax does (a bf16 residual stream through f32 scales comes out f32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape, self.weight.to(dt),
+                            self.bias.to(dt), self.eps)
+
+
+def _normalize(x32: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+               eps: float, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    return (x32 - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+def _fast_stats(x32: torch.Tensor, dims, keepdim: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flax's statistics: mean and E[x^2] - E[x]^2, clipped at 0 (biased)."""
+    mean = x32.mean(dims, keepdim=keepdim)
+    var = torch.clamp_min(x32.square().mean(dims, keepdim=keepdim) - mean.square(), 0.0)
+    return mean, var
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the last axis with flax's arithmetic:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, emitted in the
-    compute dtype (else the promoted type of x and the parameters)."""
+    """BatchNorm over the last axis with flax's arithmetic, in f32, emitted in
+    the compute dtype (else the promoted type of x and the parameters).
+
+    Training mode normalizes with the statistics over every other axis and
+    updates the running ones as ``0.9 * running + 0.1 * batch`` with the
+    biased batch variance (flax ``BatchNorm(momentum=0.9)``; torch's own
+    train mode would update with the unbiased one)."""
 
     def __init__(self, num_features: int, dtype: Optional[torch.dtype] = None):
-        super().__init__(num_features, eps=1e-5)
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul + self.bias
         out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return y.to(out)
+        x32 = x.to(torch.float32)
+        if self.training:
+            mean, var = _fast_stats(x32, tuple(range(x.dim() - 1)))
+            with torch.no_grad():
+                m = 1.0 - self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        return _normalize(x32, mean, var, self.eps, self.weight, self.bias).to(out)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``GroupNorm`` channels-last: statistics per batch element and
+    channel group over every non-batch axis, in f32, emitted in the compute
+    dtype (else the promoted type)."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(num_groups, num_channels, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        G, C = self.num_groups, self.num_channels
+        x32 = x.to(torch.float32).reshape(x.shape[0], -1, G, C // G)
+        mean, var = _fast_stats(x32, (1, 3), keepdim=True)
+        y = _normalize(x32, mean, var, self.eps, self.weight.reshape(G, C // G),
+                       self.bias.reshape(G, C // G))
+        return y.reshape(x.shape).to(out)
+
+
+class LeakyReLU(nn.Module):
+    """``where(x >= 0, x, slope * x)`` with the slope in x's dtype (flax)."""
+
+    def __init__(self, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * scalar(self.negative_slope, x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training mode each sample's residual branch is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate) in the
+    branch's dtype (``common.py:55-79``)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rngs: Rngs = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                       generator=rng(rngs, "droppath"), device=x.device)
+        return torch.where(u < keep, x / scalar(keep, x), scalar(0.0, x))
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout drawn from the 'dropout' stream, scaling the kept
+    values by 1 / (1 - rate) in x's dtype (``FastDropout``, ``common.py:608-625``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rngs: Rngs = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        u = torch.rand(x.shape, generator=rng(rngs, "dropout"), device=x.device)
+        return torch.where(u >= self.rate, x / scalar(1.0 - self.rate, x), scalar(0.0, x))
 
 
 class Mlp(nn.Module):
@@ -109,11 +235,12 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention (reference models/act.py:44-69).
 
-    q, k, v and the scores are emitted in the compute dtype; the softmax runs
-    in f32 and is cast back to the input's dtype (f32 on the residual path),
-    so the weighted sum of v runs in the promoted type, as in
-    ``common.py:188-194``. Explicit products, not
-    ``scaled_dot_product_attention``, which rounds elsewhere."""
+    q, k, v and the scores are emitted in the compute dtype (else the
+    weights' dtype, as flax's fused projections do); the softmax runs in f32
+    and is cast back to the input's dtype, so the weighted sum of v runs in
+    the promoted type, as in ``common.py:186-196``. Explicit products, not
+    ``scaled_dot_product_attention``, which rounds elsewhere. ``q_keep_from``
+    restricts the queries, and so the output rows, to ``[q_keep_from:]``."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
@@ -124,51 +251,98 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
-        q, k, v = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        w, b = self.qkv.weight, self.qkv.bias
+        dt = self.qkv.compute_dtype or w.dtype
+        if q_keep_from:
+            q = dense(x[:, q_keep_from:], w[:C], None if b is None else b[:C], dt)
+            q = q.reshape(B, N - q_keep_from, H, C // H).transpose(1, 2)
+            k, v = dense(x, w[C:], None if b is None else b[C:], dt).reshape(
+                B, N, 2, H, C // H).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = dense(x, w, b, dt).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         attn = torch.matmul(q, k.transpose(-2, -1)) * self.scale
         attn = torch.softmax(attn.to(torch.float32), dim=-1).to(x.dtype)
         ct = torch.promote_types(attn.dtype, v.dtype)
-        ctx = torch.matmul(attn.to(ct), v.to(ct))  # (B, H, N, hd)
-        return self.proj(ctx.transpose(1, 2).reshape(B, N, C))
+        ctx = torch.matmul(attn.to(ct), v.to(ct))  # (B, H, Nq, hd)
+        ctx = ctx.transpose(1, 2).reshape(B, q.shape[2], C)
+        return dense(ctx, self.proj.weight, self.proj.bias,
+                     self.proj.compute_dtype or self.proj.weight.dtype)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block (reference models/act.py:72-90), eval only:
-    no dropout, no drop path."""
+    """Pre-LN transformer block with stochastic depth (reference
+    models/act.py:72-90, ``common.py:199-230``). ``q_keep_from > 0`` keeps
+    only rows ``[q_keep_from:]`` of the output; keys and values still see
+    every row."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, dtype: Optional[torch.dtype] = None):
+                 qkv_bias: bool = False, dtype: Optional[torch.dtype] = None,
+                 drop_path: float = 0.0, ln_eps: float = LN_EPS):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=ln_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype=dtype)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0, rngs: Rngs = None
+                ) -> torch.Tensor:
+        h = self.attn(self.norm1(x), q_keep_from)
+        x = x[:, q_keep_from:] + self.drop_path(h, rngs)
+        return x + self.drop_path(self.mlp(self.norm2(x)), rngs)
+
+
+def drop_path_rates(rate: float, depth: int) -> List[float]:
+    """The per-block schedule ``linspace(0, rate, depth)``."""
+    return [float(r) for r in np.linspace(0, rate, depth)]
 
 
 class TransformerEncoder(nn.Module):
     """Stack of Blocks with the pos embedding added at every block input,
-    ``x = block(x + pos)`` (reference models/act.py:109-112). The unrolled
-    stack; a scanned JAX checkpoint is unstacked by the weight bridge."""
+    ``x = block(x + pos)`` (reference models/act.py:109-112), drop path
+    rising linearly from 0 to ``drop_path_rate``. The unrolled stack; a
+    scanned JAX checkpoint is unstacked by the weight bridge."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = False,
+                 dtype: Optional[torch.dtype] = None, drop_path_rate: float = 0.0):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, drop_path=r)
+            for r in drop_path_rates(drop_path_rate, depth))
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, rngs: Rngs = None,
+                return_hidden: Sequence[int] = ()) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """-> (output, the outputs of the blocks listed in ``return_hidden``)."""
+        hidden = []
+        for i, blk in enumerate(self.blocks):
+            x = blk(x + pos, rngs=rngs)
+            if i in return_hidden:
+                hidden.append(x)
+        return x, hidden
+
+
+class TransformerDecoder(nn.Module):
+    """Decoder stack + final norm over the trailing ``return_token_num`` rows
+    only (the mask-token predictions; reference models/act.py:115-145)."""
+
+    def __init__(self, embed_dim: int, depth: int, num_heads: int,
+                 drop_path_rate: float = 0.1, mlp_ratio: float = 4.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype)
-            for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, dtype=dtype, drop_path=r)
+            for r in drop_path_rates(drop_path_rate, depth))
+        self.norm = LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, return_token_num: int,
+                rngs: Rngs = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x + pos)
-        return x
+            x = blk(x + pos, rngs=rngs)
+        return self.norm(x[:, -return_token_num:])
 
 
 class PosEmbedMLP(nn.Sequential):
@@ -183,12 +357,14 @@ class PosEmbedMLP(nn.Sequential):
 
 class GroupEncoder(nn.Module):
     """Mini-PointNet over each local group (reference Encoder,
-    models/dvae.py:185-215), eval BatchNorm.
+    models/dvae.py:185-215).
 
     (B, G, M, 3) -> (B, G, C): pointwise MLP -> max -> concat global -> MLP ->
     max. The conv over ``concat([global, x])`` runs as two products on the
     split weight (``common.py:373`` ``_ConcatDense``): input channels [:256]
-    act on the per-group global feature, [256:] on the points."""
+    act on the per-group global feature, [256:] on the points. The JAX
+    package's conv1/conv3 carry no bias (the BatchNorm after each absorbs
+    it); the port keeps the reference keys and never trains those two."""
 
     def __init__(self, encoder_channel: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -200,6 +376,8 @@ class GroupEncoder(nn.Module):
         self.second_conv = nn.Sequential(
             Conv1x1(512, 512, dtype), BatchNorm(512, dtype), nn.ReLU(),
             Conv1x1(512, encoder_channel, dtype))
+        self.first_conv[0].bias.requires_grad_(False)
+        self.second_conv[0].bias.requires_grad_(False)
 
     def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
         B, G, M, _ = point_groups.shape
@@ -207,18 +385,68 @@ class GroupEncoder(nn.Module):
         g = torch.amax(x, dim=1)  # (BG, 256)
         conv3 = self.second_conv[0]
         w = conv3.weight[..., 0]
+        dt = self.compute_dtype or w.dtype
         cg = g.shape[-1]
-        y = dense(x, w[:, cg:], None, self.compute_dtype)
-        y = y + dense(g, w[:, :cg], None, self.compute_dtype)[:, None, :]
+        y = dense(x, w[:, cg:], None, dt)
+        y = y + dense(g, w[:, :cg], None, dt)[:, None, :]
         y = y + conv3.bias.to(y.dtype)
         for layer in self.second_conv[1:]:
             y = layer(y)
         return torch.amax(y, dim=1).reshape(B, G, self.encoder_channel)
 
 
+class ConvGNLReLU(nn.Sequential):
+    """1x1 conv (no bias) + GroupNorm(4, eps 1e-5) + LeakyReLU(0.2),
+    channels-last (``common.py:450-466``); keys ``.0.weight``, ``.1.*``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_dims: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(Conv1x1(in_channels, out_channels, dtype, bias=False,
+                                 kernel_dims=kernel_dims),
+                         GroupNorm(4, out_channels, dtype), LeakyReLU(0.2))
+
+
+class DGCNN(nn.Module):
+    """Dynamic graph CNN over group centers (reference models/dvae.py:26-117,
+    ``common.py:469-518``): four rounds of k=4 graph features in coordinate
+    space (one kNN graph, built once from the fixed centers), each a
+    conv/GroupNorm/LeakyReLU and a max over the neighbours; the four scales
+    concatenate (2304 channels) into the output projection. The neighbour
+    features come from an index gather (the TPU's one-hot product is exact,
+    so the values are the same)."""
+
+    def __init__(self, in_channels: int, output_channel: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.input_trans = Conv1x1(in_channels, 128, dtype)
+        self.layer1 = ConvGNLReLU(256, 256, 2, dtype)
+        self.layer2 = ConvGNLReLU(512, 512, 2, dtype)
+        self.layer3 = ConvGNLReLU(1024, 512, 2, dtype)
+        self.layer4 = ConvGNLReLU(1024, 1024, 2, dtype)
+        self.layer5 = ConvGNLReLU(2304, output_channel, 1, dtype)
+
+    def forward(self, f: torch.Tensor, coor: torch.Tensor) -> torch.Tensor:
+        """f: (B, G, C) features, coor: (B, G, 3) centers -> (B, G, out)."""
+        idx = ops.graph_feature_idx(coor, coor, 4).long()  # (B, G, k)
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        f = self.input_trans(f)
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            nbr = f[rows, idx]  # (B, G, k, C)
+            self_f = f[:, :, None, :].expand_as(nbr)
+            f = torch.amax(layer(torch.cat([nbr - self_f, self_f], dim=-1)), dim=2)
+            feats.append(f)
+        return self.layer5(torch.cat(feats, dim=-1))
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     """flax ``lecun_normal``: truncated normal (+-2 std) with variance 1/fan_in."""
     std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """flax ``truncated_normal(stddev=std, lower=-2 std, upper=2 std)``."""
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
@@ -232,7 +460,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 lecun_normal_(m.weight, m.weight.shape[1], generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.GroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 if isinstance(m, nn.BatchNorm1d):

@@ -87,7 +87,7 @@ class PointTransformer(nn.Module):
         cls_pos = self.cls_pos.expand(B, -1, -1)
         pos = torch.cat([cls_pos, self.pos_embed(center)], dim=1)
         x = torch.cat([cls_tok, tokens], dim=1)
-        return self.norm(self.blocks(x, pos))
+        return self.norm(self.blocks(x, pos)[0])
 
     def _tokens(self, neighborhood: torch.Tensor) -> torch.Tensor:
         tokens = self.encoder(neighborhood)

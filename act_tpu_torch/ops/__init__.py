@@ -2,16 +2,20 @@
 from act_tpu_torch.ops._backend import LAUNCHES, reset_launches, resolve_device
 from act_tpu_torch.ops.fps import furthest_point_sample
 from act_tpu_torch.ops.gather import gather_coords
-from act_tpu_torch.ops.group import group_points, knn
+from act_tpu_torch.ops.group import graph_feature_idx, group_points, knn
 from act_tpu_torch.ops.reference import (furthest_point_sample_ref,
-                                         gather_points, group_points_ref,
-                                         k_smallest_ref, knn_ref,
-                                         square_distance)
+                                         gather_points, graph_feature_idx_ref,
+                                         group_points_ref, gumbel_argmax_ref,
+                                         gumbel_perturbed_ref, k_smallest_ref,
+                                         knn_ref, square_distance)
+from act_tpu_torch.ops.sampling import draw_seed, gumbel_argmax
 from act_tpu_torch.ops.topk import k_smallest
 
 __all__ = [
     "LAUNCHES", "reset_launches", "resolve_device", "furthest_point_sample",
-    "gather_coords", "group_points", "knn", "furthest_point_sample_ref",
-    "gather_points", "group_points_ref", "k_smallest_ref", "knn_ref",
-    "square_distance", "k_smallest",
+    "gather_coords", "graph_feature_idx", "group_points", "knn",
+    "furthest_point_sample_ref", "gather_points", "graph_feature_idx_ref",
+    "group_points_ref", "gumbel_argmax_ref", "gumbel_perturbed_ref",
+    "k_smallest_ref", "knn_ref", "square_distance", "draw_seed",
+    "gumbel_argmax", "k_smallest",
 ]

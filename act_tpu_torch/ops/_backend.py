@@ -35,6 +35,7 @@ KERNELS = {
     "fps": ("fps", "act_fps", [_P, _P, _P, _I, _I, _I, _P]),
     "k_smallest": ("topk", "act_ksmallest", [_P, _P, _P, _I, _I, _I, _P]),
     "gather": ("gather", "act_gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "gumbel_argmax": ("gumbel", "act_gumbel_argmax", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 # launches of each kernel wrapper: plain counters, read and reset by callers

@@ -33,3 +33,11 @@ def group_points(xyz: torch.Tensor, num_group: int, group_size: int
     _, idx = knn(xyz, center, group_size)
     neighborhood = gather_coords(xyz, idx)
     return neighborhood - center[:, :, None, :], center
+
+
+def graph_feature_idx(coor_k: torch.Tensor, coor_q: torch.Tensor, k: int = 4
+                      ) -> torch.Tensor:
+    """DGCNN neighbour indices: (B, Nk, 3) keys, (B, Nq, 3) queries -> (B, Nq,
+    k) int32, the k nearest keys of each query, nearest first, ties to the
+    smaller index (``act_tpu/ops/group.py:92-117``)."""
+    return knn(coor_k, coor_q, k)[1]

@@ -87,3 +87,57 @@ def group_points_ref(xyz: torch.Tensor, num_group: int, group_size: int
     center = gather_points(xyz, furthest_point_sample_ref(xyz, num_group))
     _, idx = knn_ref(xyz, center, group_size)
     return gather_points(xyz, idx) - center[:, :, None, :], center
+
+
+def graph_feature_idx_ref(coor_k: torch.Tensor, coor_q: torch.Tensor, k: int = 4
+                          ) -> torch.Tensor:
+    """DGCNN neighbour indices from the plain versions: (B, Nk, 3) keys,
+    (B, Nq, 3) queries -> (B, Nq, k) int32, nearest first, ties to the
+    smaller index."""
+    return knn_ref(coor_k, coor_q, k)[1]
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def gumbel_chunk(rows: int, v: int) -> int:
+    """Rows a chunk of the JAX kernel's grid holds (``_gumbel_rows``,
+    ``act_tpu/ops/sampling.py:84-88``); the hash counts rows within a chunk."""
+    vpad = -(-v // 128) * 128
+    chunk = max(8, min(256, (4 * 1024 * 1024) // (4 * vpad)))
+    return min(chunk, -(-rows // 8) * 8)
+
+
+def gumbel_perturbed_ref(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """f32(logits) + Gumbel noise, the noise from the counter hash of the JAX
+    kernel's interpret path (``sampling.py:33-42``) in int64 masked to 32
+    bits. logits (..., V), seed (2,) int32 -> (..., V) f32. Rows go in blocks
+    of at most 2^22 elements to bound the int64 temporaries."""
+    *lead, v = logits.shape
+    x = logits.reshape(-1, v)
+    rows = x.shape[0]
+    chunk = gumbel_chunk(rows, v)
+    s0, s1 = (int(s) for s in seed.reshape(-1)[:2].tolist())
+    dev = logits.device
+    lane = torch.arange(v, dtype=torch.int64, device=dev) * 40503
+    out = torch.empty(rows, v, dtype=torch.float32, device=dev)
+    step = max(1, (1 << 22) // v)
+    for r0 in range(0, rows, step):
+        row = torch.arange(r0, min(rows, r0 + step), dtype=torch.int64, device=dev)
+        base = ((row % chunk) * 0x9E3779B9 + s0 * 69069 + s1 * 1013904223
+                + (row // chunk) * 22695477 + 374761393)
+        h = (base[:, None] + lane[None, :]) & _MASK32
+        h = h ^ ((h << 13) & _MASK32)
+        h = h ^ (h >> 17)
+        h = h ^ ((h << 5) & _MASK32)
+        u = torch.clamp_min((h >> 1).to(torch.float32) * 2.0 ** -31, 1e-10)
+        out[r0:r0 + row.numel()] = x[r0:r0 + row.numel()].float() + (
+            -torch.log(-torch.log(u)))
+    return out.reshape(*lead, v)
+
+
+def gumbel_argmax_ref(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """ids = argmax(logits + Gumbel noise) over the last axis, the first index
+    of the maximum: (..., V) bf16/f32 + (2,) int32 seed -> (...) int32. The
+    plain version of ``csrc/gumbel.cu``."""
+    return torch.argmax(gumbel_perturbed_ref(logits, seed), dim=-1).to(torch.int32)

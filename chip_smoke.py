@@ -3,12 +3,22 @@
 
   python3 chip_smoke.py        # from the repository root
 
-Builds the port's CUDA kernels from ``act_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at the serving shapes, serves the
-full-width ModelNet classifier (``finetune_modelnet.yaml``: 384 x 12, G=64,
-M=32, 40 classes, bf16, seeded weights) on (32, 8192, 3) clouds through
-``build_infer_fn`` and through ``serve_http``, and times the kernels, their
-plain versions, the matching library calls and the requests.
+Builds the port's CUDA kernels from ``act_tpu_torch/csrc`` and drives both of
+the port's paths at full width, each kernel held against its plain PyTorch
+version at the shapes the path gives it:
+
+- serving: the ModelNet classifier (``finetune_modelnet.yaml``: 384 x 12,
+  G=64, M=32, 40 classes, bf16, seeded weights) on (32, 8192, 3) clouds
+  through ``build_infer_fn`` and through ``serve_http``;
+- Stage-II pretraining: ``ACT_PointDistillation`` at
+  ``pretrain_act_distill.yaml`` (B=128 clouds of 1024 points, the 384 x 12
+  student, the frozen tokenizer with the prompted ViT-B teacher, bf16,
+  seeded weights, synthetic clouds): one eval forward through the kernels
+  and one through the plain versions, then ``run_steps`` for a few train
+  steps;
+
+and times the kernels, their plain versions, the matching library calls, the
+requests and the train steps.
 
 Every phase that fails makes the process exit non-zero. Without a card, or
 without the port beside it, the script exits non-zero and prints no result.
@@ -16,6 +26,7 @@ The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -24,18 +35,27 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "cfgs/finetune_classification/full/finetune_modelnet.yaml"
+PRETRAIN_CONFIG = "cfgs/pretrain/pretrain_act_distill.yaml"
 B, N_IN = 32, 8192  # ModelNet requests carry 8192 points (ModelNet40.yaml)
 HTTP_BATCH, HTTP_REQUESTS = 4, 3
 LOGIT_ATOL = 0.05  # bf16 logits, kernel path vs plain path (see phase 3)
+# bf16 Stage-II loss, kernel path vs plain path: the two differ only if an
+# FPS tie swap reorders the groups (see phase 7)
+LOSS_ATOL = 1e-3
+WARM_STEPS, TIMED_STEPS = 3, 10
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+GUMBEL_OPS = 24  # operations an element, counted in the note of csrc/gumbel.cu
+# the TPU kernel (its pallas_call function) that each port kernel replaces
 REPLACES = {"fps": "act_tpu/ops/fps.py:98", "k_smallest": "act_tpu/ops/topk.py:33",
-            "gather": "act_tpu/ops/gather.py:25"}
-SOURCES = {"fps": "act_tpu_torch/csrc/fps.cu", "k_smallest": "act_tpu_torch/csrc/topk.cu",
-           "gather": "act_tpu_torch/csrc/gather.cu"}
+            "gather": "act_tpu/ops/gather.py:25", "gumbel_argmax": "act_tpu/ops/sampling.py:50"}
+SERVE_KERNELS = ("fps", "k_smallest", "gather")  # the kernels of the serving path
+# TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
+COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
 
 def fail(msg: str) -> None:
@@ -59,11 +79,266 @@ def bound_ms(nbytes: float, f32_ops: float = 0.0):
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
+def print_times(prefix: str, rows_by_kernel) -> None:
+    """One ``[time]`` line for each launch shape that ``measure`` timed."""
+    for name, rows in rows_by_kernel.items():
+        for r in rows:
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+            print(f"[time] {prefix}{name} {r['shape']} (x{r['n']}): kernel {r['ms']:.5f} ms "
+                  f"({r['timing']}; {r['call_ms']:.5f} ms per call), plain "
+                  f"{r['plain_ms']:.5f} ms, library {lib} ms, bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]})", flush=True)
+
+
 def distinct_rows(idx) -> int:
     """Rows of the table that a (B, S) gather reads: its distinct indices,
     counted per cloud."""
     s = idx.reshape(idx.shape[0], -1).sort(-1).values
     return int(s.shape[0] * (s.shape[1] > 0) + (s[:, 1:] != s[:, :-1]).sum().item())
+
+
+@contextmanager
+def patched(module, **attrs):
+    """Set attributes of ``module`` for the ``with`` block, then restore them."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def stage_two(dev, device_ms, kernel_events, measure):
+    """Phases 6-10: the Stage-II kernels against their plain versions at the
+    path's shapes, the full-width model's eval forward through the kernels
+    and through the plain versions, ``run_steps``, and the kernel times.
+    Returns (timing rows by kernel, errors, launches of the run_steps run)."""
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.engine import builder
+    from act_tpu_torch.engine.runner_pretrain import TOKENIZER, build_pretrain_model, run_steps
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
+    from act_tpu_torch.models.teacher import teacher_forward
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    cfg = load_config(PRETRAIN_CONFIG)
+    bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
+    dc = cfg.model.dvae_config
+    G, M, V = int(dc.num_group), int(dc.group_size), int(dc.num_tokens)
+    errs = {}
+
+    # -- 6. the Gumbel kernel against its plain version, (B*G, V) bf16 --------
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = torch.randn(bs * G, V, generator=g, device=dev).to(torch.bfloat16)
+    seeds = [torch.tensor(w, dtype=torch.int32, device=dev) for w in ([0, 1], [123456789, -5])]
+    with torch.inference_mode():
+        for seed in seeds:
+            k, r = ops.gumbel_argmax(logits, seed), ops.gumbel_argmax_ref(logits, seed)
+            pert = ops.gumbel_perturbed_ref(logits, seed)
+            bad = (k != r).nonzero().flatten()
+            tag = f"gumbel_argmax seed {seed.tolist()}"
+            if bad.numel():
+                top2 = pert[bad].topk(2, dim=-1).values
+                for i, row in enumerate(bad[:20].tolist()):
+                    print(f"[check] {tag}: row {row} kernel {int(k[row])} plain {int(r[row])} "
+                          f"top-two gap {float(top2[i, 0] - top2[i, 1])}", flush=True)
+                fail(f"{tag}: {bad.numel()} of {k.numel()} ids differ from the plain version")
+            # the picked perturbed values; a lane whose draw rounds to u = 1
+            # carries +inf noise (about 2 lanes in 8192 x 8192), so equal ids
+            # count as 0 rather than inf - inf
+            picked = [pert.gather(1, ids.long()[:, None]) for ids in (k, r)]
+            errs[tag] = float(torch.where((k == r)[:, None], 0.0,
+                                          (picked[0] - picked[1]).abs()).max())
+            n_inf = int(torch.isposinf(pert).sum())
+            print(f"[check] {tag} ({bs * G}, {V}) bf16: ids equal (tolerance: exact); "
+                  f"{n_inf} lanes drew u = 1 (+inf noise)", flush=True)
+
+    # -- 7. the other kernels at the Stage-II shapes; FPS at start 0 ----------
+    clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
+    with torch.inference_mode():
+        kc, rc = ops.furthest_point_sample(clouds, G), ops.furthest_point_sample_ref(clouds, G)
+        n_sw = tie_swaps(kc, rc)
+        if n_sw < 0 or not torch.equal(kc.sort(-1).values, rc.sort(-1).values):
+            fail(f"fps ({bs}, {npts}, 3)->{G}: kernel picks differ beyond tie swaps")
+        errs[f"fps {bs}x{npts}->{G}"] = float(
+            (ops.gather_points(clouds, kc) - ops.gather_points(clouds, rc)).abs().max())
+        print(f"[check] fps ({bs}, {npts}, 3)->{G}: equal up to {n_sw} adjacent tie swaps",
+              flush=True)
+        centers = ops.gather_points(clouds, rc)
+        d_grp = ops.square_distance(centers, clouds).reshape(bs * G, npts)
+        d_dg = ops.square_distance(centers, centers).reshape(bs * G, G)
+        for d, kk in ((d_grp, M), (d_dg, 4)):
+            (kv, ki), (rv, ri) = ops.k_smallest(d, kk), ops.k_smallest_ref(d, kk)
+            err = float((kv - rv).abs().max())
+            if not torch.equal(ki, ri) or err > 1e-6:
+                fail(f"k_smallest {tuple(d.shape)} k={kk}: differs from the plain version")
+            errs[f"k_smallest {tuple(d.shape)} k={kk}"] = err
+            print(f"[check] k_smallest {tuple(d.shape)} k={kk}: indices equal, "
+                  f"max |value diff| {err} (tolerance 1e-6)", flush=True)
+        nbr_idx = ops.k_smallest_ref(d_grp, M)[1].reshape(bs, G * M)
+        gathers = [(clouds, rc), (clouds, nbr_idx)]
+        for p, i in gathers:
+            if not torch.equal(ops.gather_coords(p, i), ops.gather_points(p, i)):
+                fail(f"gather {tuple(p.shape)} by {tuple(i.shape)}: not bit-equal")
+            errs[f"gather {tuple(i.shape)}"] = 0.0
+        print("[check] gather: bit-equal at " + ", ".join(
+            f"{tuple(p.shape)} by {tuple(i.shape)}" for p, i in gathers), flush=True)
+        # act_tpu/ops/fps.py:29 _fps_kernel: row-per-program FPS from index 0
+        # with the first argmax, covered by csrc/fps.cu at start 0
+        gen = torch.Generator().manual_seed(2)
+        for shape, S in (((4, 1024, 3), 64), ((2, 777, 3), 130)):
+            p = torch.randn(*shape, generator=gen).to(dev)
+            kp, rp = ops.furthest_point_sample(p, S), ops.furthest_point_sample_ref(p, S)
+            n_sw = tie_swaps(kp, rp)
+            if bool((kp[:, 0] != 0).any()) or n_sw < 0:
+                fail(f"fps_start0 {shape}->{S}: not the start-0 first-argmax walk")
+            errs[f"fps_start0 {shape}->{S}"] = float(
+                (ops.gather_points(p, kp) - ops.gather_points(p, rp)).abs().max())
+            print(f"[check] fps_start0 (act_tpu/ops/fps.py:29 _fps_kernel) {shape}->{S}: "
+                  f"starts at 0, equal up to {n_sw} adjacent tie swaps", flush=True)
+
+    # -- 8. the full-width Stage-II model, seeded weights ---------------------
+    t0 = time.perf_counter()
+    model = build_pretrain_model(cfg.model, seed=0)
+    builder.freeze(model, [TOKENIZER])
+    builder.cast_frozen_bf16(model, [TOKENIZER])
+    model = model.to(dev).eval()
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"[model] {PRETRAIN_CONFIG}: {n_all} params ({n_train} trainable, the rest the "
+          f"frozen tokenizer), dtype bf16, built in {time.perf_counter() - t0:.2f} s; "
+          f"synthetic clouds {tuple(clouds.shape)}", flush=True)
+
+    # -- 9. one eval forward through the kernels and through the plain versions
+    ids = {}
+
+    def recording(fn, key):
+        def wrapped(lg, seed):
+            ids[key] = fn(lg, seed)
+            return ids[key]
+        return wrapped
+
+    with torch.no_grad():
+        with patched(ops, gumbel_argmax=recording(ops.gumbel_argmax, "kernel")):
+            loss_k = float(model(clouds, rngs=step_rngs(0, 0, dev)))
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        with patched(ops, group_points=ops.group_points_ref,
+                     graph_feature_idx=ops.graph_feature_idx_ref,
+                     gumbel_argmax=recording(ops.gumbel_argmax_ref, "plain")):
+            loss_p = float(model(clouds, rngs=step_rngs(0, 0, dev)))
+        torch.cuda.synchronize()
+    if any(_backend.LAUNCHES.values()):
+        fail(f"the plain-version forward launched kernels: {_backend.LAUNCHES}")
+    same_ids = torch.equal(ids["kernel"], ids["plain"])
+    print(f"[stage2] eval loss through the kernels {loss_k}, through the plain versions "
+          f"{loss_p}: |diff| {abs(loss_k - loss_p)} (tolerance {LOSS_ATOL}); tokenizer "
+          f"Gumbel ids {tuple(ids['kernel'].shape)} equal {same_ids}", flush=True)
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_ATOL and same_ids):
+        fail("Stage-II eval forward: kernel path and plain path disagree")
+
+    # -- 10. run_steps: the train steps of the main path ----------------------
+    steps = WARM_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_launches()
+    run = run_steps(PRETRAIN_CONFIG, steps, seed=0, device=dev)
+    launches = dict(_backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[stage2] run_steps losses: {run.losses}", flush=True)
+    print(f"[stage2] launches in {steps} steps: {launches}; a step: "
+          f"{ {k: v / steps for k, v in launches.items()} }", flush=True)
+    if not all(math.isfinite(x) for x in run.losses):
+        fail("run_steps: a loss is not finite")
+    for name, n in launches.items():
+        if n <= 0 or n % steps:
+            fail(f"kernel {name}: {n} launches in {steps} steps")
+    before, after = model.state_dict(), run.model.state_dict()
+    tok = [k for k in after if k.startswith(TOKENIZER + ".")]
+    tok_params = [k for k in tok if "running" not in k and "num_batches" not in k]
+    frozen_same = all(torch.equal(after[k], before[k]) for k in tok_params)
+    bn_moved = any(not torch.equal(after[k], before[k]) for k in tok if "running" in k)
+    student_moved = all(not torch.equal(after[k], before[k]) for k in
+                        ("ACT_encoder.blocks.blocks.0.attn.qkv.weight", "ACT_decoder.norm.weight",
+                         "proj_head.weight", "ACT_encoder.cls_head.0.weight"))
+    print(f"[stage2] tokenizer parameters bit-for-bit unchanged: {frozen_same} "
+          f"({len(tok_params)} tensors); tokenizer BN running stats changed: {bn_moved}; "
+          f"student parameters changed: {student_moved}", flush=True)
+    if not (frozen_same and bn_moved and student_moved):
+        fail("run_steps: the frozen tokenizer moved or the student did not")
+    med = statistics.median(run.step_ms[WARM_STEPS:])
+
+    def step(i):
+        return pretrain_step(run.model, run.optimizer, lambda s: 1e-6, clouds, i,
+                             step_rngs(0, i, dev))
+    ev = kernel_events(lambda: step(steps), 3)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / 3
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    dev_txt = (f"device busy {busy:.3f} ms a step ({len(ev) // 3} kernels), idle share "
+               f"{1 - busy / med:.3f}" if ev else "device busy not measured")
+    print(f"[time] Stage-II step B={bs}: median {med:.3f} ms, min {min(run.step_ms):.3f}, "
+          f"max {max(run.step_ms[WARM_STEPS:]):.3f} over {TIMED_STEPS} (after {WARM_STEPS} "
+          f"warm-up); {bs / med * 1e3:.1f} clouds/s; {dev_txt}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print("[time] Stage-II step top kernels (ms a step): "
+          + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+    tk = run.model.dvae_tokenizer
+    with torch.no_grad():
+        nbr, ctr = ops.group_points(clouds, G, M)
+        run.model.train()
+        feats = tk.encoder(nbr)
+        lg = tk.dgcnn_1(feats, ctr)
+        sampled = tk.codebook[ops.gumbel_argmax(lg, seeds[0]).long()]
+        taught = teacher_forward(tk, sampled, ctr, step_rngs(0, 0, dev))
+        stage_ms = {
+            "group_points": device_ms(lambda: ops.group_points(clouds, G, M), 3),
+            "tokenizer (train mode, no grad)": device_ms(
+                lambda: tk.forward_tokenizer_features(nbr, ctr, rngs=step_rngs(0, 0, dev)), 3),
+            "  of which encoder": device_ms(lambda: tk.encoder(nbr), 3),
+            "  dgcnn_1": device_ms(lambda: tk.dgcnn_1(feats, ctr), 3),
+            "  gumbel_argmax": device_ms(lambda: ops.gumbel_argmax(lg, seeds[0]), 3),
+            "  teacher": device_ms(
+                lambda: teacher_forward(tk, sampled, ctr, step_rngs(0, 0, dev)), 3),
+            "  dgcnn_2": device_ms(lambda: tk.dgcnn_2(taught, ctr), 3)}
+    stage_ms["whole step"] = device_ms(lambda: step(steps + 1), 3)
+    print(f"[time] Stage-II step stages (device ms): " + ", ".join(
+        f"{k} {v if v is None else round(v, 5)}" for k, v in stage_ms.items()), flush=True)
+
+    # kernel times at the shapes of a step
+    with torch.inference_mode():
+        rows = {
+            "gumbel_argmax": [measure(
+                f"({bs * G}, {V}) bf16", lambda: ops.gumbel_argmax(logits, seeds[0]),
+                lambda: ops.gumbel_argmax_ref(logits, seeds[0]), None, 50, 3,
+                bound_ms(logits.numel() * 2 + bs * G * 4, GUMBEL_OPS * logits.numel()))],
+            "fps": [measure(
+                f"({bs}, {npts}, 3)->{G}", lambda: ops.furthest_point_sample(clouds, G),
+                lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
+                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={kk}", lambda d=d, kk=kk: ops.k_smallest(d, kk),
+                lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
+                lambda d=d, kk=kk: torch.topk(d, kk, dim=-1, largest=False, sorted=True),
+                100, 20, bound_ms(d.numel() * 4 + d.shape[0] * kk * 8, d.numel()), n)
+                for d, kk, n in ((d_grp, M, 1), (d_dg, 4, 2))],
+            "gather": [measure(
+                f"{tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=i.long().reshape(bs, -1, 1).expand(-1, -1, 3).contiguous():
+                torch.gather(p, 1, li), 200, 200,
+                bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12))
+                for p, i in gathers],
+        }
+    print_times("Stage-II ", rows)
+    return rows, errs, launches
 
 
 def main() -> None:
@@ -88,9 +363,12 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     # -- 1. build -----------------------------------------------------------
+    if sorted(REPLACES) != sorted(_backend.KERNELS):
+        fail(f"REPLACES names {sorted(REPLACES)}, the package builds {sorted(_backend.KERNELS)}")
     t0 = time.perf_counter()
     _backend.build_kernels()
-    print(f"[build] 3 kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {len(_backend.KERNELS)} kernels ({', '.join(_backend.KERNELS)}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _backend.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -168,9 +446,9 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(_backend.LAUNCHES)
     print(f"[path] launches in one B={B} request: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
     if tuple(logits.shape) != (B, int(cfg.model.cls_dim)) or not torch.isfinite(logits).all():
         fail(f"logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     with torch.inference_mode():
@@ -224,7 +502,10 @@ def main() -> None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # device kernels only: the optimizer's user annotations also appear
+        # as device-side ranges, spanning kernels already counted
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
 
     def device_ms(fn, iters):
         """Summed duration of the device kernels a call runs, averaged over
@@ -232,10 +513,11 @@ def main() -> None:
         ev = kernel_events(fn, iters)
         return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters if ev else None
 
-    def measure(shape, fn, plain, library, iters, plain_iters, bound):
+    def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1):
+        """Times of one launch shape; ``n`` launches of it a step or request."""
         call = timed(fn, iters)
         dev_ms = device_ms(fn, iters)
-        return dict(shape=shape, ms=call if dev_ms is None else dev_ms, call_ms=call,
+        return dict(shape=shape, n=n, ms=call if dev_ms is None else dev_ms, call_ms=call,
                     timing="cuda_events" if dev_ms is None else "profiler",
                     plain_ms=device_ms(plain, plain_iters) or timed(plain, plain_iters, 1),
                     library_ms=None if library is None else
@@ -276,13 +558,7 @@ def main() -> None:
                 for (p, i), li in zip(gi, long_idx)
             ],
         }
-    for name, rows in shapes.items():
-        for r in rows:
-            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
-            print(f"[time] {name} {r['shape']}: kernel {r['ms']:.5f} ms ({r['timing']}; "
-                  f"{r['call_ms']:.5f} ms per call), plain {r['plain_ms']:.5f} ms, "
-                  f"library {lib} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})",
-                  flush=True)
+    print_times("", shapes)
 
     def request_ms(batch, iters):
         for _ in range(3):
@@ -324,24 +600,38 @@ def main() -> None:
         f"{k} {dv if dv is None else round(dv, 5)}, {c:.5f}" for k, (dv, c) in stage_ms.items()),
         flush=True)
 
-    record = []
-    for name, rows in shapes.items():
-        record.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(v for k, v in errs.items() if k.startswith(name)),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound"][0] for r in rows),
+    # -- 6-10. Stage-II pretraining ----------------------------------------------
+    stage2, s2_errs, s2_launches = stage_two(dev, device_ms, kernel_events, measure)
+    errs.update(s2_errs)
+
+    def row_entry(name, kernel, replaces):
+        """One kernel's record: launches of the Stage-II run, times summed over
+        the launches of one step; the serving launches listed beside them."""
+        rows = stage2[kernel]
+        per_step = sum(r["n"] for r in rows)
+        return {
+            "name": name, "route": "cuda",
+            "source": f"act_tpu_torch/csrc/{_backend.KERNELS[kernel][0]}.cu",
+            "replaces": replaces, "launches": s2_launches[kernel],
+            "launches_per_step": per_step, "launches_serve_b32": launches[kernel],
+            "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
+            "ms": sum(r["ms"] * r["n"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
+            "bound_ms": sum(r["bound"][0] * r["n"] for r in rows),
             "bound_by": rows[0]["bound"][1],
             "library_ms": (None if rows[0]["library_ms"] is None
-                           else sum(r["library_ms"] for r in rows)),
+                           else sum(r["library_ms"] * r["n"] for r in rows)),
             "timing": rows[0]["timing"],
-            "per_launch": [{"shape": r["shape"], "ms": r["ms"], "call_ms": r["call_ms"],
-                            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                            "library_ms": r["library_ms"]} for r in rows],
-        })
-    print(json.dumps({"kernels": record}), flush=True)
+            "per_launch": [{"path": path, "shape": r["shape"], "per_step_or_request": r["n"],
+                            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound"][0], "library_ms": r["library_ms"]}
+                           for path, group in (("pretrain", rows), ("serve", shapes.get(kernel, [])))
+                           for r in group],
+        }
+
+    record = [row_entry(name, name, REPLACES[name]) for name in REPLACES]
+    record += [row_entry(name, kernel, rep) for name, (kernel, rep) in COVERED.items()]
+    print(json.dumps({"kernels": record}, allow_nan=False), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
