@@ -1,6 +1,7 @@
 """Optimizer and LR-schedule builders, freezing and the frozen-bf16 cast.
 
-Counterpart of ``act_tpu/engine/builder.py:32-88, 144-184``:
+Counterpart of ``act_tpu/engine/builder.py:32-88, 144-184`` and of the Stage-I
+freezing of ``act_tpu/engine/runner_autoencoder.py:130-143``:
 
 - weight decay on every trainable parameter except 1-D ones and those whose
   name holds 'bias' or 'token' (reference add_weight_decay, tools/builder.py:38-51);
@@ -48,6 +49,20 @@ def cast_frozen_bf16(model: nn.Module, prefixes: Iterable[str]) -> None:
             if (name.startswith(prefixes) and p.ndim >= 2
                     and not any(s in name.lower() for s in FROZEN_KEEP_F32)):
                 p.data = p.data.to(torch.bfloat16)
+
+
+TEACHER_BACKBONE = "visual_embed"  # the teacher's blocks (.0) and final norm (.1)
+
+
+def freeze_teacher_backbone(model: nn.Module, cast_bf16: bool = True) -> None:
+    """Stage I's ``freeze_visual_embed``: only the teacher backbone, its blocks
+    and final norm, is frozen, and only its blocks are stored in bf16. The
+    prompts, ``proj_pre``, ``proj_post`` and ``visual_pos_embed`` stay
+    trainable, and gradients flow through the frozen blocks to them and to
+    everything before the teacher."""
+    freeze(model, [TEACHER_BACKBONE])
+    if cast_bf16:
+        cast_frozen_bf16(model, [f"{TEACHER_BACKBONE}.0"])
 
 
 def cos_lr(base_lr: float, warmup_steps: int, decay_steps: int) -> Callable[[int], float]:

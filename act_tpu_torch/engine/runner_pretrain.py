@@ -16,17 +16,16 @@ The run is on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import time
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional
 
 import torch
 from torch import nn
 
-from act_tpu_torch.datasets.synthetic import SYNTHETIC_LEN, synthetic_batch
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine.serve import Checkpoint, load_config, load_state_dict
-from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
+from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_per_epoch,
+                                              timed_steps)
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.ops import resolve_device
 
@@ -80,26 +79,13 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     if bool(cfg.model.get("frozen_bf16", True)):
         builder.cast_frozen_bf16(model, [TOKENIZER])
     model = model.to(dev)
-    bs = int(cfg.total_bs)
-    optimizer, schedule = builder.build_optimizer(cfg, model, max(SYNTHETIC_LEN // bs, 1))
+    optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
     clip = cfg.get("grad_norm_clip", None)
-    if batches is None:
-        npoints = int(cfg.dataset.train.others.npoints)
-        distinct = [torch.from_numpy(synthetic_batch(i, bs, npoints)).to(dev)
-                    for i in range(min(steps, max(SYNTHETIC_LEN // bs, 1)))]
-        batches = (distinct[i % len(distinct)] for i in range(steps))
-    run = PretrainRun([], model, optimizer)
-    losses = []
-    for step, pts in zip(range(steps), batches):
-        pts = torch.as_tensor(pts, dtype=torch.float32).to(dev)
-        t0 = time.perf_counter()
-        losses.append(pretrain_step(model, optimizer, schedule, pts, step,
-                                    step_rngs(seed, step, dev), grad_norm_clip=clip))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        run.step_ms.append((time.perf_counter() - t0) * 1e3)
-    run.losses = [float(x) for x in losses]
-    return run
+    losses, step_ms = timed_steps(
+        lambda step, pts: pretrain_step(model, optimizer, schedule, pts, step,
+                                        step_rngs(seed, step, dev), grad_norm_clip=clip),
+        steps, cfg, batches, dev)
+    return PretrainRun([float(x) for x in losses], model, optimizer, step_ms)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

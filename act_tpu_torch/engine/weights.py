@@ -1,7 +1,7 @@
 """Weight bridge: JAX (flax) parameters, given as numpy arrays, to port state dicts.
 
 Inverts the torch -> flax rules of ``act_tpu/engine/torch_convert.py``
-(``student_rules``, ``point_transformer_rules`` and
+(``student_rules``, ``point_transformer_rules``, ``dvae_rules`` and
 ``act_distillation_rules``, :346-443), so the port's
 modules, which keep the reference PyTorch key layout, run the same weights as
 the JAX package:
@@ -10,8 +10,9 @@ the JAX package:
   trailing 1, (out, in, 1);
 - flax ``scale`` becomes ``weight``; BatchNorm ``batch_stats`` mean/var become
   ``running_mean``/``running_var``;
-- the conv1/conv3 biases that the JAX side folded into the BatchNorm means
-  (``fold_encoder_conv_bias``, torch_convert.py:60-85) come back as zeros.
+- the conv biases that the JAX side folded into the BatchNorm means
+  (``fold_encoder_conv_bias``, torch_convert.py:60-85: the group encoder's
+  conv1/conv3, the FoldingNet's final_conv.0/.3) come back as zeros.
 
 Both transformer-stack layouts are taken: per-block ``blocks_N`` subtrees and
 the scanned ``blocks`` subtree whose leaves carry a leading depth axis (see
@@ -189,13 +190,38 @@ def teacher_state(p: Mapping, prefix: str) -> StateDict:
 
 
 def tokenizer_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
-    """ACTPromptedDiscreteVAEwithVIT's Stage-II params (no FoldingNet decoder)."""
+    """A dVAE's params but the FoldingNet decoder (all of Stage II's tokenizer)."""
     sd = {**encoder_state(p["encoder"], stats["encoder"], _key(prefix, "encoder")),
           **dgcnn_state(p["dgcnn_1"], _key(prefix, "dgcnn_1")),
           **dgcnn_state(p["dgcnn_2"], _key(prefix, "dgcnn_2")),
           _key(prefix, "codebook"): _t(p["codebook"])}
     if "visual_embed" in p:
         sd.update(teacher_state(p["visual_embed"], prefix))
+    return sd
+
+
+def folding_decoder_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
+    """FoldingDecoder mlp1-3, final1/fbn1/final2/fbn2/final3 -> ``mlp.0/2/4``
+    and ``final_conv.0/1/3/4/6`` (``torch_convert.py:148-165``); the
+    final_conv.0/.3 biases are exported as zeros."""
+    return {
+        **dense_state(p["mlp1"], _key(prefix, "mlp.0")),
+        **dense_state(p["mlp2"], _key(prefix, "mlp.2")),
+        **dense_state(p["mlp3"], _key(prefix, "mlp.4")),
+        **dense_state(p["final1"], _key(prefix, "final_conv.0"), conv=True, zero_bias=True),
+        **bn_state(p["fbn1"], stats["fbn1"], _key(prefix, "final_conv.1")),
+        **dense_state(p["final2"], _key(prefix, "final_conv.3"), conv=True, zero_bias=True),
+        **bn_state(p["fbn2"], stats["fbn2"], _key(prefix, "final_conv.4")),
+        **dense_state(p["final3"], _key(prefix, "final_conv.6"), conv=True),
+    }
+
+
+def dvae_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """A JAX Stage-I dVAE's (params, batch_stats) (``DiscreteVAE`` or the
+    ViT-prompted one) -> the port's state dict, the inverse of
+    ``torch_convert.dvae_rules`` (``torch_convert.py:346``)."""
+    sd = tokenizer_state(params, batch_stats, "")
+    sd.update(folding_decoder_state(params["decoder"], batch_stats["decoder"], "decoder"))
     return sd
 
 

@@ -211,7 +211,7 @@ class ACT_PointDistillation(nn.Module):
         self.cls_loss = bool(tc.get("cls_loss", False))
         self.shallow_hook = int(tc.get("register_shallow_hook", -1))
         self.ACT_encoder = VisableOnlyMaskTransformer(cfg)
-        self.dvae_tokenizer = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config)
+        self.dvae_tokenizer = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config, decoder=False)
         if tc.get("proj", "linear") in ("linear", "conv"):
             self.proj_head = Dense(C, cfg.dvae_config.tokens_dims)
         else:

@@ -412,8 +412,9 @@ class DGCNN(nn.Module):
     space (one kNN graph, built once from the fixed centers), each a
     conv/GroupNorm/LeakyReLU and a max over the neighbours; the four scales
     concatenate (2304 channels) into the output projection. The neighbour
-    features come from an index gather (the TPU's one-hot product is exact,
-    so the values are the same)."""
+    features come from ``torch.gather`` (the TPU's one-hot product is exact,
+    so the values are the same; unlike advanced indexing, its backward on the
+    CPU sums in a fixed order, so CPU runs repeat bit for bit)."""
 
     def __init__(self, in_channels: int, output_channel: int,
                  dtype: Optional[torch.dtype] = None):
@@ -428,15 +429,84 @@ class DGCNN(nn.Module):
     def forward(self, f: torch.Tensor, coor: torch.Tensor) -> torch.Tensor:
         """f: (B, G, C) features, coor: (B, G, 3) centers -> (B, G, out)."""
         idx = ops.graph_feature_idx(coor, coor, 4).long()  # (B, G, k)
-        rows = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        B, G, k = idx.shape
         f = self.input_trans(f)
         feats = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            nbr = f[rows, idx]  # (B, G, k, C)
+            C = f.shape[-1]
+            nbr = torch.gather(f, 1, idx.reshape(B, G * k, 1).expand(-1, -1, C)
+                               ).reshape(B, G, k, C)
             self_f = f[:, :, None, :].expand_as(nbr)
             f = torch.amax(layer(torch.cat([nbr - self_f, self_f], dim=-1)), dim=2)
             feats.append(f)
         return self.layer5(torch.cat(feats, dim=-1))
+
+
+class FoldingDecoder(nn.Module):
+    """FoldingNet group decoder (reference Decoder, models/dvae.py:217-275;
+    ``common.py:521-584``).
+
+    (B, G, C) -> coarse (B, G, M/4, 3), fine (B, G, M, 3): ``mlp`` (C -> 1024
+    -> 1024 -> 3 M/4) emits the coarse points; ``final_conv`` runs over
+    [global feature | 2x2 folding seed | repeated coarse point] and its
+    offsets move the repeated coarse points. The global-feature columns of
+    ``final_conv.0`` act once a group and are added by broadcast
+    (``_ConcatDense``, ``common.py:373-397``). ``final_conv.0``/``.3`` keep
+    the reference's bias keys; the JAX package folds them into the BatchNorm
+    means, so they are zero and never trained. ``mlp.4`` and ``final_conv.6``
+    run in f32 (no compute dtype), so coarse and fine come out f32."""
+
+    def __init__(self, encoder_channel: int, num_fine: int, grid_size: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if num_fine % grid_size ** 2:
+            raise ValueError(f"num_fine {num_fine} is not a multiple of {grid_size ** 2}")
+        self.grid_size, self.num_fine = grid_size, num_fine
+        self.num_coarse = num_fine // grid_size ** 2
+        self.compute_dtype = dtype
+        self.mlp = nn.Sequential(Dense(encoder_channel, 1024, dtype=dtype), nn.ReLU(),
+                                 Dense(1024, 1024, dtype=dtype), nn.ReLU(),
+                                 Dense(1024, 3 * self.num_coarse))
+        self.final_conv = nn.Sequential(
+            Conv1x1(encoder_channel + 3 + 2, 512, dtype), BatchNorm(512, dtype), nn.ReLU(),
+            Conv1x1(512, 512, dtype), BatchNorm(512, dtype), nn.ReLU(), Conv1x1(512, 3))
+        self.final_conv[0].bias.requires_grad_(False)
+        self.final_conv[3].bias.requires_grad_(False)
+
+    def forward(self, feature_global: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, G, C = feature_global.shape
+        s = self.grid_size ** 2
+        fg = feature_global.reshape(B * G, C)
+        coarse = self.mlp(fg).reshape(B * G, self.num_coarse, 3)
+        a = torch.linspace(-0.05, 0.05, self.grid_size, device=fg.device)
+        # seed k = (a[k % g], a[k // g]), as the reference's folding_seed
+        seed = torch.stack([a.repeat(self.grid_size), a.repeat_interleave(self.grid_size)], -1)
+        seed = seed.repeat(self.num_coarse, 1).expand(B * G, self.num_fine, 2)
+        point_feat = torch.repeat_interleave(coarse, s, dim=1)  # (BG, num_fine, 3)
+        conv0 = self.final_conv[0]
+        w = conv0.weight[..., 0]
+        dt = self.compute_dtype or w.dtype
+        h = dense(torch.cat([seed, point_feat], dim=-1), w[:, C:], None, dt)
+        h = h + dense(fg, w[:, :C], None, dt)[:, None, :]
+        h = h + conv0.bias.to(h.dtype)
+        for layer in self.final_conv[1:-1]:
+            h = layer(h)
+        fine = self.final_conv[-1](h) + point_feat
+        return (coarse.reshape(B, G, self.num_coarse, 3),
+                fine.reshape(B, G, self.num_fine, 3))
+
+
+def gumbel_softmax_from_u(u: torch.Tensor, logits: torch.Tensor, tau: float = 1.0,
+                          hard: bool = False) -> torch.Tensor:
+    """Gumbel-softmax over the last axis from given uniform draws
+    (``common.py:636-647``): softmax((logits - log(-log(u))) / tau); ``hard``
+    gives the one-hot of its argmax forward with the soft gradient (straight
+    through)."""
+    y = torch.softmax((logits + (-torch.log(-torch.log(u)))) / tau, dim=-1)
+    if hard:
+        y_hard = torch.zeros_like(y).scatter_(-1, torch.argmax(y, dim=-1, keepdim=True), 1.0)
+        y = y + (y_hard - y).detach()
+    return y
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -1,7 +1,8 @@
 """Device resolution and the build, load and launch plumbing of the CUDA kernels.
 
-Each kernel source ``act_tpu_torch/csrc/<name>.cu`` exports a plain C launch
-function. On first use the sources are compiled by ``nvcc`` for ``sm_90a``,
+Each kernel source ``act_tpu_torch/csrc/<stem>.cu`` exports plain C launch
+functions, one per kernel (``chamfer.cu`` holds three). On first use the
+sources are compiled by ``nvcc`` for ``sm_90a``,
 one process per source and all started together, into shared libraries under
 ``build/act_tpu_torch/`` at the repository root (named by the source's hash, so
 an edited source is rebuilt), and loaded with ``ctypes``.
@@ -36,11 +37,14 @@ KERNELS = {
     "k_smallest": ("topk", "act_ksmallest", [_P, _P, _P, _I, _I, _I, _P]),
     "gather": ("gather", "act_gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "gumbel_argmax": ("gumbel", "act_gumbel_argmax", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "chamfer_nn": ("chamfer", "act_chamfer_nn", [_P] * 6 + [_I] * 3 + [_P]),
+    "chamfer_nn_min": ("chamfer", "act_chamfer_nn_min", [_P] * 4 + [_I] * 3 + [_P]),
+    "chamfer_bwd": ("chamfer", "act_chamfer_bwd", [_P] * 8 + [_I] * 3 + [_P]),
 }
 
 # launches of each kernel wrapper: plain counters, read and reset by callers
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
-# ptxas resource report of each build (registers, shared memory, spills)
+# ptxas resource report of each source's build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -96,27 +100,28 @@ def _target(name: str) -> Path:
 def build_kernels(names=tuple(KERNELS)) -> Dict[str, ctypes.CDLL]:
     """Compile (where not built yet) and load the named kernel libraries.
 
-    All missing sources compile at once, one ``nvcc`` process each. Raises
-    with nvcc's output if a build fails."""
+    All missing sources compile at once, one ``nvcc`` process each (kernels
+    that share a source share its build). Raises with nvcc's output if a
+    build fails."""
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
         procs = {}
         for n in todo:
-            out = _target(n)
-            if out.is_file():
+            stem, out = KERNELS[n][0], _target(n)
+            if stem in procs or out.is_file():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".so.tmp{os.getpid()}")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(n))]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
+            procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out)
         failed = []
-        for n, (proc, tmp, out) in procs.items():
+        for stem, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            BUILD_LOG[n] = log
+            BUILD_LOG[stem] = log
             if proc.returncode != 0:
-                failed.append(f"{_source(n).name} (exit {proc.returncode}):\n{log}")
+                failed.append(f"{stem}.cu (exit {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:

@@ -141,3 +141,49 @@ def gumbel_argmax_ref(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     of the maximum: (..., V) bf16/f32 + (2,) int32 seed -> (...) int32. The
     plain version of ``csrc/gumbel.cu``."""
     return torch.argmax(gumbel_perturbed_ref(logits, seed), dim=-1).to(torch.int32)
+
+
+def pair_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances in the direct form ``((dx*dx + dy*dy) + dz*dz)``,
+    each operation rounded on its own, as ``act_tpu/ops/chamfer.py:70-72``
+    and the Chamfer kernels compute them. x (B, N, 3), y (B, M, 3) -> (B, N, M)."""
+    def sq(c):
+        d = x[:, :, None, c] - y[:, None, :, c]
+        return d * d
+    return (sq(0) + sq(1)) + sq(2)
+
+
+def chamfer_ref(x: torch.Tensor, y: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both directed nearest neighbours: x (B, N, 3), y (B, M, 3) -> (d1 (B, N),
+    d2 (B, M), i1 (B, N) int32, i2 (B, M) int32), squared distances and the
+    first index of each minimum (``torch.argmin``'s tie-break). The plain
+    version of ``chamfer_nn``."""
+    d = pair_distance(x, y)
+    return (torch.amin(d, dim=2), torch.amin(d, dim=1),
+            torch.argmin(d, dim=2).to(torch.int32), torch.argmin(d, dim=1).to(torch.int32))
+
+
+def chamfer_min_ref(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distances of :func:`chamfer_ref` alone: (d1 (B, N), d2 (B, M)). The
+    plain version of ``chamfer_nn_min``."""
+    d = pair_distance(x, y)
+    return torch.amin(d, dim=2), torch.amin(d, dim=1)
+
+
+def chamfer_bwd_ref(x: torch.Tensor, y: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
+                    g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of (d1, d2) = chamfer(x, y) from the saved indices and the
+    output gradients g1 (B, N), g2 (B, M) (``_chamfer_bwd``,
+    ``act_tpu/ops/chamfer.py:341-369``): v1 = 2 (x - y[i1]) g1,
+    v2 = 2 (y - x[i2]) g2, dx = v1 - scatter_add(i2, v2),
+    dy = v2 - scatter_add(i1, v1). The plain version of ``chamfer_bwd``."""
+    B, N, _ = x.shape
+    M = y.shape[1]
+    v1 = 2.0 * (x - gather_points(y, i1)) * g1[:, :, None]
+    v2 = 2.0 * (y - gather_points(x, i2)) * g2[:, :, None]
+    rows_x = (torch.arange(B, device=x.device)[:, None] * N + i2.long()).reshape(-1)
+    rows_y = (torch.arange(B, device=x.device)[:, None] * M + i1.long()).reshape(-1)
+    sx = torch.zeros(B * N, 3, dtype=v2.dtype, device=x.device).index_add_(0, rows_x, v2.reshape(-1, 3))
+    sy = torch.zeros(B * M, 3, dtype=v1.dtype, device=x.device).index_add_(0, rows_y, v1.reshape(-1, 3))
+    return v1 - sx.reshape(B, N, 3), v2 - sy.reshape(B, M, 3)

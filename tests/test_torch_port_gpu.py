@@ -13,6 +13,7 @@ import torch
 from act_tpu_torch import ops
 from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import chamfer as chamfer_mod
 from act_tpu_torch.ops.fps import tie_swaps
 from act_tpu_torch.utils.config import ConfigDict
 
@@ -100,7 +101,8 @@ def test_group_points_counts_launches(cuda):
     xyz = cloud(6, 4, 1024, 3, device=cuda)
     _backend.reset_launches()
     nbr, ctr = ops.group_points(xyz, 64, 32)
-    assert _backend.LAUNCHES == {"fps": 1, "k_smallest": 1, "gather": 2, "gumbel_argmax": 0}
+    assert _backend.LAUNCHES == {**{k: 0 for k in _backend.KERNELS},
+                                 "fps": 1, "k_smallest": 1, "gather": 2}
     nbr_r, ctr_r = ops.group_points_ref(xyz, 64, 32)
     assert torch.equal(ctr, ctr_r) and torch.equal(nbr, nbr_r)
 
@@ -215,10 +217,112 @@ def test_small_distillation_step_card_matches_cpu(cuda):
                                     use_deep_prompt=True))))
     _backend.reset_launches()
     card = run_steps(cfg, 2, device=cuda)
-    assert all(v > 0 for v in _backend.LAUNCHES.values()), _backend.LAUNCHES
+    assert _backend.LAUNCHES == {**{k: 0 for k in _backend.KERNELS}, "fps": 2, "k_smallest": 6,
+                                 "gather": 4, "gumbel_argmax": 2}
     cpu = run_steps(cfg, 2, device="cpu")
     assert all(np.isfinite(card.losses)) and all(np.isfinite(cpu.losses))
     a, b = card.model.state_dict(), cpu.model.state_dict()
     for k in a:
         if k.startswith("dvae_tokenizer.") and "running" not in k and "num_batches" not in k:
             assert torch.equal(a[k].cpu(), b[k]), k
+
+
+@pytest.mark.parametrize("B,N,M", [(4096, 8, 32), (4096, 32, 32), (1, 2048, 1024),
+                                   (32, 2048, 2048), (3, 777, 1001), (5, 1, 40), (2, 300, 1)])
+def test_chamfer_kernels_match_plain(cuda, B, N, M):
+    """The recon loss's and the validation's shapes, the whole-cloud op shape,
+    a ragged pair and single-point clouds: distances bit-equal and indices
+    exact (both sides compute ((dx*dx + dy*dy) + dz*dz) with separate
+    roundings); the backward within 1e-5 of the largest gradient (atomicAdd
+    sums in a changing order)."""
+    x, y = cloud(20, B, N, 3, device=cuda), cloud(21, B, M, 3, device=cuda)
+    got, want = chamfer_mod.nn_pair(x, y), ops.chamfer_ref(x, y)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(chamfer_mod.nn_pair_min(x, y), ops.chamfer_min_ref(x, y)):
+        assert torch.equal(a, b)
+    g1, g2 = cloud(22, B, N, device=cuda), cloud(23, B, M, device=cuda)
+    gb = chamfer_mod.chamfer_bwd(x, y, want[2], want[3], g1, g2)
+    wb = ops.chamfer_bwd_ref(x, y, want[2], want[3], g1, g2)
+    for a, b in zip(gb, wb):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_chamfer_kernel_ties_take_the_first_index(cuda):
+    """Duplicated points: equal minima in both directions go to the first
+    index, as in torch.argmin and the TPU kernel."""
+    p = cloud(24, 3, 100, 3, device=cuda)
+    x, y = p[:, :60].contiguous(), torch.cat([p, p, p[:, :10]], 1)
+    for a, b in zip(chamfer_mod.nn_pair(x, y), ops.chamfer_ref(x, y)):
+        assert torch.equal(a, b)
+    i1 = chamfer_mod.nn_pair(x, y)[2]
+    assert torch.equal(i1.cpu(), torch.arange(60, dtype=torch.int32).expand(3, 60))
+    grid = torch.tensor([[[0.0, 0, 0], [1, 0, 0], [0, 0, 0], [1, 0, 0]]], device=cuda)
+    half = torch.tensor([[[0.5, 0, 0], [1, 0, 0], [0, 0, 0]]], device=cuda)
+    _, _, i1, i2 = chamfer_mod.nn_pair(half, grid)
+    assert i1.tolist() == [[0, 1, 0]] and i2.tolist() == [[2, 1, 2, 1]]
+
+
+def test_chamfer_distances_forward_backward_match_plain(cuda):
+    """The autograd function on the card (chamfer_nn, chamfer_bwd) against
+    the plain path (the same function on the CPU): L1 and L2 losses and
+    their gradients."""
+    for fn in (ops.chamfer_distance_l1, ops.chamfer_distance_l2):
+        x, y = cloud(25, 64, 32, 3, device=cuda), cloud(26, 64, 32, 3, device=cuda)
+        xs = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+        ys = [y.clone().requires_grad_(), y.cpu().requires_grad_()]
+        _backend.reset_launches()
+        out = [fn(a, b) for a, b in zip(xs, ys)]
+        for o in out:
+            o.backward()
+        assert _backend.LAUNCHES["chamfer_nn"] == 1 and _backend.LAUNCHES["chamfer_bwd"] == 1
+        torch.testing.assert_close(out[0].cpu(), out[1], rtol=1e-6, atol=0)
+        for a, b in ((xs[0].grad, xs[1].grad), (ys[0].grad, ys[1].grad)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    with torch.no_grad():
+        _backend.reset_launches()
+        ops.chamfer_distances(x, y)
+    assert _backend.LAUNCHES["chamfer_nn_min"] == 1 and _backend.LAUNCHES["chamfer_nn"] == 0
+
+
+def test_chamfer_kernels_reject_wrong_inputs(cuda):
+    x = cloud(27, 2, 16, 3, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.chamfer_distances(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.chamfer_distances(x.transpose(0, 1), x.transpose(0, 1))
+    with pytest.raises(ValueError, match="x on"):
+        ops.chamfer_distances(x, x.cpu())
+
+
+def test_small_autoencoder_steps_card_matches_cpu(cuda):
+    """Two f32 Stage-I steps of a small dVAE on the card (kernels) and on the
+    CPU (plain versions) from the same seed: the Gumbel and dropout draws
+    differ between the two devices' generators, so only finite losses and the
+    frozen teacher backbone are compared; then the metrics."""
+    from act_tpu_torch.engine.runner_autoencoder import run_autoencoder_steps, validate
+    cfg = ConfigDict(dict(
+        optimizer=dict(type="AdamW", kwargs=dict(lr=5e-4, weight_decay=5e-4)),
+        scheduler=dict(type="CosLR", kwargs=dict(epochs=300, initial_epochs=10)),
+        dataset=dict(train=dict(others=dict(npoints=256))), total_bs=4, grad_norm_clip=10,
+        temp=dict(start=1, target=0.0625, ntime=100000),
+        kldweight=dict(start=0, target=0.1, ntime=100000),
+        model=dict(NAME="ACTPromptedDiscreteVAEwithVIT", group_size=8, num_group=16,
+                   encoder_dims=32, num_tokens=64, tokens_dims=32, decoder_dims=32,
+                   visual_embed_dim=48, visual_embed_depth=2, visual_embed_heads=4,
+                   num_prompt_token=4, use_deep_prompt=True, freeze_visual_embed=True)))
+    _backend.reset_launches()
+    card = run_autoencoder_steps(cfg, 2, device=cuda, start_itr=60000)
+    assert _backend.LAUNCHES == {**{k: 0 for k in _backend.KERNELS}, "fps": 2, "k_smallest": 6,
+                                 "gather": 4, "chamfer_nn": 4, "chamfer_bwd": 4}
+    cpu = run_autoencoder_steps(cfg, 2, device="cpu", start_itr=60000)
+    assert all(np.isfinite(card.losses)) and all(np.isfinite(cpu.losses))
+    a, b = card.model.state_dict(), cpu.model.state_dict()
+    for k in a:
+        if k.startswith("visual_embed."):
+            assert torch.equal(a[k].cpu(), b[k]), k
+    clouds = [cloud(28 + i, 256, 3, device=cuda) for i in range(2)]
+    _backend.reset_launches()
+    metrics, per_cloud = validate(card.model, clouds)
+    assert _backend.LAUNCHES["chamfer_nn_min"] == 2  # one a cloud for all three metrics
+    assert all(np.isfinite(v) for row in per_cloud for v in row)

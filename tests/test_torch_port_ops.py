@@ -216,9 +216,9 @@ def test_resolve_device_without_card_raises():
 
 
 def test_kernel_build_names_every_source():
-    """Every CUDA source has a launch signature and is built for sm_90a."""
+    """Every CUDA source has launch signatures and is built for sm_90a."""
     sources = sorted(p.stem for p in _backend.CSRC.glob("*.cu"))
-    assert sources == sorted(src for src, _, _ in _backend.KERNELS.values())
+    assert sources == sorted({src for src, _, _ in _backend.KERNELS.values()})
     assert sorted(_backend.LAUNCHES) == sorted(_backend.KERNELS)
     assert "arch=compute_90a,code=sm_90a" in _backend.NVCC_FLAGS
     assert _backend._target("k_smallest").parent == _backend.BUILD_DIR
