@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source csrc/<stem>.cu, C launch function, its argument types)
 KERNELS = {
-    "fps": ("fps", "act_fps", [_P, _P, _P, _I, _I, _I, _P]),
+    "fps": ("fps", "act_fps", [_P, _P, _P] + [_I] * 6 + [_P]),
     "k_smallest": ("topk", "act_ksmallest", [_P, _P, _P, _I, _I, _I, _P]),
     "gather": ("gather", "act_gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "gumbel_argmax": ("gumbel", "act_gumbel_argmax", [_P, _P, _P, _I, _I, _I, _I, _P]),
@@ -135,6 +135,14 @@ def build_kernels(names=tuple(KERNELS)) -> Dict[str, ctypes.CDLL]:
             lib.act_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[n], _FNS[n] = lib, fn
         return {n: _LIBS[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built at first use), for its
+    other exported functions."""
+    if name not in _LIBS:
+        build_kernels((name,))
+    return _LIBS[name]
 
 
 def launch(name: str, *args) -> None:

@@ -1,18 +1,71 @@
 """Farthest-point sampling: the CUDA kernel ``csrc/fps.cu`` and its wrapper.
 
-Counterpart of ``act_tpu/ops/fps.py``. One thread block runs the whole greedy
-walk of one cloud; see the note at the top of the source.
+Counterpart of ``act_tpu/ops/fps.py``. The greedy walk of one cloud runs on a
+thread-block cluster of 1-8 blocks that exchange their warps' candidates
+through distributed shared memory, one wait a step; ``launch_geometry`` picks
+the cluster size, threads and points a thread. See the note at the top of the
+source.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops.reference import furthest_point_sample_ref
 
-MAX_POINTS = 16 * 1024  # 16 points a thread in registers, 1024 threads
+MAX_POINTS = 16 * 1024  # the cloud in a block's shared memory; 16 points a thread
+MAX_PPT = 16
+# Points a block's slice keeps at least before a cloud is split further: below
+# it the cluster's exchange costs more than the smaller slice saves.
+MIN_SLICE = 1024
+
+
+def launch_geometry(B: int, N: int, sms: int,
+                    max_clusters: Callable[[int, int, int, int], int]
+                    ) -> Tuple[int, int, int]:
+    """(cluster size C, threads a block, points a thread) of the FPS launch.
+
+    C is the largest of 8, 4, 2 such that the B*C blocks fit the card's
+    ``sms`` SMs, each block keeps at least ``MIN_SLICE`` points, and
+    ``max_clusters(N, C, threads, ppt)`` (the card's
+    ``cudaOccupancyMaxActiveClusters``) runs all B clusters at once; else 1.
+    (A cluster sits in one GPC: on an H100 only 30 clusters of 4 fit one
+    block a SM, so at B=32 two SMs hold two blocks each; smaller clusters
+    that avoid it take longer a step, see PERF.md.)
+    A block's slice of ceil(N / C) points goes ``ppt`` a thread, the smallest
+    power of two that keeps the block within 128 threads (slices up to 1024
+    points) or 256 threads (larger slices), at most 16 (up to 1024 threads
+    at N = 16384). ``python -m act_tpu_torch.kernel_sweep`` times the
+    alternatives on the card."""
+    for c in (8, 4, 2, 1):
+        slice_ = -(-N // c)
+        if c > 1 and (B * c > sms or slice_ < MIN_SLICE):
+            continue
+        target = 128 if slice_ <= 1024 else 256
+        ppt = 1
+        while ppt < MAX_PPT and ppt * target < slice_:
+            ppt *= 2
+        threads = -(-slice_ // ppt)
+        threads = max(32, -(-threads // 32) * 32)
+        if c == 1 or max_clusters(N, c, threads, ppt) >= B:
+            return c, threads, ppt
+    raise AssertionError("unreachable: C = 1 always fits")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(N: int, c: int, threads: int, ppt: int) -> int:
+    fn = _backend.library("fps").act_fps_max_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return fn(N, c, threads, ppt)
 
 
 def furthest_point_sample(points: torch.Tensor, n_samples: int,
@@ -50,7 +103,10 @@ def furthest_point_sample(points: torch.Tensor, n_samples: int,
         start = start_idx.to(torch.int32).expand(B).contiguous()
     out = torch.empty(B, n_samples, dtype=torch.int32, device=points.device)
     if B:
-        _backend.launch("fps", points, start, out, B, N, n_samples)
+        dev = points.device.index
+        c, threads, ppt = launch_geometry(
+            B, N, _sms(torch.cuda.current_device() if dev is None else dev), _max_clusters)
+        _backend.launch("fps", points, start, out, B, N, n_samples, c, threads, ppt)
     return out
 
 

@@ -1,7 +1,8 @@
 """Per-row k smallest: the CUDA kernel ``csrc/topk.cu`` and its wrapper.
 
-Counterpart of ``act_tpu/ops/topk.py``. One warp selects the k smallest of one
-row staged in shared memory; see the note at the top of the source.
+Counterpart of ``act_tpu/ops/topk.py``. One warp a row finds the k-th smallest
+key by radix select, keeps the keys below it and the first ties at it, and
+sorts those k; see the note at the top of the source.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops.reference import k_smallest_ref
 
-MAX_N = 232448 // 4  # one f32 row in a block's 227 KB of shared memory
+MAX_N = 2 ** 31 - 32  # int32 indices; a row too long for shared memory is read from L2
 
 
 def k_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

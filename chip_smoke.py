@@ -406,7 +406,8 @@ def stage_two(dev, device_ms, kernel_events, measure):
 
 
 def stage_one(dev, device_ms, kernel_events, measure):
-    """Phases 11-14: the Chamfer kernels against their plain versions, the
+    """Phases 11-14: FPS and k-smallest at the Stage-I shapes and the Chamfer
+    kernels against their plain versions, the
     full-width dVAE's train-mode loss and backward through the kernels and
     through the plain versions, ``run_autoencoder_steps``, ``validate``, and
     the kernel times. Returns (timing rows by kernel, errors, launches of the
@@ -423,6 +424,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.models.teacher import teacher_forward
     from act_tpu_torch.ops import _backend
     from act_tpu_torch.ops import chamfer as chamfer_mod
+    from act_tpu_torch.ops.fps import tie_swaps
 
     cfg = load_config(AUTOENCODER_CONFIG)
     bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
@@ -432,7 +434,27 @@ def stage_one(dev, device_ms, kernel_events, measure):
     clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
     errs = {}
 
-    # -- 11. the Chamfer kernels against their plain versions ----------------
+    # -- 11. FPS and k-smallest at the Stage-I shapes (B=64 picks its own
+    # cluster size), then the Chamfer kernels against their plain versions --
+    with torch.inference_mode():
+        kc, rc = ops.furthest_point_sample(clouds, G), ops.furthest_point_sample_ref(clouds, G)
+        n_sw = tie_swaps(kc, rc)
+        if n_sw < 0 or not torch.equal(kc.sort(-1).values, rc.sort(-1).values):
+            fail(f"fps ({bs}, {npts}, 3)->{G}: kernel picks differ beyond tie swaps")
+        errs[f"fps {bs}x{npts}->{G}"] = float(
+            (ops.gather_points(clouds, kc) - ops.gather_points(clouds, rc)).abs().max())
+        print(f"[check] fps ({bs}, {npts}, 3)->{G}: equal up to {n_sw} adjacent tie swaps",
+              flush=True)
+        centers = ops.gather_points(clouds, rc)
+        s1_d = [(ops.square_distance(centers, clouds).reshape(bs * G, npts), M),
+                (ops.square_distance(centers, centers).reshape(bs * G, G), 4)]
+        for d, kk in s1_d:
+            (kv, ki), (rv, ri) = ops.k_smallest(d, kk), ops.k_smallest_ref(d, kk)
+            if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+                fail(f"k_smallest {tuple(d.shape)} k={kk}: differs from the plain version")
+            errs[f"k_smallest {tuple(d.shape)} k={kk}"] = 0.0
+            print(f"[check] k_smallest {tuple(d.shape)} k={kk}: indices equal, values "
+                  "bit-equal", flush=True)
     g = torch.Generator(device=dev).manual_seed(3)
 
     def rnd(*shape):
@@ -642,6 +664,16 @@ def stage_one(dev, device_ms, kernel_events, measure):
                 lambda x=x, y=y: ops.chamfer_min_ref(x, y), None, 100, 5,
                 chamfer_bounds(x, y, False), n)
                 for (x, y, *_), n in ((saved["validation"], 1), (saved["whole cloud"], 0))],
+            "fps": [measure(
+                f"({bs}, {npts}, 3)->{G}", lambda: ops.furthest_point_sample(clouds, G),
+                lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
+                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={kk}", lambda d=d, kk=kk: ops.k_smallest(d, kk),
+                lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
+                lambda d=d, kk=kk: torch.topk(d, kk, dim=-1, largest=False, sorted=True),
+                100, 20, bound_ms(d.numel() * 4 + d.shape[0] * kk * 8, d.numel()), n)
+                for (d, kk), n in zip(s1_d, (1, 2))],
         }
     print_times("Stage-I ", rows)
     return rows, errs, launches, val_launches
@@ -701,6 +733,8 @@ def main() -> None:
     with torch.inference_mode():
         k_rs = ops.furthest_point_sample(clouds, npoints)
         r_rs = ops.furthest_point_sample_ref(clouds, npoints)
+        k_one = ops.furthest_point_sample(clouds[:1], npoints)  # the B=1 request
+        r_one = ops.furthest_point_sample_ref(clouds[:1], npoints)
         pts = ops.gather_points(clouds, r_rs)  # the resampled clouds, plain path
         k_c = ops.furthest_point_sample(pts, G)
         r_c = ops.furthest_point_sample_ref(pts, G)
@@ -712,7 +746,8 @@ def main() -> None:
         g_pairs = [(clouds, r_rs), (pts, r_c), (pts, nbr_idx)]
         g_out = [(ops.gather_coords(p, i), ops.gather_points(p, i)) for p, i in g_pairs]
         torch.cuda.synchronize()
-    for tag, k, r, p in (("8192->1024", k_rs, r_rs, clouds), ("1024->64", k_c, r_c, pts)):
+    for tag, k, r, p in (("8192->1024", k_rs, r_rs, clouds), ("1024->64", k_c, r_c, pts),
+                         ("B=1 8192->1024", k_one, r_one, clouds[:1])):
         n_sw = tie_swaps(k, r)
         if n_sw < 0:
             fail(f"fps {tag}: kernel picks differ from the plain version beyond tie swaps")
@@ -832,6 +867,7 @@ def main() -> None:
 
     with torch.inference_mode():
         d_pts = pts.contiguous()
+        one = clouds[:1].contiguous()
         gi = [(p.contiguous(), i.contiguous()) for p, i in g_pairs]
         long_idx = [i.long().reshape(B, -1, 1).expand(-1, -1, p.shape[-1]).contiguous()
                     for p, i in gi]
@@ -842,6 +878,11 @@ def main() -> None:
                         lambda: ops.furthest_point_sample_ref(clouds, npoints), None, 20, 1,
                         bound_ms(clouds.numel() * 4 + B * npoints * 4,
                                  10.0 * B * (npoints - 1) * N_IN)),
+                measure(f"(1, {N_IN}, 3)->{npoints} (B=1 request)",
+                        lambda: ops.furthest_point_sample(one, npoints),
+                        lambda: ops.furthest_point_sample_ref(one, npoints), None, 20, 1,
+                        bound_ms(one.numel() * 4 + npoints * 4,
+                                 10.0 * (npoints - 1) * N_IN)),
                 measure(f"({B}, {npoints}, 3)->{G}",
                         lambda: ops.furthest_point_sample(d_pts, G),
                         lambda: ops.furthest_point_sample_ref(d_pts, G), None, 50, 3,
@@ -898,6 +939,8 @@ def main() -> None:
     with torch.inference_mode():
         stage["resample (fps + gather)"] = lambda: ops.gather_coords(
             clouds, ops.furthest_point_sample(clouds, npoints))
+        stage["resample at B=1"] = lambda: ops.gather_coords(
+            one, ops.furthest_point_sample(one, npoints))
         stage["group_points"] = lambda: ops.group_points(d_pts, G, M)
         nbr, ctr = ops.group_points(d_pts, G, M)
         stage["model after grouping"] = lambda: model.forward_grouped(nbr, ctr)
@@ -941,7 +984,9 @@ def main() -> None:
             "per_launch": [{"path": where, "shape": r["shape"], "per_step_or_request": r["n"],
                             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                             "bound_ms": r["bound"][0], "library_ms": r["library_ms"]}
-                           for where, group in ((path, rows), ("serve", shapes.get(kernel, [])))
+                           for where, group in ((path, rows), ("serve", shapes.get(kernel, [])),
+                                                ("autoencoder", [] if by_kernel is stage1
+                                                 else stage1.get(kernel, [])))
                            for r in group],
         }
 

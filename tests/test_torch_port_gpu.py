@@ -46,6 +46,107 @@ def test_fps_kernel_matches_plain(cuda, B, N, S):
     assert torch.equal(got[:, 0].cpu(), start.int())
 
 
+@pytest.mark.parametrize("N", [8192, 1024, 777])
+@pytest.mark.parametrize("B", [1, 2, 32, 33, 64, 128, 200])
+def test_fps_kernel_batch_sizes_and_starts(cuda, B, N):
+    """Every batch size picks its own cluster size (at N=8192: 8 at B=1 and
+    2, 4 at B=32 and 33, 2 at B=64, 1 at B=128 and 200); random starts,
+    picks equal up to adjacent tie swaps with the same selected set."""
+    pts = cloud(30 + B, B, N, 3, device=cuda)
+    start = torch.randint(0, N, (B,), generator=torch.Generator().manual_seed(B)).to(cuda)
+    got = ops.furthest_point_sample(pts, 200, start_idx=start)
+    want = ops.furthest_point_sample_ref(pts, 200, start)
+    assert tie_swaps(got, want) >= 0
+    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+    assert torch.equal(got[:, 0], start.int())
+
+
+def fps_geometries(N):
+    """Every cluster size with 1-16 points a thread that covers N."""
+    for c in (1, 2, 4, 8):
+        slice_ = -(-N // c)
+        for ppt in (1, 2, 4, 8, 16):
+            threads = -(-slice_ // ppt)
+            threads = max(32, -(-threads // 32) * 32)
+            if threads <= 1024:
+                yield c, threads, ppt
+
+
+def launch_fps(pts, S, start, geometry):
+    B, N, _ = pts.shape
+    out = torch.empty(B, S, dtype=torch.int32, device=pts.device)
+    _backend.launch("fps", pts, start.int(), out, B, N, S, *geometry)
+    return out
+
+
+@pytest.mark.parametrize("N", [8192, 1024, 777, 20])
+def test_fps_kernel_every_cluster_geometry(cuda, N):
+    """Each cluster size the launch may pick, at each points-a-thread count
+    that covers N, walks like the plain version."""
+    pts = cloud(40, 3, N, 3, device=cuda)
+    start = torch.tensor([0, N // 2, N - 1], device=cuda)
+    S = min(N, 100)
+    want = ops.furthest_point_sample_ref(pts, S, start)
+    for geo in fps_geometries(N):
+        got = launch_fps(pts, S, start, geo)
+        assert tie_swaps(got, want) >= 0, geo
+        assert torch.equal(got.sort(-1).values, want.sort(-1).values), geo
+
+
+@pytest.mark.parametrize("N", [8192, 1024, 777])
+def test_fps_kernel_ties_across_cluster_blocks(cuda, N):
+    """An all-equal cloud and a cloud of duplicated points: every distance
+    tie, also between points in different blocks of a cluster, goes to the
+    smaller index, exactly as the plain version's first argmax."""
+    half = cloud(41, 2, N // 2, 3, device=cuda)
+    dup = torch.cat([half, half, half[:, : N - 2 * (N // 2)]], 1).contiguous()
+    same = torch.full((2, N, 3), 0.25, device=cuda)
+    start = torch.tensor([0, N - 1], device=cuda)
+    for pts in (dup, same):
+        want = ops.furthest_point_sample_ref(pts, 64, start)
+        assert torch.equal(ops.furthest_point_sample(pts, 64, start_idx=start), want)
+        for geo in fps_geometries(N):
+            assert torch.equal(launch_fps(pts, 64, start, geo), want), geo
+
+
+def tied_rows(seed, rows, N):
+    """Rows drawn from a few values whose order keys differ in each of the
+    four radix digits, each value repeated many times."""
+    one = np.float32(1.0).view(np.uint32)
+    ladder = np.array([one, one + 1, one + 2, one + 0x100, one + 0x10000,
+                       one + 0x1000000, one - 1], dtype=np.uint32).view(np.float32)
+    pick = np.random.default_rng(seed).integers(0, len(ladder), size=(rows, N))
+    return torch.from_numpy(ladder[pick])
+
+
+@pytest.mark.parametrize("N,k", [(1024, 32), (777, 100), (300, 1), (300, 300), (64, 4)])
+def test_k_smallest_kernel_many_ties_across_digits(cuda, N, k):
+    d = tied_rows(N + k, 50, N).to(cuda)
+    vals, idx = ops.k_smallest(d, k)
+    want_v, want_i = ops.k_smallest_ref(d, k)
+    assert torch.equal(idx, want_i) and torch.equal(vals, want_v)
+
+
+@pytest.mark.parametrize("k", [1, 5, 37, 129])
+def test_k_smallest_kernel_all_equal_rows(cuda, k):
+    for fill in (0.0, -0.0, 3.5):
+        d = torch.full((9, 129), fill, device=cuda)
+        vals, idx = ops.k_smallest(d, k)
+        assert torch.equal(idx.cpu(), torch.arange(k, dtype=torch.int32).expand(9, k))
+        assert torch.equal(vals.view(torch.int32), d[:, :k].view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,N,k", [(6, 777, 1), (6, 777, 777), (4, 33, 33), (4, 31, 7),
+                                      (3, 58112, 32), (2, 58112, 100), (2, 70001, 16)])
+def test_k_smallest_kernel_edges(cuda, rows, N, k):
+    """k = 1 and k = N, N not a multiple of 32, and rows too long for shared
+    memory (read from device memory in each pass)."""
+    d = cloud(50 + N, rows, N, device=cuda)
+    vals, idx = ops.k_smallest(d, k)
+    want_v, want_i = ops.k_smallest_ref(d, k)
+    assert torch.equal(idx, want_i) and torch.equal(vals, want_v)
+
+
 @pytest.mark.parametrize("rows,N,k", [(2048, 1024, 32), (7, 777, 3),
                                       (5, 20000, 16), (3, 64, 64)])
 def test_k_smallest_kernel_matches_plain(cuda, rows, N, k):

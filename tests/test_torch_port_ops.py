@@ -222,3 +222,34 @@ def test_kernel_build_names_every_source():
     assert sorted(_backend.LAUNCHES) == sorted(_backend.KERNELS)
     assert "arch=compute_90a,code=sm_90a" in _backend.NVCC_FLAGS
     assert _backend._target("k_smallest").parent == _backend.BUILD_DIR
+
+
+def test_fps_launch_geometry():
+    """The FPS launch splits a cloud over a cluster while the B*C blocks fit
+    the card's SMs one a SM and each keeps MIN_SLICE points, and falls back to
+    a smaller cluster when the card cannot run all B clusters at once."""
+    from act_tpu_torch.ops.fps import MIN_SLICE, launch_geometry
+
+    def roomy(N, c, threads, ppt):
+        return 1000
+
+    for B in (1, 2, 7, 32, 33, 64, 128, 200, 256):
+        for N in (1, 20, 777, 1024, 4096, 8192, 16384):
+            c, threads, ppt = launch_geometry(B, N, 132, roomy)
+            slice_ = -(-N // c)
+            assert c in (1, 2, 4, 8) and ppt in (1, 2, 4, 8, 16)
+            assert threads % 32 == 0 and 32 <= threads <= 1024
+            assert threads * ppt >= slice_
+            assert c == 1 or (B * c <= 132 and slice_ >= MIN_SLICE)
+            bigger = {1: 2, 2: 4, 4: 8}.get(c)
+            if bigger and N >= bigger * MIN_SLICE:  # the next size up did not fit
+                assert B * bigger > 132
+    assert launch_geometry(1, 8192, 132, roomy)[0] == 8
+    assert launch_geometry(32, 8192, 132, roomy)[0] == 4
+    assert launch_geometry(64, 8192, 132, roomy)[0] == 2
+    assert launch_geometry(128, 8192, 132, roomy)[0] == 1
+    assert launch_geometry(32, 8192, 132, roomy) == (4, 256, 8)
+    assert launch_geometry(1, 8192, 132, roomy) == (8, 128, 8)
+    assert launch_geometry(128, 1024, 132, roomy) == (1, 128, 8)
+    assert launch_geometry(32, 8192, 132, lambda N, c, t, p: 0 if c == 4 else 1000)[0] == 2
+    assert launch_geometry(32, 8192, 132, lambda N, c, t, p: 31)[0] == 1
