@@ -37,8 +37,8 @@ KERNELS = {
     "k_smallest": ("topk", "act_ksmallest", [_P, _P, _P, _I, _I, _I, _P]),
     "gather": ("gather", "act_gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "gumbel_argmax": ("gumbel", "act_gumbel_argmax", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "chamfer_nn": ("chamfer", "act_chamfer_nn", [_P] * 6 + [_I] * 3 + [_P]),
-    "chamfer_nn_min": ("chamfer", "act_chamfer_nn_min", [_P] * 4 + [_I] * 3 + [_P]),
+    "chamfer_nn": ("chamfer", "act_chamfer_nn", [_P] * 7 + [_I] * 8 + [_P]),
+    "chamfer_nn_min": ("chamfer", "act_chamfer_nn_min", [_P] * 4 + [_I] * 8 + [_P]),
     "chamfer_bwd": ("chamfer", "act_chamfer_bwd", [_P] * 8 + [_I] * 3 + [_P]),
 }
 

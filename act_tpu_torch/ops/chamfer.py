@@ -13,7 +13,10 @@ Under grad, :func:`chamfer_distances` launches ``chamfer_nn`` and saves the
 indices; its backward launches ``chamfer_bwd``. When nothing takes a gradient
 it launches the distance-only ``chamfer_nn_min`` and saves nothing, as the
 JAX ``custom_vjp`` splits its primal from ``_chamfer_fwd``
-(``chamfer.py:312-324``).
+(``chamfer.py:312-324``). Both forwards compute each distance once and take
+its row and column minima from tiles of the distance matrix;
+:func:`launch_geometry` picks the tiling (see the note at the top of the
+source).
 """
 from __future__ import annotations
 
@@ -22,7 +25,66 @@ from typing import Tuple
 import torch
 
 from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops.fps import _sms
 from act_tpu_torch.ops.reference import chamfer_bwd_ref, chamfer_min_ref, chamfer_ref
+
+SHARED_LIMIT = 48 * 1024  # a block's default shared memory: no opt-in attribute
+MAX_THREADS = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def shared_bytes(tq: int, tt: int, r: int, threads: int, pack: int) -> int:
+    """Shared memory of a forward launch with ``chamfer_nn``'s 8-byte keys
+    (``chamfer_nn_min``'s are 4): the staged points of y and their column
+    minima, and each warp's row minima (a tile's warps split its points of y
+    only when the block holds one tile)."""
+    wpc = threads // 32 if pack == 1 else 1
+    return pack * tt * (16 + 8) + pack * wpc * tq * 8
+
+
+def lanes(tq: int, r: int, threads: int, pack: int) -> Tuple[int, int]:
+    """(w, wq) of a tiling: the lanes on one tile, 32 / w tiles a warp (one
+    tile over all warps when pack is 1, else pack / warps tiles a warp), and
+    those across its points of x; w / wq lanes go across its points of y."""
+    return (32 if pack == 1 else threads // pack), tq // r
+
+
+def launch_geometry(B: int, N: int, M: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """(tq, tt, r, threads, pack) of a Chamfer forward launch on a card of
+    ``sms`` SMs: a tile is tq points of x by tt points of y, a lane holds r
+    points of x, and a block of ``threads`` takes ``pack`` tiles (see
+    :func:`lanes` for how the lanes share a tile).
+
+    Clouds of at most 32 points of x and 512 of y whose tile fits the shared
+    memory go whole: tq the next power of two of N, r = tq / 2 within
+    [1, 8], and w = max(tq / r, min(16, tq)) lanes on a tile; the block is
+    the largest of 256, 128, 64, 32 threads that gives every SM two blocks,
+    else the smallest that fits. Other clouds take r = min(8, the next power
+    of two of N), the first tq of 32 r, 16 r, 8 r, 4 r (below 2 N) and tt of
+    512, 256, 128, 64 (at most M) whose tiles give every SM two blocks (else
+    tq = 4 r, tt = 64), one tile a block and one warp for each 32 of its
+    points of y, at most 256 threads.
+    ``python -m act_tpu_torch.kernel_sweep`` times the alternatives."""
+    if N <= 32 and M <= 512:
+        tq = 1 << (N - 1).bit_length()
+        r = max(1, min(8, tq // 2))
+        w = max(tq // r, min(16, tq))
+        fits = [t for t in (MAX_THREADS, 128, 64, 32)
+                if shared_bytes(tq, M, r, t, t // w) <= SHARED_LIMIT]
+        if fits:
+            t = next((t for t in fits if _cdiv(B, t // w) >= 2 * sms), fits[-1])
+            return tq, M, r, t, t // w
+    r = min(8, 1 << (N - 1).bit_length())
+    tq, tt = 4 * r, 64
+    for tq_, tt_ in ((q, t) for q in (32 * r, 16 * r, 8 * r, 4 * r) for t in (512, 256, 128, 64)):
+        if (tq_ < 2 * N or tq_ == 4 * r) and B * _cdiv(N, tq_) * _cdiv(M, tt_) >= 2 * sms:
+            tq, tt = tq_, tt_
+            break
+    tt = min(tt, M)
+    return tq, tt, r, min(MAX_THREADS, 32 * _cdiv(tt, 32)), 1
 
 
 def _check_clouds(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -50,7 +112,11 @@ def nn_pair(x: torch.Tensor, y: torch.Tensor
     i1 = torch.empty(B, N, dtype=torch.int32, device=x.device)
     i2 = torch.empty(B, M, dtype=torch.int32, device=x.device)
     if B:
-        _backend.launch("chamfer_nn", x, y, d1, i1, d2, i2, B, N, M)
+        geo = launch_geometry(B, N, M, _sms(x.device.index))
+        # the merge keys of the directions that span several tiles
+        keys = (torch.empty(B * (N + M), dtype=torch.int64, device=x.device)
+                if N > geo[0] or M > geo[1] else 0)
+        _backend.launch("chamfer_nn", x, y, d1, i1, d2, i2, keys, B, N, M, *geo)
     return d1, d2, i1, i2
 
 
@@ -62,9 +128,11 @@ def nn_pair_min(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     _backend.check_cuda_input(x, "chamfer x", torch.float32)
     _backend.check_cuda_input(y, "chamfer y", torch.float32)
     (B, N, _), M = x.shape, y.shape[1]
-    d1, d2 = x.new_empty(B, N), x.new_empty(B, M)
+    out = x.new_empty(B * (N + M))  # one buffer: one memset readies both for the merge
+    d1, d2 = out[:B * N].view(B, N), out[B * N:].view(B, M)
     if B:
-        _backend.launch("chamfer_nn_min", x, y, d1, d2, B, N, M)
+        geo = launch_geometry(B, N, M, _sms(x.device.index))
+        _backend.launch("chamfer_nn_min", x, y, d1, d2, B, N, M, *geo)
     return d1, d2
 
 

@@ -424,7 +424,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.models.teacher import teacher_forward
     from act_tpu_torch.ops import _backend
     from act_tpu_torch.ops import chamfer as chamfer_mod
-    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.ops.fps import _sms, tie_swaps
 
     cfg = load_config(AUTOENCODER_CONFIG)
     bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
@@ -462,6 +462,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
     with torch.inference_mode():
         gt = ops.group_points(clouds, G, M)[0].reshape(bs * G, M, 3)
         dup = rnd(2, 100, 3)
+        rep = rnd(2, 300, 3)  # repeated past one tile of x and of y: equal minima across tiles
         cases = {  # name -> (x, y)
             "recon coarse": ((gt[:, ::4] + 0.01 * rnd(bs * G, M // 4, 3)).contiguous(), gt),
             "recon fine": ((gt + 0.01 * rnd(bs * G, M, 3)).contiguous(), gt),
@@ -469,6 +470,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
             "whole cloud": (rnd(*WHOLE_CLOUD, 3), rnd(*WHOLE_CLOUD, 3)),
             "ragged": (rnd(3, 777, 3), rnd(3, 1001, 3)),
             "ties": (dup[:, :60].contiguous(), torch.cat([dup, dup], 1)),
+            "ties across tiles": (torch.cat([rep[:, :150]] * 4, 1), torch.cat([rep] * 5, 1)),
         }
         saved = {}
         for name, (x, y) in cases.items():
@@ -676,6 +678,21 @@ def stage_one(dev, device_ms, kernel_events, measure):
                 for (d, kk), n in zip(s1_d, (1, 2))],
         }
     print_times("Stage-I ", rows)
+    sms = _sms(torch.cuda.current_device())
+    for name, names in (("chamfer_nn", ("recon coarse", "recon fine")),
+                        ("chamfer_nn_min", ("validation", "whole cloud"))):
+        for x, y, *_ in (saved[n] for n in names):
+            print(f"[geometry] {name} {tuple(x.shape)}x{tuple(y.shape)}: (tq, tt, r, threads, "
+                  f"pack) = {chamfer_mod.launch_geometry(x.shape[0], x.shape[1], y.shape[1], sms)}",
+                  flush=True)
+    # one validation cloud on the path that chamfer_nn_min serves
+    cloud_ms = device_ms(lambda: validate(run.model, val[:1]), 5)
+    nn_min_ms = rows["chamfer_nn_min"][0]["ms"]
+    share = "not measured" if cloud_ms is None else f"{nn_min_ms / cloud_ms:.4f}"
+    print(f"[time] validate per cloud: device "
+          f"{'not measured' if cloud_ms is None else f'{cloud_ms:.5f}'} ms (the forward and "
+          f"the metrics of one cloud of {npts} points); chamfer_nn_min {nn_min_ms:.5f} ms of it, "
+          f"share {share}", flush=True)
     return rows, errs, launches, val_launches
 
 

@@ -30,7 +30,9 @@ from act_tpu.ops import chamfer as jchamfer
 
 from act_tpu_torch import ops
 from act_tpu_torch.ops import _backend
+from act_tpu_torch.kernel_sweep import CHAMFER_SHAPES
 from act_tpu_torch.ops import chamfer as chamfer_mod
+from act_tpu_torch.ops.reference import pair_distance
 
 
 def t(a):
@@ -209,3 +211,148 @@ def test_wrappers_validate_arguments():
     i, g = torch.zeros(2, 5, dtype=torch.int32), torch.zeros(2, 5)
     with pytest.raises(ValueError, match="chamfer_bwd"):
         chamfer_mod.chamfer_bwd(x, x, i, i, g, g[:, :4])
+
+
+# -- the forward's tiling (ops/chamfer.py launch_geometry) and merge keys ----
+
+# one validation cloud, the whole-cloud op, the recon loss's two calls, a
+# ragged pair, single-point clouds and N or M of 1
+TILING_SHAPES = [(1, 2048, 1024), (32, 2048, 2048), (4096, 8, 32), (4096, 32, 32),
+                 (3, 777, 1001), (5, 1, 40), (2, 300, 1), (1, 1, 1), (3, 1, 2048),
+                 (2, 2048, 1), (7, 33, 5), (64, 32, 1024)]
+
+
+def covered_intervals(B, N, M, geo):
+    """For each lane and each of its points of x: (cloud, point of x, first
+    and end of its warp's share of points of y, the lane's offset across y),
+    from the index arithmetic of ``nn_kernel`` in ``csrc/chamfer.cu`` (a lane
+    walks its share's points lane, lane + wt, ...); also each lane's warp
+    and share length, which must be the same across a warp (its shuffles)."""
+    tq, tt, r, threads, pack = geo
+    w, wq = chamfer_mod.lanes(tq, r, threads, pack)
+    per_warp, warps = 32 // w, threads // 32
+    wpc = warps if pack == 1 else 1
+    qtiles, ttiles = -(-N // tq), -(-M // tt)
+    tiles = B * qtiles * ttiles
+    blocks = -(-tiles // pack)
+    blk, tid = np.divmod(np.arange(blocks * threads), threads)
+    warp, lane = tid // 32, tid % 32
+    seg, sl = lane // w, lane % w
+    ql, tl = sl % wq, sl // wq
+    slot = (warp // wpc) * per_warp + seg
+    u = blk * pack + slot
+    on = u < tiles
+    u = np.where(on, u, 0)
+    cloud, rest = np.divmod(u, qtiles * ttiles)
+    q0, t0 = rest // ttiles * tq, rest % ttiles * tt
+    chunk = -(-tt // wpc)
+    lo = (warp % wpc) * chunk
+    cnt = np.maximum(0, np.minimum(chunk, np.minimum(tt, M - t0) - lo))
+    q = q0[:, None] + ql[:, None] * r + np.arange(r)
+    keep = on[:, None] & (q < N) & (tl < cnt)[:, None]
+    rows = [np.broadcast_to(a[:, None], q.shape)[keep]
+            for a in (cloud, t0 + lo, t0 + lo + cnt, tl)]
+    return (rows[0], q[keep], *rows[1:]), (blk * warps + warp, cnt)
+
+
+def assert_covers_every_pair_once(B, N, M, geo):
+    """Every (point of x, point of y) pair of every cloud lies in exactly one
+    lane's walk, and the launch is one the C launcher accepts."""
+    tq, tt, r, threads, pack = geo
+    w, wq = chamfer_mod.lanes(tq, r, threads, pack)
+    assert r in (1, 2, 4, 8, 16) and wq * r == tq and wq & (wq - 1) == 0 and w % wq == 0
+    assert threads % 32 == 0 and 32 <= threads <= 256 and tt >= 1
+    assert pack == 1 or (pack % (threads // 32) == 0 and 32 % (pack // (threads // 32)) == 0)
+    assert w == 32 or (N <= tq and M <= tt)  # tiles share a warp only whole
+    (cloud, q, first, end, tl), (warp_id, cnt) = covered_intervals(B, N, M, geo)
+    wt = w // wq
+    order = np.lexsort((tl, first, q, cloud))
+    cloud, q, first, end, tl = cloud[order], q[order], first[order], end[order], tl[order]
+    share = np.r_[True, (cloud[1:] != cloud[:-1]) | (q[1:] != q[:-1])
+                  | (first[1:] != first[:-1])]
+    # the wt lanes across y of each share: each offset once, as many as the share holds
+    starts = np.flatnonzero(share)
+    sizes = np.diff(np.r_[starts, len(tl)])
+    assert np.all(sizes == np.minimum(wt, end[starts] - first[starts]))
+    assert np.all(tl == np.arange(len(tl)) - np.repeat(starts, sizes))
+    cloud, q, first, end = cloud[starts], q[starts], first[starts], end[starts]
+    key = cloud.astype(np.int64) * N + q
+    new = np.r_[True, key[1:] != key[:-1]]
+    assert np.array_equal(np.unique(key), np.arange(B * N))  # every point of x
+    assert np.all(first[new] == 0)                            # from the first point of y
+    assert np.all(end[np.r_[new[1:], True]] == M)             # to the last
+    assert np.all(first[~new] == end[np.flatnonzero(~new) - 1])  # no gap, no overlap
+    by_warp = np.lexsort((cnt, warp_id))
+    w_sorted, c_sorted = warp_id[by_warp], cnt[by_warp]
+    same = w_sorted[1:] == w_sorted[:-1]
+    assert np.all(c_sorted[1:][same] == c_sorted[:-1][same])  # uniform within a warp
+    assert chamfer_mod.shared_bytes(*geo) <= 48 * 1024
+
+
+@pytest.mark.parametrize("B,N,M", TILING_SHAPES)
+def test_launch_geometry_covers_every_pair_once(B, N, M):
+    assert_covers_every_pair_once(B, N, M, chamfer_mod.launch_geometry(B, N, M, 132))
+
+
+@pytest.mark.parametrize("shape", list(CHAMFER_SHAPES))
+def test_swept_tilings_cover_every_pair_once(shape):
+    """Each tiling that ``kernel_sweep`` times, and the pick it is held
+    against, at its shape."""
+    tilings = CHAMFER_SHAPES[shape]
+    assert chamfer_mod.launch_geometry(*shape, 132) in tilings and len(tilings) <= 6
+    for geo in tilings:
+        assert_covers_every_pair_once(*shape, geo)
+
+
+def test_launch_geometry_fills_the_card_at_one_validation_cloud():
+    """At least two blocks an SM for one validation cloud, (1, 2048)x(1, 1024)."""
+    tq, tt, r, threads, pack = chamfer_mod.launch_geometry(1, 2048, 1024, 132)
+    blocks = -(-(-(-2048 // tq) * -(-1024 // tt)) // pack)
+    assert blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("N", [1, 2, 8, 31, 32, 33, 300, 2048, 8192])
+@pytest.mark.parametrize("M", [1, 7, 32, 64, 512, 513, 2048, 8192])
+def test_launch_geometry_shared_memory_within_48kb(N, M):
+    """The default 48 KB a block, with chamfer_nn's 8-byte keys, at any shape."""
+    for B in (1, 3, 64, 4096):
+        geo = chamfer_mod.launch_geometry(B, N, M, 132)
+        assert chamfer_mod.shared_bytes(*geo) <= 48 * 1024, (B, N, M, geo)
+
+
+def merge_keys(d: np.ndarray, axis: int) -> np.ndarray:
+    """(f32 bits << 32) | index along ``axis``, as chamfer_nn merges tiles."""
+    idx = np.arange(d.shape[axis], dtype=np.uint64)
+    idx = idx[None, :] if axis == 1 else idx[:, None]
+    bits = np.ascontiguousarray(d).view(np.uint32).astype(np.uint64)
+    return (bits << np.uint64(32)) | idx
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "all equal", "inf", "some inf"])
+def test_merge_key_minimum_is_min_and_first_index(rng, case):
+    """The smallest (distance bits, index) key of a row or column gives the
+    plain version's minimum and first index, with ties and inf distances;
+    taking it tile by tile (any order) gives the same key."""
+    x, y = clouds(rng, 1, 40, 50)
+    if case == "ties":
+        y = np.concatenate([y[:, :10]] * 5, 1)
+        x = np.concatenate([x[:, :8]] * 5, 1)
+    elif case == "all equal":
+        x, y = np.ones_like(x), np.ones_like(y)
+    elif case == "inf":
+        x, y = 2e19 + 1e18 * x, -2e19 + 1e18 * y
+    elif case == "some inf":
+        x = np.concatenate([2e19 + 1e18 * x[:, :20], x[:, 20:]], 1)
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    d = pair_distance(t(x), t(y))[0].numpy()
+    d1, d2, i1, i2 = (a[0].numpy() for a in ops.chamfer_ref(t(x), t(y)))
+    assert case not in ("inf", "some inf") or np.isinf(d1).any()
+    for axis, dist, index in ((1, d1, i1), (0, d2, i2)):
+        keys = merge_keys(d, axis)
+        best = keys.min(axis=axis)
+        np.testing.assert_array_equal((best >> np.uint64(32)).astype(np.uint32).view(np.float32),
+                                      dist)
+        np.testing.assert_array_equal((best & np.uint64(0xFFFFFFFF)).astype(np.int32), index)
+        parts = np.array_split(keys, 7, axis=axis)
+        tiled = np.stack([p.min(axis=axis) for p in parts[::-1]]).min(axis=0)
+        np.testing.assert_array_equal(tiled, best)

@@ -14,7 +14,8 @@ from act_tpu_torch import ops
 from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
-from act_tpu_torch.ops.fps import tie_swaps
+from act_tpu_torch.kernel_sweep import CHAMFER_SHAPES, chamfer_runs
+from act_tpu_torch.ops.fps import _sms, tie_swaps
 from act_tpu_torch.utils.config import ConfigDict
 
 pytestmark = pytest.mark.gpu
@@ -362,6 +363,81 @@ def test_chamfer_kernel_ties_take_the_first_index(cuda):
     half = torch.tensor([[[0.5, 0, 0], [1, 0, 0], [0, 0, 0]]], device=cuda)
     _, _, i1, i2 = chamfer_mod.nn_pair(half, grid)
     assert i1.tolist() == [[0, 1, 0]] and i2.tolist() == [[2, 1, 2, 1]]
+
+
+def check_chamfer(x, y, geo=None):
+    """chamfer_nn and chamfer_nn_min, through the wrappers or at tiling
+    ``geo``: distances bit-equal to the plain versions, indices equal."""
+    want = {"chamfer_nn": ops.chamfer_ref(x, y), "chamfer_nn_min": ops.chamfer_min_ref(x, y)}
+    if geo is None:
+        got = {"chamfer_nn": chamfer_mod.nn_pair(x, y),
+               "chamfer_nn_min": chamfer_mod.nn_pair_min(x, y)}
+    else:
+        got = {k: run() for k, run in chamfer_runs(x, y, geo).items()}
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, geo)
+    return got["chamfer_nn"]
+
+
+# tilings whose tiles split both clouds of the tie and overflow cases below
+SPLIT_TILINGS = [None, (64, 64, 2, 64, 1), (32, 64, 8, 64, 1), (256, 512, 8, 256, 1),
+                 (512, 256, 16, 256, 1), (64, 64, 8, 64, 1)]
+
+
+@pytest.mark.parametrize("geo", SPLIT_TILINGS)
+def test_chamfer_kernel_ties_across_tiles(cuda, geo):
+    """Equal minima in different tiles, in both directions: y repeats a cloud
+    of 300 points 5 times (more than one tile of y), then x does (more than
+    one tile of x). The first index wins, merged across the tiles."""
+    p = cloud(30, 2, 300, 3, device=cuda)
+    first = torch.arange(200, dtype=torch.int32).expand(2, 200)
+    x, y = p[:, :200].contiguous(), torch.cat([p] * 5, 1)
+    tt = (geo or chamfer_mod.launch_geometry(2, 200, 1500, _sms(torch.cuda.current_device())))[1]
+    assert tt < 1500
+    assert torch.equal(check_chamfer(x, y, geo)[2].cpu(), first)
+    tq = (geo or chamfer_mod.launch_geometry(2, 1500, 200, _sms(torch.cuda.current_device())))[0]
+    assert tq < 1500
+    assert torch.equal(check_chamfer(y, x, geo)[3].cpu(), first)
+
+
+@pytest.mark.parametrize("geo", SPLIT_TILINGS)
+def test_chamfer_kernel_all_equal_clouds(cuda, geo):
+    """Every distance 0: every index is 0 in both directions."""
+    x, y = torch.full((3, 700, 3), 0.5, device=cuda), torch.full((3, 900, 3), 0.5, device=cuda)
+    d1, d2, i1, i2 = check_chamfer(x, y, geo)
+    assert not d1.any() and not d2.any() and not i1.any() and not i2.any()
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 1000, 333), (1, 2047, 1025), (5, 65, 129),
+                                   (3, 33, 513), (4, 513, 31)])
+def test_chamfer_kernels_ragged_tiles(cuda, B, N, M):
+    """N and M not multiples of the tile, through the wrappers."""
+    check_chamfer(cloud(31, B, N, 3, device=cuda), cloud(32, B, M, 3, device=cuda))
+
+
+@pytest.mark.parametrize("shape", list(CHAMFER_SHAPES))
+def test_chamfer_kernels_every_swept_tiling(cuda, shape):
+    """Each tiling that kernel_sweep times, at its shape (the 4096 group
+    problems of the recon loss at full B; the large shapes at fewer clouds)."""
+    B, N, M = shape
+    B = B if N * M <= 4096 else min(B, 2)
+    x, y = cloud(33, B, N, 3, device=cuda), cloud(34, B, M, 3, device=cuda)
+    for geo in CHAMFER_SHAPES[shape]:
+        check_chamfer(x, y, geo)
+
+
+@pytest.mark.parametrize("geo", SPLIT_TILINGS)
+def test_chamfer_kernel_distances_overflow_to_inf(cuda, geo):
+    """Coordinates near 1e19: the squared distances overflow to inf. The
+    merge keys still order them: all-inf rows take index 0, as the plain
+    version does; mixed with finite distances, finite ones win."""
+    a = 2e19 + 1e18 * cloud(35, 2, 300, 3, device=cuda)
+    b = cloud(36, 2, 400, 3, device=cuda)
+    d1 = check_chamfer(torch.cat([a, b[:, :200]], 1), b, geo)[0]
+    assert torch.isinf(d1[:, :300]).all() and torch.isfinite(d1[:, 300:]).all()
+    d1, d2, i1, i2 = check_chamfer(a, -2e19 + 1e18 * b, geo)
+    assert torch.isinf(d1).all() and torch.isinf(d2).all() and not i1.any() and not i2.any()
 
 
 def test_chamfer_distances_forward_backward_match_plain(cuda):
