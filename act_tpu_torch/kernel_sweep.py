@@ -1,5 +1,6 @@
-"""Sweeps of the FPS and Chamfer kernels' launch geometries and times of the
-k-smallest kernel on one CUDA card, beside an earlier version of the kernels.
+"""Sweeps of the FPS, Chamfer and Gumbel kernels' launch geometries and times
+of the k-smallest kernel on one CUDA card, beside an earlier version of the
+kernels.
 
   python -m act_tpu_torch.kernel_sweep [--parent DIR] [--out FILE]
 
@@ -13,11 +14,17 @@ version (indices equal, values bit-equal) and ``torch.topk``. It runs
 validation, whole-cloud, both recon and a ragged shape, at each tiling it
 sweeps and the one ``ops/chamfer.py`` ``launch_geometry`` picks, checks every
 run against the plain versions (distances bit-equal, indices equal) and
-prints the device times. With
-``--parent DIR`` (a checkout that holds an earlier ``act_tpu_torch/csrc``),
-that version's ``fps.cu``, ``topk.cu`` and ``chamfer.cu``, where they differ
-from the current ones, are built too and timed at the same shapes in the same
-process, in turns with the current ones.
+prints the device times. It runs ``csrc/gumbel.cu`` at the Stage-II shape
+(bf16 and f32) and at smaller and ragged ones, at each bucket count and
+split of a row over warps it sweeps and the one ``ops/sampling.py``
+``launch_geometry`` picks, checks every run id for id against
+``gumbel_argmax_ref`` (outputs filled with -1 before each checked run), and
+prints the device times and the screen's survivors a row (from its plain
+model ``sampling.screen_ref``). With ``--parent DIR`` (a checkout that holds
+an earlier ``act_tpu_torch/csrc``), that version's ``fps.cu``, ``topk.cu``,
+``chamfer.cu`` and ``gumbel.cu``, where they differ from the current ones,
+are built too and timed at the same shapes in the same process, in turns
+with the current ones.
 Writes every row as JSON to ``--out`` (default
 ``chiprun_out/kernel_sweep.json``).
 """
@@ -37,7 +44,9 @@ from torch.profiler import ProfilerActivity, profile
 from act_tpu_torch import ops
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
+from act_tpu_torch.ops import sampling
 from act_tpu_torch.ops.fps import MAX_PPT, _max_clusters, _sms, launch_geometry, tie_swaps
+from act_tpu_torch.ops.reference import gumbel_chunk
 
 # the serving resample at B=32 and B=1, Stage II's centers (Stage I's at B=64
 # take the same geometry), the SVM probe's resample, the largest clouds
@@ -61,6 +70,15 @@ CHAMFER_SHAPES = {
                      (256, 128, 8, 128, 1), (128, 128, 8, 128, 1), (32, 64, 8, 64, 1)],
 }
 
+# Gumbel-argmax (rows, V, dtype): the Stage-II shape in both dtypes, one row,
+# a V that takes the vector path, a ragged V (the scalar path), and 512 and
+# 1024 rows of 8192 (on either side of the exact kernel's limit)
+GUMBEL_SHAPES = [(8192, 8192, torch.bfloat16), (8192, 8192, torch.float32),
+                 (1, 8192, torch.bfloat16), (300, 1000, torch.bfloat16),
+                 (37, 1001, torch.float32), (512, 8192, torch.bfloat16),
+                 (1024, 8192, torch.bfloat16)]
+GUMBEL_BITS, GUMBEL_SEGS = (6, 8, 10), (1, 8)
+
 
 def device_ms(fn, iters: int):
     """Summed device-kernel time of one call, averaged over ``iters`` calls;
@@ -82,12 +100,14 @@ PARENT_FNS = {
     "chamfer": [("act_chamfer_nn", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
                 ("act_chamfer_nn_min",
                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])],
+    "gumbel": [("act_gumbel_argmax", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])],
 }
 
 
 def build_parent(parent: Path) -> dict:
-    """The earlier fps.cu, topk.cu and chamfer.cu that differ from the
-    current ones, built as in ``_backend``, by launch function (PARENT_FNS
+    """The earlier fps.cu, topk.cu, chamfer.cu and gumbel.cu that differ from
+    the current ones, built as in ``_backend``, by launch function (PARENT_FNS
     holds each one's signature before its redesign)."""
     out_dir = _backend.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -182,14 +202,227 @@ def chamfer_runs(x: torch.Tensor, y: torch.Tensor, geo=None, old=None) -> dict:
     return {"chamfer_nn": nn, "chamfer_nn_min": nn_min}
 
 
+def gumbel_geometries(rows: int, v: int, sms: int):
+    """(k, cut, warps a row, blocks): the exact kernel, then the screen at each
+    bucket count and split swept, its cut ``screen_bits``', the grid the
+    blocks that stay resident (or as many as the rows need)."""
+    yield 0, 0, sampling.WARPS, rows
+    cut = sampling.screen_bits(v)[1]
+    for k in GUMBEL_BITS:
+        for segs in GUMBEL_SEGS:
+            per_block = sampling.WARPS // segs
+            yield k, cut, segs, max(1, min(sms * sampling.BLOCKS_PER_SM, -(-rows // per_block)))
+
+
+def gumbel_launch(logits: torch.Tensor, seed: torch.Tensor, out: torch.Tensor, geo) -> None:
+    """``csrc/gumbel.cu`` at geometry (k, cut, warps a row, blocks)."""
+    v = logits.shape[-1]
+    rows = logits.numel() // v
+    _backend.launch("gumbel_argmax", logits, seed, out, rows, v, gumbel_chunk(rows, v),
+                    int(logits.dtype == torch.bfloat16), *geo)
+
+
+def exact_logit(target: float, g: float):
+    """An f32 logit x with fl(x + g) == target, g an f32 noise value, or None
+    where rounding to even steps over the target."""
+    t = torch.tensor(target, dtype=torch.float32)
+    gt = torch.tensor(g, dtype=torch.float32)
+    x = t - gt
+    for _ in range(8):
+        s = x + gt
+        if s == t:
+            return float(x)
+        x = torch.nextafter(x, torch.tensor(float("inf") if s < t else float("-inf")))
+    return None
+
+
+def gumbel_cases(rows: int, v: int, dtype: torch.dtype, device):
+    """(logits, seed, cases): (rows, V) randn logits of ``dtype`` (generator
+    seed 0) with hard rows written in, the seed words, and {case: (row, the
+    id it must give)}, each case on a row of its own.
+
+    Exact ties (the same value at two lanes, the first index wins) and near
+    ties (one step apart, in either order) of two lanes placed in one
+    thread's loads of a tile, one warp's tile, two tiles of a row (one
+    warp's in turn, or two warps' where the row is split) and tiles 0 and 8
+    (one warp's where the row is split over 8): in f32 the logits solved for
+    the values 30 and one ulp above, in bf16 logits 2^100 and one bf16 step
+    above, which absorb the noise. The same for pairs of lanes whose noise is
+    equal (their logits 30, or one step above), sorted by where they lie. An
+    all-zero row; a NaN, a +inf logit; and where the seed draws u = 1 lanes
+    (+inf noise; the seed is the first [s, 1], s < 16, that has two such
+    rows when rows x V >= 2^25), a -inf logit on one (a NaN value, which
+    wins) and one that wins tied at +inf with a later +inf logit. Cases whose
+    lanes the noise does not give are left out."""
+    seed = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    bits = sampling.hash_bits(rows, v, seed, device)
+    for s in range(16 if rows * v >= 2 ** 25 else 0):
+        seed = torch.tensor([s, 1], dtype=torch.int32, device=device)
+        bits = sampling.hash_bits(rows, v, seed, device)
+        if int(torch.isposinf(sampling.noise_of_bits(bits)).any(-1).sum()) >= 2:
+            break
+    g = sampling.noise_of_bits(bits)
+    del bits
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(rows, v, generator=gen, device=device)
+    inf_rows = torch.isposinf(g).any(-1).nonzero().flatten().tolist()
+    cases = {}
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    vec = vec if v % vec == 0 else 1  # lanes a load: the vector or the scalar path
+    loads = 4 if vec > 1 else 16  # a thread's loads a tile
+
+    def lane(tile, load, thread, q):
+        return ((tile * loads + load) * 32 + thread) * vec + q
+
+    def where(i, j):
+        (ti, ci), (tj, cj) = (divmod(n // vec, 32 * loads) for n in (i, j))
+        return ("two tiles" if ti != tj else "one thread" if ci % 32 == cj % 32 else "one warp")
+
+    def place(name, row, want, **lanes):
+        cases[name] = (row, want)
+        for lane, val in lanes.values():
+            x[row, lane] = val
+        if row in free:
+            free.remove(row)
+
+    # pairs of lanes with equal finite noise below 2, by where they lie
+    srt, idx = g.sort(-1)
+    eq = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] < 2)
+    pairs, taken = {}, set(inf_rows)  # where -> up to 3 (row, i, j) on rows of their own
+    at = eq.nonzero()
+    ends = torch.stack([idx[at[:, 0], at[:, 1]], idx[at[:, 0], at[:, 1] + 1]], 1)
+    for r, (i, j) in zip(at[:, 0].tolist(), ends.sort(1).values.tolist()):
+        at_ = where(i, j)
+        if r not in taken and len(pairs.setdefault(at_, [])) < 3:
+            pairs[at_].append((r, i, j))
+            taken.add(r)
+    free = [r for r in range(rows) if r not in taken]
+    up = 30.125 if dtype == torch.bfloat16 else float(
+        torch.nextafter(torch.tensor(30.0), torch.tensor(64.0)))
+    kinds = (("tie", 30.0, 30.0, 0), ("near tie, later lane larger", 30.0, up, 1),
+             ("near tie, earlier lane larger", up, 30.0, 0))  # name, logits, winner
+    for at_, found in pairs.items():
+        for (r, i, j), (name, a, b, w) in zip(found, kinds):
+            place(f"{name}, equal noise, {at_}", r, (i, j)[w], a=(i, a), b=(j, b))
+    # lanes placed by hand: f32 logits solved for the value 30 (or one ulp
+    # above); bf16 logits 2^100 (or one bf16 step above), which absorb the noise
+    big = (2.0 ** 100, 2.0 ** 100 * (1 + 2 ** -7))
+    first = lane(0, 0, 0, min(1, vec - 1))
+    placed = {"one thread": (first, lane(0, 1, 0, vec - 1)), "one warp": (first, lane(0, 2, 5, 0)),
+              "two tiles": (first, lane(1, 0, 3, 0)), "nine tiles": (first, lane(8, 3, 0, 0))}
+    for at_, (i, j) in placed.items():
+        for name, a, b, w in kinds:
+            if j >= v or len(free) < 4:
+                break
+            if dtype == torch.float32:
+                for r in free:
+                    la, lb = exact_logit(a, float(g[r, i])), exact_logit(b, float(g[r, j]))
+                    if la is not None and lb is not None:
+                        break
+                a, b = la, lb
+            else:
+                r, a, b = free[0], big[a != 30.0], big[b != 30.0]
+            place(f"{name}, {at_}", r, (i, j)[w], a=(i, a), b=(j, b))
+    if len(free) >= 3:
+        x[free[0]] = 0.0
+        place("all-zero row", free[0], int(torch.argmax(g[free[0]])))
+        place("NaN logit", free[0], min(5, v - 1), a=(min(5, v - 1), float("nan")))
+        place("+inf logit", free[0], v - 1, a=(v - 1, float("inf")))
+    if len(inf_rows) >= 2:
+        (ra, ja), (rb, jb) = [(r, int(torch.isposinf(g[r]).nonzero()[0])) for r in inf_rows[:2]]
+        cases["-inf logit on a u = 1 lane"] = (ra, ja)
+        x[ra, ja] = float("-inf")
+        cases["u = 1 lane wins, tied at +inf"] = (rb, jb)
+        if jb < v - 1:
+            x[rb, v - 1] = float("inf")
+    return x.to(dtype), seed, cases
+
+
+def check_gumbel_cases(ids: torch.Tensor, want: torch.Tensor, cases: dict) -> list:
+    """The cases whose kernel id differs from the plain version's or from the
+    id the case must give."""
+    return [name for name, (r, i) in cases.items()
+            if not int(ids[r]) == int(want[r]) == i]
+
+
+def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
+    """The Gumbel part of the sweep: rows to ``rows``, failures to ``bad``."""
+    for rows_, v, dtype in GUMBEL_SHAPES:
+        shape = f"({rows_}, {v}) {str(dtype).split('.')[-1]}"
+        g = torch.Generator(device=dev).manual_seed(rows_ + v)
+        logits = torch.randn(rows_, v, generator=g, device=dev).to(dtype)
+        seed = torch.tensor([123456789, -5], dtype=torch.int32, device=dev)
+        want = ops.gumbel_argmax_ref(logits, seed)
+        bits = sampling.hash_bits(rows_, v, seed, dev)
+        cut = sampling.screen_bits(v)[1]
+        live = {k: sampling.screen_ref(logits, bits, k, cut) for k in GUMBEL_BITS}
+        del bits
+        out = torch.empty(rows_, dtype=torch.int32, device=dev)
+        picked = sampling.launch_geometry(rows_, v, sms)
+        iters = 20 if rows_ * v > 2 ** 22 else 100
+        times = {}
+        for geo in sorted(set(gumbel_geometries(rows_, v, sms)) | {picked}):
+            out.fill_(-1)
+            gumbel_launch(logits, seed, out, geo)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                n = int((out != want).sum())
+                print(f"MISMATCH gumbel_argmax {shape} at {geo}: {n} ids differ")
+                bad.append(f"gumbel_argmax {shape} {geo}")
+                continue
+            ms = device_ms(lambda geo=geo: gumbel_launch(logits, seed, out, geo), iters)
+            rows.append(dict(kernel="gumbel_argmax", shape=[rows_, v, str(dtype)],
+                             geometry=list(geo), picked=geo == picked, ms=ms))
+            if ms is None:
+                print(f"    gumbel_argmax {geo}: no device kernel recorded, not measured")
+            else:
+                times[geo] = ms
+        for k, (ids, n) in live.items():
+            if not torch.equal(ids, want):
+                bad.append(f"gumbel screen model {shape} k={k}")
+            rows.append(dict(kernel="gumbel_survivors", shape=[rows_, v, str(dtype)], k=k,
+                             mean=float(n.float().mean()), max=int(n.max())))
+        if picked not in times:
+            continue
+        best = min(times, key=times.get)
+        line = (f"[gumbel_argmax] {shape}: picked (k, cut, warps a row, blocks) = {picked} "
+                f"{times[picked]:.5f} ms; best {best} {times[best]:.5f} ms; survivors a row "
+                + ", ".join(f"k={k} {float(n.float().mean()):.2f} (max {int(n.max())})"
+                            for k, (_, n) in live.items()))
+        if "act_gumbel_argmax" in old:
+            def run_old():
+                call(old["act_gumbel_argmax"], logits, seed, out, rows_, v,
+                     gumbel_chunk(rows_, v), int(dtype == torch.bfloat16))
+            out.fill_(-1)
+            run_old()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                bad.append(f"parent gumbel_argmax {shape}")
+            t_old = [device_ms(run_old, iters)]
+            t_new = [device_ms(lambda: ops.gumbel_argmax(logits, seed), iters) for _ in range(2)]
+            t_old.append(device_ms(run_old, iters))
+            rows.append(dict(kernel="gumbel_argmax_parent", shape=[rows_, v, str(dtype)],
+                             ms=t_old, new_ms=t_new))
+            line += (f"; parent {t_old[0]:.5f}/{t_old[1]:.5f} ms, current "
+                     f"{t_new[0]:.5f}/{t_new[1]:.5f} ms (parent, current, current, parent)")
+        if rows_ * v > 2 ** 22:
+            clock = sm_clock_mhz(lambda: ops.gumbel_argmax(logits, seed))
+            rows.append(dict(kernel="gumbel_clock", shape=[rows_, v, str(dtype)],
+                             sm_clock_power=clock))
+            line += f"; SM clock, power while it runs: {clock}"
+        print(line, flush=True)
+        for geo, t in sorted(times.items()):
+            print(f"    {geo}: {t:.5f} ms", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/kernel_sweep.json"))
     args = ap.parse_args()
     dev = _backend.resolve_device("cuda")
-    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn"))
-    for stem in ("fps", "topk", "chamfer"):
+    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn", "gumbel_argmax"))
+    for stem in ("fps", "topk", "chamfer", "gumbel"):
         for line in _backend.BUILD_LOG.get(stem, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
@@ -322,6 +555,7 @@ def main() -> None:
             print(line, flush=True)
             for geo, t in sorted(mine.items()):
                 print(f"    {geo}: {t:.5f} ms", flush=True)
+    sweep_gumbel(dev, sms, old, rows, bad)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
     print(f"wrote {args.out}", flush=True)

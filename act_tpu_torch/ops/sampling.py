@@ -2,17 +2,94 @@
 
 Counterpart of ``act_tpu/ops/sampling.py``. The noise is the counter hash of
 the JAX kernel's interpret path, so the ids equal ``gumbel_argmax_pallas``
-in interpret mode for the same seed words; see the note at the top of the
-source.
+in interpret mode for the same seed words. The kernel screens every lane
+against bounds of its noise from a table over buckets of its hash and takes
+the exact noise only for the lanes that can still win; ``launch_geometry``
+picks the buckets, the warps a row and the persistent grid. See the note at
+the top of the source.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
 from act_tpu_torch.ops import _backend
-from act_tpu_torch.ops.reference import gumbel_argmax_ref, gumbel_chunk
+from act_tpu_torch.ops.fps import _sms
+from act_tpu_torch.ops.reference import _MASK32, gumbel_argmax_ref, gumbel_chunk
 
 DTYPES = (torch.bfloat16, torch.float32)
+MIN_BITS, MAX_BITS = 4, 11  # bucket bits k the kernel takes
+MAX_CUT = 8  # the candidates are the top 2^-cut of the hash's 31 bits, 1 <= cut <= 8
+WARPS = 8  # a block of the kernel: 256 threads
+BLOCKS_PER_SM = 4  # resident together: __launch_bounds__(256, 4)
+TILE = 1024  # lanes a warp screens at once (bf16; 512 in f32 or one element a load)
+SHARED_LIMIT = 48 * 1024  # a block's default shared memory: no opt-in attribute
+EXACT_LOGITS = 1 << 22  # calls this small take every lane exactly, a block a row
+
+
+def cut_bits(cut: int) -> int:
+    """The first hash bits of the candidates: b0 = 2^31 - 2^(31 - cut)."""
+    return 2 ** 31 - 2 ** (31 - cut)
+
+
+def table_bytes(k: int) -> int:
+    """Shared memory of the bucket table: 2^(k+1) + 1 float2."""
+    return 8 * ((2 << k) + 1)
+
+
+def screen_bits(v: int) -> Tuple[int, int]:
+    """(k, cut) of the screen for rows of V lanes: see :func:`launch_geometry`."""
+    return (max(MIN_BITS, min(8, v.bit_length() - 4)),
+            max(1, min(MAX_CUT, (v // 32).bit_length() - 1)))
+
+
+def launch_geometry(rows: int, v: int, sms: int) -> Tuple[int, int, int, int]:
+    """(bucket bits k, cut, warps a row, blocks) of a Gumbel-argmax launch on
+    a card of ``sms`` SMs.
+
+    A call of at most ``EXACT_LOGITS`` logits (up to 512 rows of 8192) takes
+    (0, 0, 8, rows): no screen, a block of 256 threads a row, every lane
+    exact; the sweep found the screen slower there, each block's table and
+    passes costing more than the exact noise of the few rows it takes.
+    Larger calls are screened.
+
+    The candidates are the lanes whose hash lies in the top 2^-cut, about 32
+    a row (cut = log2(V / 32) within [1, 8]: 8 at V = 8192), and the table
+    splits them, and all bits, into 2^k buckets (k = V's bit length - 4
+    within [4, 8]: 8 at V = 8192, where the sweep found it faster than 6 and
+    10; 2^(k+1) + 1 noise pairs a block, at most V / 4). A row goes to one
+    warp where the rows fill the card's resident warps; fewer rows are split
+    over up to 8 warps of a block (as many as the row has tiles of ``TILE``
+    lanes). The grid is persistent: the blocks that stay resident together,
+    or as many as the rows need, each taking 8 / segs rows at a time.
+    ``python -m act_tpu_torch.kernel_sweep`` times the alternatives."""
+    if rows * v <= EXACT_LOGITS:
+        return 0, 0, WARPS, rows
+    k, cut = screen_bits(v)
+    resident = sms * BLOCKS_PER_SM * WARPS
+    segs = 1
+    while segs < WARPS and rows * segs * 2 <= resident and segs * TILE < v:
+        segs *= 2
+    return k, cut, segs, max(1, min(sms * BLOCKS_PER_SM, -(-rows // (WARPS // segs))))
+
+
+def bound_violations(k: int, cut: int, device) -> Tuple[int, int]:
+    """Over all 2^31 hash bits on the card: (bits whose noise is below its
+    predecessor's or NaN, bits whose noise lies outside either of its
+    buckets' [Glo, Ghi] in the table of k and cut). Both 0 make the kernel's
+    screen exact. Not a path kernel: not counted in ``_backend.LAUNCHES``."""
+    if not (MIN_BITS <= k <= MAX_BITS and 1 <= cut <= MAX_CUT):
+        raise ValueError(f"k must be in [{MIN_BITS}, {MAX_BITS}] and cut in [1, {MAX_CUT}], "
+                         f"got {k}, {cut}")
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    fn = _backend.library("gumbel_argmax").act_gumbel_bound_check
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2, ctypes.c_int
+    err = fn(k, cut, bad.data_ptr(), torch.cuda.current_stream(bad.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gumbel bound check launch failed: cudaError {err}")
+    return tuple(int(n) for n in bad.tolist())
 
 
 def draw_seed(generator: torch.Generator) -> torch.Tensor:
@@ -44,6 +121,72 @@ def gumbel_argmax(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     rows = logits.numel() // v
     out = torch.empty(*lead, dtype=torch.int32, device=logits.device)
     if rows:
+        geo = launch_geometry(rows, v, _sms(logits.device.index))
         _backend.launch("gumbel_argmax", logits, seed, out, rows, v, gumbel_chunk(rows, v),
-                        int(logits.dtype == torch.bfloat16))
+                        int(logits.dtype == torch.bfloat16), *geo)
     return out
+
+
+# -- a plain model of the kernel's screen, for the tests and the sweep --------
+
+def hash_bits(rows: int, v: int, seed: torch.Tensor, device) -> torch.Tensor:
+    """The 31 hash bits of every lane of a (rows, V) call, as
+    ``gumbel_perturbed_ref`` draws them: (rows, V) int64."""
+    s0, s1 = (int(s) for s in seed.reshape(-1)[:2].tolist())
+    chunk = gumbel_chunk(rows, v)
+    row = torch.arange(rows, dtype=torch.int64, device=device)
+    base = ((row % chunk) * 0x9E3779B9 + s0 * 69069 + s1 * 1013904223
+            + (row // chunk) * 22695477 + 374761393)
+    h = (base[:, None] + torch.arange(v, dtype=torch.int64, device=device) * 40503) & _MASK32
+    h = h ^ ((h << 13) & _MASK32)
+    h = h ^ (h >> 17)
+    h = h ^ ((h << 5) & _MASK32)
+    return h >> 1
+
+
+def noise_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The Gumbel noise of int64 hash bits, -log(-log(max(f32(bits) 2^-31, 1e-10)))."""
+    return -torch.log(-torch.log(torch.clamp_min(bits.to(torch.float32) * 2.0 ** -31, 1e-10)))
+
+
+def buckets(bits: torch.Tensor, k: int, cut: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two table entries of int64 hash bits: (entry 0 below the
+    cut b0, else 1 + which of 2^k equal parts of [b0, 2^31) holds them;
+    2^k + 1 + which of 2^k equal parts of [0, 2^31) holds them)."""
+    b0 = cut_bits(cut)
+    top = torch.where(bits < b0, 0, 1 + ((bits - b0) >> (31 - cut - k)))
+    return top, (1 << k) + 1 + (bits >> (31 - k))
+
+
+def bucket_table(k: int, cut: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Glo, Ghi), each (2^(k+1) + 1,) f32: the noise at the first and last
+    bits of each table entry's bucket (see :func:`buckets`)."""
+    b = torch.arange(1 << k, dtype=torch.int64, device=device)
+    b0, top, uni = cut_bits(cut), 31 - cut - k, 31 - k
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.cat([zero, b0 + (b << top), b << uni])
+    end = torch.cat([zero + b0, b0 + ((b + 1) << top), (b + 1) << uni])
+    return noise_of_bits(first), noise_of_bits(end - 1)
+
+
+def screen_ref(x: torch.Tensor, bits: torch.Tensor, k: int, cut: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's rule in plain torch: x (rows, V) logits, bits (rows, V)
+    hash bits -> (ids (rows,) int32, survivors a row (rows,) int64).
+
+    A candidate (bits >= b0) is bounded by its bucket among the top 2^k, the
+    others below by Glo[0] and above by their bucket among the uniform 2^k:
+    lo, hi = f32(x) + those bounds. T is the row's max of lo ignoring NaN; a
+    lane survives unless hi < T, and the first index of the largest exact
+    value among the survivors wins (NaN above every number). (The kernel
+    takes T over a warp's tiles so far and looks up a lane below the cut only
+    where f32(x) + Ghi[0] reaches T: the same ids, a few more survivors.)"""
+    glo, ghi = bucket_table(k, cut, x.device)
+    xf = x.float()
+    top, uni = buckets(bits, k, cut)
+    lo = xf + glo[top]
+    hi = xf + torch.where(top > 0, ghi[top], ghi[uni])
+    t = torch.where(torch.isnan(lo), float("-inf"), lo).amax(-1, keepdim=True)
+    live = ~(hi < t)
+    val = torch.where(live, xf + noise_of_bits(bits), float("-inf"))
+    return torch.argmax(val, dim=-1).to(torch.int32), live.sum(-1)

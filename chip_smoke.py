@@ -189,8 +189,9 @@ def stage_two(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.engine.serve import load_config
     from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
     from act_tpu_torch.models.teacher import teacher_forward
-    from act_tpu_torch.ops import _backend
-    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.kernel_sweep import check_gumbel_cases, gumbel_cases
+    from act_tpu_torch.ops import _backend, sampling
+    from act_tpu_torch.ops.fps import _sms, tie_swaps
 
     cfg = load_config(PRETRAIN_CONFIG)
     bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
@@ -223,6 +224,21 @@ def stage_two(dev, device_ms, kernel_events, measure):
             n_inf = int(torch.isposinf(pert).sum())
             print(f"[check] {tag} ({bs * G}, {V}) bf16: ids equal (tolerance: exact); "
                   f"{n_inf} lanes drew u = 1 (+inf noise)", flush=True)
+        # the screen's bound, then constructed ties, near ties, NaN and +-inf rows
+        geo = sampling.launch_geometry(bs * G, V, _sms(dev.index or 0))
+        if sampling.bound_violations(geo[0], geo[1], dev) != (0, 0):
+            fail(f"gumbel_argmax: the noise leaves its bucket bounds at k, cut = {geo[:2]}")
+        hard, hard_seed, cases = gumbel_cases(bs * G, V, torch.bfloat16, dev)
+        k, r = ops.gumbel_argmax(hard, hard_seed), ops.gumbel_argmax_ref(hard, hard_seed)
+        wrong = check_gumbel_cases(k, r, cases)
+        if not torch.equal(k, r) or wrong:
+            fail(f"gumbel_argmax hard rows: {int((k != r).sum())} ids differ from the plain "
+                 f"version; cases wrong: {wrong}")
+        errs[f"gumbel_argmax hard rows seed {hard_seed.tolist()}"] = 0.0
+        print(f"[check] gumbel_argmax geometry (k, cut, warps a row, blocks) = {geo}; noise "
+              f"within its bucket bounds for all 2^31 bits; {len(cases)} hard rows at "
+              f"({bs * G}, {V}) bf16, seed {hard_seed.tolist()}, ids equal the plain version's "
+              f"and each case's own (tolerance: exact): {', '.join(cases)}", flush=True)
 
     # -- 7. the other kernels at the Stage-II shapes; FPS at start 0 ----------
     clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
