@@ -37,39 +37,39 @@
 // largest lower end seen), a lane whose upper end is below T can neither win
 // nor tie; NaN upper ends (a NaN logit, or -inf + inf) survive the test `hi <
 // T` as written. The table has three parts: entry 0, all bits below the cut b0
-// = 2^31 - 2^(31 - cut); 2^k buckets over [b0, 2^31), the candidates (about 32
-// lanes a row: cut = 8 at V = 8192); 2^k buckets over all bits. Per lane the
-// kernel takes only the hash, one compare (candidate or not) and the running
-// max of the logits (bf16 two lanes an instruction), without branches: below
-// the cut fl(lmax + Glo[0]) bounds every lane from below and fl(lmax + Ghi[0])
-// from above, so a thread none of whose logits reaches T - Ghi[0] looks nothing
-// up. The candidates (~4 in a warp's tile) take their top bucket's bounds;
-// after T, they and the few lanes below the cut whose coarse bound reaches T
-// are held to their bucket's upper bound, and the survivors (~1.1 a row at V =
-// 8192 with randn logits) take noise() exactly and the usual (value, first
-// index) fold. The table is built in shared memory once a block from the same
-// noise(); the grid is persistent (4 blocks a SM walk the rows) to amortise it.
-// act_gumbel_bound_check proves on the card, over all 2^31 bits and at every k
-// and cut, that noise() is non-decreasing and lies in both of its buckets (the
-// device logf promises 1 ulp, not monotonicity); it holds with no margin, so
-// the table is not widened.
+// = 2^31 - 2^23; 2^k buckets over [b0, 2^31), the candidates (the top 2^-8 of
+// the bits, about 32 lanes a row at V = 8192); 2^k buckets over all bits. Per
+// lane the kernel takes only the hash, one compare (candidate or not) and the
+// running max of the logits (bf16 two lanes an instruction), without branches:
+// below the cut fl(lmax + Glo[0]) bounds every lane from below and fl(lmax +
+// Ghi[0]) from above, so a thread none of whose logits reaches T - Ghi[0] looks
+// nothing up. The candidates (~4 in a warp's tile) take their top bucket's
+// bounds; after T, they and the few lanes below the cut whose coarse bound
+// reaches T are held to their bucket's upper bound, and the survivors (~1.1 a
+// row at V = 8192 with randn logits) take noise() exactly and the usual (value,
+// first index) fold. The table is built in shared memory once a block from the
+// same noise(); the grid is persistent (4 blocks a SM walk the rows) to
+// amortise it. act_gumbel_bound_check proves on the card, over all 2^31 bits and
+// at every k, that noise() is non-decreasing and lies in both of its buckets
+// (the device logf promises 1 ulp, not monotonicity); it holds with no margin,
+// so the table is not widened.
 //
-// Calls of at most 2^22 logits (up to 512 rows of 8192) skip the screen: a
-// block a row takes every lane exactly, as the earlier kernel did, since there
-// the table and the passes cost more than they save (the wrapper decides).
+// A warp takes a row and walks it in tiles of 32 threads x 4 16-byte loads
+// (1024 bf16 or 512 f32 lanes), all loads of a tile issued before its
+// arithmetic; 32 warps a SM keep the loads in flight (a register prefetch of
+// the next tile cost more in registers than it hid). The cut is a compile-time
+// constant, which keeps the kernel within 64 registers without spills. The
+// warp's max of lo (fmaxf ignores NaN) runs across its tiles of the row:
+// screening a tile against the max so far is still exact, as it is a lower
+// bound of the row's maximum. The candidates and survivors re-read their logit
+// (the tile's lines, just loaded; a 32-way register select was slower). Ties go
+// to the smaller index through the NaN-aware compare.
 //
-// A warp walks a row in tiles of 32 threads x 4 16-byte loads (1024 bf16 or 512
-// f32 lanes; 16 single elements a thread for a ragged V or an unaligned row),
-// all loads of a tile issued before its arithmetic; 32 warps a SM keep the
-// loads in flight (a register prefetch of the next tile cost more in registers
-// than it hid). At V = 8192 the cut is a compile-time 8, which keeps the vector
-// path within 64 registers without spills. The warp's max of lo (fmaxf ignores
-// NaN) runs across its tiles of the row: screening a tile against the max so
-// far is still exact, as it is a lower bound of the row's maximum. The
-// candidates and survivors re-read their logit (the tile's lines, just
-// loaded; a 32-way register select was slower). Rows go one to a warp where they fill the card; a few
-// rows are split over up to 8 warps of a block, whose (value, index) pairs meet
-// in shared memory. Ties go to the smaller index through the NaN-aware compare.
+// A ragged V, a row that is not 16-byte aligned (the scalar path) or a row
+// shorter than a tile is not screened: a block of 256 threads a row takes every
+// lane exactly, one element at a time, as the earlier kernel did. There a warp
+// a row would pay its block's table for a part of a tile (on an H100 the sweep
+// measured (300, 1000) bf16 at 0.0104 ms screened, against 0.0029 exact).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
@@ -79,11 +79,10 @@
 namespace {
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kMinBits = 4, kMaxBits = 11;  // bucket bits k: a table of 2^(k+1) + 1 float2
-constexpr int kMaxCut = 8;  // candidates: the top 2^-cut of the 31 bits, 1 <= cut <= 8
-
-// The cut: the first bits of the candidates, b0 = 2^31 - 2^(31 - cut)
-__device__ __forceinline__ uint32_t cut_bits(int cut) { return (1u << 31) - (1u << (31 - cut)); }
+constexpr int kLoads = 4;  // 16-byte loads a thread a tile of the screen
+constexpr int kMinBits = 6, kMaxBits = 10;  // bucket bits k: a table of 2^(k+1) + 1 float2
+constexpr int kCut = 8;                     // candidates: the top 2^-8 of the 31 bits
+constexpr uint32_t kB0 = (1u << 31) - (1u << (31 - kCut));  // their first bits
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -95,9 +94,9 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
-// The running max of logits, NaN if any is NaN: one at a time, or bf16 on
-// the vector path a pair at a time (one instruction for two lanes)
-template <typename T, int VEC>
+// The running max of logits, NaN if any is NaN: one at a time, or bf16 a
+// pair at a time (one instruction for two lanes)
+template <typename T>
 struct Max {
   static constexpr int kLanes = 1;
   float m = -INFINITY;
@@ -106,7 +105,7 @@ struct Max {
   __device__ __forceinline__ float value() const { return m; }
 };
 template <>
-struct Max<__nv_bfloat16, 8> {
+struct Max<__nv_bfloat16> {
   static constexpr int kLanes = 2;
   __nv_bfloat162 m = __bfloat162bfloat162(__float2bfloat16(-INFINITY));
   __device__ __forceinline__ void add(const __nv_bfloat16* x) {
@@ -139,33 +138,41 @@ __device__ __forceinline__ uint32_t mix(uint32_t h) {
   return h;
 }
 
+// The row's hash base: the hash of lane l is mix(base + l * 40503), its bits
+// that value >> 1
+__device__ __forceinline__ uint32_t row_base(int row, int chunk, const int* seed) {
+  const int pid = row / chunk;
+  return static_cast<uint32_t>(row - pid * chunk) * 2654435769u
+         + static_cast<uint32_t>(seed[0]) * 69069u
+         + static_cast<uint32_t>(seed[1]) * 1013904223u
+         + static_cast<uint32_t>(pid) * 22695477u + 374761393u;
+}
+
 // The table: entry 0 bounds every bits below the cut b0; entries 1 to 2^k
 // split [b0, 2^31) into 2^k equal buckets (the candidates'); entries
 // 2^k + 1 to 2^(k+1) split [0, 2^31) into 2^k equal buckets (for a lane below
 // the cut whose logit is large enough to need a finer bound). For h = 2 bits
 // + (0 or 1), the kernel takes a candidate's bucket (h >= 2 b0) as
-// 1 + ((h >> (32 - cut - k)) & (2^k - 1)) and the other as
+// 1 + ((h >> (24 - k)) & (2^k - 1)) and the other as
 // 2^k + 1 + (h >> (32 - k)).
-__device__ __forceinline__ int top_bucket(uint32_t bits, int k, int cut) {
-  const uint32_t b0 = cut_bits(cut);
-  return bits < b0 ? 0 : 1 + static_cast<int>((bits - b0) >> (31 - cut - k));
+__device__ __forceinline__ int top_bucket(uint32_t bits, int k) {
+  return bits < kB0 ? 0 : 1 + static_cast<int>((bits - kB0) >> (31 - kCut - k));
 }
 __device__ __forceinline__ int all_bucket(uint32_t bits, int k) {
   return (1 << k) + 1 + static_cast<int>(bits >> (31 - k));
 }
 
 // table[b] = (noise at bucket b's first bits, noise at its last bits)
-__device__ void build_table(float2* table, int k, int cut) {
+__device__ void build_table(float2* table, int k) {
   const int n = 1 << k;
-  const uint32_t b0 = cut_bits(cut);
   for (int b = threadIdx.x; b <= 2 * n; b += blockDim.x) {
     uint32_t first, end;  // bits [first, end)
     if (b == 0) {
       first = 0u;
-      end = b0;
+      end = kB0;
     } else if (b <= n) {
-      first = b0 + (static_cast<uint32_t>(b - 1) << (31 - cut - k));
-      end = b0 + (static_cast<uint32_t>(b) << (31 - cut - k));
+      first = kB0 + (static_cast<uint32_t>(b - 1) << (31 - kCut - k));
+      end = kB0 + (static_cast<uint32_t>(b) << (31 - kCut - k));
     } else {
       first = static_cast<uint32_t>(b - n - 1) << (31 - k);
       end = static_cast<uint32_t>(b - n) << (31 - k);
@@ -174,15 +181,9 @@ __device__ void build_table(float2* table, int k, int cut) {
   }
 }
 
-template <typename T, int VEC>
-struct Chunk;  // VEC lanes read in one load
 template <typename T>
-struct Chunk<T, 1> {
-  T e[1];
-};
-template <typename T, int VEC>
-struct alignas(16) Chunk {
-  T e[VEC];
+struct alignas(16) Vec {  // the lanes of one 16-byte load
+  T e[16 / sizeof(T)];
 };
 
 // (bv, bi) <- the better of it and lane `off` away, over a warp
@@ -198,175 +199,132 @@ __device__ __forceinline__ void warp_best(float& bv, int& bi) {
   }
 }
 
-// VEC lanes per load (16 bytes, or 1 element for a ragged V or an unaligned
-// row). A warp walks its tiles of a row (32 threads x C loads, contiguous):
-// the s-th of the row's `segs` warps takes tiles s, s + segs, ...; a block's
-// warps take 8 / segs rows at a time, its rounds stride over the rows by
-// the grid. CUT > 0 fixes the cut at compile time (the path's 8: its
-// constants save registers), CUT = 0 takes `cut`.
-template <typename T, int VEC, int CUT>
+// The vector path, screened: a warp a row, rows blockIdx * 8 + warp, then
+// the next gridDim * 8; a warp walks its row in tiles of 32 threads x C
+// 16-byte loads, contiguous.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 4)
-gumbel_argmax_kernel(const T* __restrict__ logits, const int* __restrict__ seed,
-                     int* __restrict__ out, int rows, int v, int chunk, int k, int cut_arg,
-                     int segs) {
-  constexpr int C = VEC > 1 ? 4 : 16;  // loads a thread a tile: 32 lanes or fewer
-  using Vec = Chunk<T, VEC>;
-  using M = Max<T, VEC>;
-  const int cut = CUT > 0 ? CUT : cut_arg;
+gumbel_screen_kernel(const T* __restrict__ logits, const int* __restrict__ seed,
+                     int* __restrict__ out, int rows, int v, int chunk, int k) {
+  constexpr int VEC = 16 / sizeof(T), C = kLoads;  // lanes a load, loads a thread a tile
+  using M = Max<T>;
   extern __shared__ float2 table[];
-  __shared__ float red_v[2][kWarps];
-  __shared__ int red_i[2][kWarps];
-  build_table(table, k, cut);
+  build_table(table, k);
   __syncthreads();
 
   const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per_round = kWarps / segs, g = warp / segs, s = warp % segs;
-  const uint32_t hcut = 2u * cut_bits(cut);  // a candidate's h
-  const int fine = 32 - cut - k;             // its bucket: 1 + ((h >> fine) & fmask)
+  constexpr uint32_t hcut = 2u * kB0;  // a candidate's h
+  const int fine = 32 - kCut - k;      // its bucket: 1 + ((h >> fine) & fmask)
   const uint32_t fmask = (1u << k) - 1u;
   const float2 g0 = table[0];  // every lane below the cut
   const int nchunks = v / VEC, ntiles = (nchunks + 32 * C - 1) / (32 * C);
-  const int stride = gridDim.x * per_round;
-  const uint32_t seeds = static_cast<uint32_t>(seed[0]) * 69069u
-                         + static_cast<uint32_t>(seed[1]) * 1013904223u + 374761393u;
 
-  int parity = 0;
-  const int first = blockIdx.x * per_round + g;
-  for (int row = first; row - g < rows; row += stride) {  // uniform in a block
+  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
     float t_run = -INFINITY, bv = -INFINITY;
     int bi = INT_MAX;
-    if (row < rows) {
-      const int pid = row / chunk;
-      const uint32_t hbase = static_cast<uint32_t>(row - pid * chunk) * 2654435769u + seeds
-                             + static_cast<uint32_t>(pid) * 22695477u;
-      const T* x = logits + static_cast<size_t>(row) * v;
-      const Vec* xv = reinterpret_cast<const Vec*>(x);
-      for (int tile = s; tile < ntiles; tile += segs) {
-        Vec d[C];
+    const uint32_t hbase = row_base(row, chunk, seed);
+    const T* x = logits + static_cast<size_t>(row) * v;
+    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      Vec<T> d[C];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int j = (tile * C + c) * 32 + lane_id;
-          if (j < nchunks) d[c] = xv[j];
-        }
-        // pass 1, every lane, without branches: the hash, the candidates'
-        // mask and the largest logit (four chains, so that lanes overlap)
-        M lm[4];
-        uint32_t cand = 0;
+      for (int c = 0; c < C; ++c) {
+        const int j = (tile * C + c) * 32 + lane_id;
+        if (j < nchunks) d[c] = xv[j];
+      }
+      // pass 1, every lane, without branches: the hash, the candidates'
+      // mask and the largest logit (four chains, so that lanes overlap)
+      M lm[4];
+      uint32_t cand = 0;
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int j = (tile * C + c) * 32 + lane_id;
-          const uint32_t h0 = hbase + static_cast<uint32_t>(j * VEC) * 40503u;
-          if (j < nchunks) {
+      for (int c = 0; c < C; ++c) {
+        const int j = (tile * C + c) * 32 + lane_id;
+        const uint32_t h0 = hbase + static_cast<uint32_t>(j * VEC) * 40503u;
+        if (j < nchunks) {
 #pragma unroll
-            for (int q = 0; q < VEC; q += M::kLanes)
-              lm[(c * VEC + q) / M::kLanes & 3].add(&d[c].e[q]);
+          for (int q = 0; q < VEC; q += M::kLanes)
+            lm[(c * VEC + q) / M::kLanes & 3].add(&d[c].e[q]);
 #pragma unroll
-            for (int q = 0; q < VEC; ++q)
-              cand |= static_cast<uint32_t>(mix(h0 + q * 40503u) >= hcut) << (c * VEC + q);
-          }
-        }
-        lm[0].merge(lm[1]);
-        lm[2].merge(lm[3]);
-        lm[0].merge(lm[2]);
-        const float lmax = lm[0].value();
-        // the lower bounds: below the cut fl(lmax + Glo[0]) bounds them all;
-        // each candidate (about 4 in a warp's tile at V = 8192) takes its top
-        // bucket's, its logit read again (the tile's lines, just loaded)
-        float lo_max = __fadd_rn(lmax, g0.x);
-        for (uint32_t m = cand; m; m &= m - 1) {
-          const int e = __ffs(m) - 1;
-          const int lane = ((tile * C + e / VEC) * 32 + lane_id) * VEC + e % VEC;
-          const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
-          lo_max = fmaxf(lo_max, __fadd_rn(to_f32(x[lane]), table[1 + ((h >> fine) & fmask)].x));
-        }
-        // the warp's running max of lo over its tiles of the row: a lower
-        // bound of the row's maximum, so screening against it is exact
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          lo_max = fmaxf(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, off));
-        t_run = fmaxf(t_run, lo_max);
-        // pass 2: the candidates, and the lanes below the cut whose coarse
-        // upper bound reaches T (none unless the thread's largest logit's
-        // does; a NaN logit makes lmax NaN and is found here); each is held
-        // to its bucket's upper bound, then takes the exact noise
-        uint32_t live = cand;
-        if (!(__fadd_rn(lmax, g0.y) < t_run)) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const bool in = (tile * C + c) * 32 + lane_id < nchunks;
-#pragma unroll
-            for (int q = 0; q < VEC; ++q)
-              live |= static_cast<uint32_t>(
-                  in && !(__fadd_rn(to_f32(d[c].e[q]), g0.y) < t_run)) << (c * VEC + q);
-          }
-        }
-        while (live) {
-          const int e = __ffs(live) - 1;
-          live &= live - 1;
-          const int lane = ((tile * C + e / VEC) * 32 + lane_id) * VEC + e % VEC;
-          const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
-          const float l = to_f32(x[lane]);
-          const uint32_t b = h >= hcut ? 1 + ((h >> fine) & fmask) : fmask + 2 + (h >> (32 - k));
-          const float2 gb = table[b];
-          if (__fadd_rn(l, gb.y) < t_run) continue;
-          const float val = __fadd_rn(l, noise(static_cast<int>(h >> 1)));
-          if (better(val, lane, bv, bi)) {
-            bv = val;
-            bi = lane;
-          }
+          for (int q = 0; q < VEC; ++q)
+            cand |= static_cast<uint32_t>(mix(h0 + q * 40503u) >= hcut) << (c * VEC + q);
         }
       }
-      warp_best(bv, bi);
+      lm[0].merge(lm[1]);
+      lm[2].merge(lm[3]);
+      lm[0].merge(lm[2]);
+      const float lmax = lm[0].value();
+      // the lower bounds: below the cut fl(lmax + Glo[0]) bounds them all;
+      // each candidate (about 4 in a warp's tile at V = 8192) takes its top
+      // bucket's, its logit read again (the tile's lines, just loaded)
+      float lo_max = __fadd_rn(lmax, g0.x);
+      for (uint32_t m = cand; m; m &= m - 1) {
+        const int e = __ffs(m) - 1;
+        const int lane = ((tile * C + e / VEC) * 32 + lane_id) * VEC + e % VEC;
+        const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
+        lo_max = fmaxf(lo_max, __fadd_rn(to_f32(x[lane]), table[1 + ((h >> fine) & fmask)].x));
+      }
+      // the warp's running max of lo over its tiles of the row: a lower
+      // bound of the row's maximum, so screening against it is exact
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        lo_max = fmaxf(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, off));
+      t_run = fmaxf(t_run, lo_max);
+      // pass 2: the candidates, and the lanes below the cut whose coarse
+      // upper bound reaches T (none unless the thread's largest logit's
+      // does; a NaN logit makes lmax NaN and is found here); each is held
+      // to its bucket's upper bound, then takes the exact noise
+      uint32_t live = cand;
+      if (!(__fadd_rn(lmax, g0.y) < t_run)) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool in = (tile * C + c) * 32 + lane_id < nchunks;
+#pragma unroll
+          for (int q = 0; q < VEC; ++q)
+            live |= static_cast<uint32_t>(
+                in && !(__fadd_rn(to_f32(d[c].e[q]), g0.y) < t_run)) << (c * VEC + q);
+        }
+      }
+      while (live) {
+        const int e = __ffs(live) - 1;
+        live &= live - 1;
+        const int lane = ((tile * C + e / VEC) * 32 + lane_id) * VEC + e % VEC;
+        const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
+        const float l = to_f32(x[lane]);
+        const uint32_t b = h >= hcut ? 1 + ((h >> fine) & fmask) : fmask + 2 + (h >> (32 - k));
+        const float2 gb = table[b];
+        if (__fadd_rn(l, gb.y) < t_run) continue;
+        const float val = __fadd_rn(l, noise(static_cast<int>(h >> 1)));
+        if (better(val, lane, bv, bi)) {
+          bv = val;
+          bi = lane;
+        }
+      }
     }
-    if (segs == 1) {
-      if (row < rows && lane_id == 0) out[row] = bi;
-      continue;
-    }
-    // the segments of a row meet in shared memory, double-buffered by round
-    if (lane_id == 0) {
-      red_v[parity][warp] = bv;
-      red_i[parity][warp] = bi;
-    }
-    __syncthreads();
-    if (s == 0 && row < rows) {
-      bv = lane_id < segs ? red_v[parity][warp + lane_id] : -INFINITY;
-      bi = lane_id < segs ? red_i[parity][warp + lane_id] : INT_MAX;
-      warp_best(bv, bi);
-      if (lane_id == 0) out[row] = bi;
-    }
-    parity ^= 1;
+    warp_best(bv, bi);
+    if (lane_id == 0) out[row] = bi;
   }
 }
 
-// Small calls (a few rows, or short ones), where building the table and
-// two passes cost more than they save: a block of 256 threads a row, every
-// lane exact (the earlier kernel's body). VEC lanes per load as above.
-template <typename T, int VEC>
+// The rows the screen does not take (a ragged V, an unaligned row, a row
+// shorter than a tile): a block of 256 threads a row, one element at a time,
+// every lane exact (the earlier kernel's body).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gumbel_exact_kernel(const T* __restrict__ logits, const int* __restrict__ seed,
                     int* __restrict__ out, int v, int chunk) {
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
-  const int row = blockIdx.x, pid = row / chunk;
-  const uint32_t hbase = static_cast<uint32_t>(row - pid * chunk) * 2654435769u
-                         + static_cast<uint32_t>(seed[0]) * 69069u
-                         + static_cast<uint32_t>(seed[1]) * 1013904223u
-                         + static_cast<uint32_t>(pid) * 22695477u + 374761393u;
-  const Chunk<T, VEC>* xv =
-      reinterpret_cast<const Chunk<T, VEC>*>(logits + static_cast<size_t>(row) * v);
+  const int row = blockIdx.x;
+  const uint32_t hbase = row_base(row, chunk, seed);
+  const T* x = logits + static_cast<size_t>(row) * v;
   float bv = -INFINITY;
   int bi = INT_MAX;
-  for (int j = threadIdx.x; j < v / VEC; j += kThreads) {
-    const Chunk<T, VEC> d = xv[j];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) {
-      const int lane = j * VEC + q;
-      const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
-      const float val = __fadd_rn(to_f32(d.e[q]), noise(static_cast<int>(h >> 1)));
-      if (better(val, lane, bv, bi)) {
-        bv = val;
-        bi = lane;
-      }
+  for (int lane = threadIdx.x; lane < v; lane += kThreads) {
+    const uint32_t h = mix(hbase + static_cast<uint32_t>(lane) * 40503u);
+    const float val = __fadd_rn(to_f32(x[lane]), noise(static_cast<int>(h >> 1)));
+    if (better(val, lane, bv, bi)) {
+      bv = val;
+      bi = lane;
     }
   }
   warp_best(bv, bi);
@@ -385,12 +343,12 @@ gumbel_exact_kernel(const T* __restrict__ logits, const int* __restrict__ seed,
 
 // Over all 2^31 bits: bad[0] counts bits whose noise is below its
 // predecessor's (or NaN), bad[1] those outside either of their buckets'
-// [Glo, Ghi] in the table of k and cut. Each thread walks a contiguous range and
+// [Glo, Ghi] in the table of k. Each thread walks a contiguous range and
 // compares across its start.
 __global__ void __launch_bounds__(256)
-bound_check_kernel(int k, int cut, unsigned long long* bad) {
+bound_check_kernel(int k, unsigned long long* bad) {
   extern __shared__ float2 table[];
-  build_table(table, k, cut);
+  build_table(table, k);
   __syncthreads();
   const uint32_t n = gridDim.x * blockDim.x;
   const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -400,7 +358,7 @@ bound_check_kernel(int k, int cut, unsigned long long* bad) {
   unsigned long long mono = 0, outside = 0;
   for (uint32_t bits = start; bits < start + per; ++bits) {
     const float g = noise(static_cast<int>(bits));
-    const float2 a = table[top_bucket(bits, k, cut)], b = table[all_bucket(bits, k)];
+    const float2 a = table[top_bucket(bits, k)], b = table[all_bucket(bits, k)];
     mono += !(prev <= g);
     outside += !(a.x <= g && g <= a.y && b.x <= g && g <= b.y);
     prev = g;
@@ -409,36 +367,23 @@ bound_check_kernel(int k, int cut, unsigned long long* bad) {
   if (outside) atomicAdd(&bad[1], outside);
 }
 
+size_t table_bytes(int k) { return sizeof(float2) * ((2u << k) + 1); }
+
 template <typename T>
 int launch(const void* logits, const void* seed, void* out, int rows, int v, int chunk, int k,
-           int cut, int segs, int blocks, cudaStream_t stream) {
+           int blocks, cudaStream_t stream) {
   constexpr int vec = 16 / sizeof(T);
-  const bool aligned = v % vec == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
+  const bool screen = v % vec == 0 && v >= 32 * kLoads * vec
+                      && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
   const T* x = static_cast<const T*>(logits);
   const int* s = static_cast<const int*>(seed);
   int* o = static_cast<int*>(out);
-  if (k == 0) {
-    if (aligned)
-      gumbel_exact_kernel<T, vec><<<rows, kThreads, 0, stream>>>(x, s, o, v, chunk);
-    else
-      gumbel_exact_kernel<T, 1><<<rows, kThreads, 0, stream>>>(x, s, o, v, chunk);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = sizeof(float2) * ((2u << k) + 1);
-  if (aligned && cut == 8)
-    gumbel_argmax_kernel<T, vec, 8><<<blocks, kThreads, smem, stream>>>(x, s, o, rows, v, chunk,
-                                                                        k, cut, segs);
-  else if (aligned)
-    gumbel_argmax_kernel<T, vec, 0><<<blocks, kThreads, smem, stream>>>(x, s, o, rows, v, chunk,
-                                                                        k, cut, segs);
+  if (screen)
+    gumbel_screen_kernel<T><<<blocks, kThreads, table_bytes(k), stream>>>(x, s, o, rows, v,
+                                                                          chunk, k);
   else
-    gumbel_argmax_kernel<T, 1, 0><<<blocks, kThreads, smem, stream>>>(x, s, o, rows, v, chunk, k,
-                                                                      cut, segs);
+    gumbel_exact_kernel<T><<<rows, kThreads, 0, stream>>>(x, s, o, v, chunk);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool valid_bits(int k, int cut) {
-  return k >= kMinBits && k <= kMaxBits && cut >= 1 && cut <= kMaxCut;
 }
 
 }  // namespace
@@ -447,30 +392,24 @@ extern "C" {
 
 // logits (rows, V) bf16 (is_bf16 = 1) or f32, contiguous on the device; seed
 // (2,) int32 on the device; out (rows,) int32. rows >= 1, V >= 1, chunk >= 1;
-// 2^k buckets (4 <= k <= 11) over the candidates, the top 2^-cut of the bits
-// (1 <= cut <= 8); segs warps a row (1, 2, 4 or 8); blocks >= 1 of 256
-// threads, each taking 8 / segs rows at a time, rows blockIdx * 8 / segs +
-// ..., then the next blocks * 8 / segs. k = 0 (with cut = 0, segs = 8 and
-// blocks = rows) takes every lane exactly, a block a row, without the table.
+// 2^k buckets (6 <= k <= 10); blocks >= 1 of 256 threads, each taking 8 rows
+// at a time, a warp a row. Rows that are not screened (V not a multiple of a
+// 16-byte load's lanes or below a tile, 1024 bf16 or 512 f32, or an unaligned
+// row) take a block a row and no table, and ignore k and blocks once checked.
 // Returns the cudaError_t of the launch.
 int act_gumbel_argmax(const void* logits, const void* seed, void* out, int rows, int v,
-                      int chunk, int is_bf16, int k, int cut, int segs, int blocks,
-                      void* stream) {
-  const bool exact = k == 0 && cut == 0 && segs == kWarps && blocks == rows;
-  if (!(exact || valid_bits(k, cut)) || segs < 1 || kWarps % segs || blocks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                      int chunk, int is_bf16, int k, int blocks, void* stream) {
+  if (k < kMinBits || k > kMaxBits || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? launch<__nv_bfloat16>(logits, seed, out, rows, v, chunk, k, cut, segs, blocks, st)
-             : launch<float>(logits, seed, out, rows, v, chunk, k, cut, segs, blocks, st);
+  return is_bf16 ? launch<__nv_bfloat16>(logits, seed, out, rows, v, chunk, k, blocks, st)
+                 : launch<float>(logits, seed, out, rows, v, chunk, k, blocks, st);
 }
 
 // bad (2,) uint64 on the device, zeroed by the caller: see bound_check_kernel
-int act_gumbel_bound_check(int k, int cut, void* bad, void* stream) {
-  if (!valid_bits(k, cut)) return static_cast<int>(cudaErrorInvalidValue);
-  bound_check_kernel<<<1024, 256, sizeof(float2) * ((2u << k) + 1),
-                       static_cast<cudaStream_t>(stream)>>>(
-      k, cut, static_cast<unsigned long long*>(bad));
+int act_gumbel_bound_check(int k, void* bad, void* stream) {
+  if (k < kMinBits || k > kMaxBits) return static_cast<int>(cudaErrorInvalidValue);
+  bound_check_kernel<<<1024, 256, table_bytes(k), static_cast<cudaStream_t>(stream)>>>(
+      k, static_cast<unsigned long long*>(bad));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,13 +15,15 @@ validation, whole-cloud, both recon and a ragged shape, at each tiling it
 sweeps and the one ``ops/chamfer.py`` ``launch_geometry`` picks, checks every
 run against the plain versions (distances bit-equal, indices equal) and
 prints the device times. It runs ``csrc/gumbel.cu`` at the Stage-II shape
-(bf16 and f32) and at smaller and ragged ones, at each bucket count and
-split of a row over warps it sweeps and the one ``ops/sampling.py``
-``launch_geometry`` picks, checks every run id for id against
+(bf16 and f32) and at smaller and ragged ones, at each bucket count and grid
+it sweeps and the one ``ops/sampling.py`` ``launch_geometry`` picks, checks
+every run id for id against
 ``gumbel_argmax_ref`` (outputs filled with -1 before each checked run), and
 prints the device times and the screen's survivors a row (from its plain
-model ``sampling.screen_ref``). With ``--parent DIR`` (a checkout that holds
-an earlier ``act_tpu_torch/csrc``), that version's ``fps.cu``, ``topk.cu``,
+model ``sampling.screen_ref``). A device time that the profiler did not
+record in full is reported as not measured (``act_tpu_torch/profiling.py``).
+With ``--parent DIR`` (a checkout that holds an earlier
+``act_tpu_torch/csrc``), that version's ``fps.cu``, ``topk.cu``,
 ``chamfer.cu`` and ``gumbel.cu``, where they differ from the current ones,
 are built too and timed at the same shapes in the same process, in turns
 with the current ones.
@@ -38,8 +40,6 @@ import time
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from act_tpu_torch import ops
 from act_tpu_torch.ops import _backend
@@ -47,6 +47,7 @@ from act_tpu_torch.ops import chamfer as chamfer_mod
 from act_tpu_torch.ops import sampling
 from act_tpu_torch.ops.fps import MAX_PPT, _max_clusters, _sms, launch_geometry, tie_swaps
 from act_tpu_torch.ops.reference import gumbel_chunk
+from act_tpu_torch.profiling import device_ms
 
 # the serving resample at B=32 and B=1, Stage II's centers (Stage I's at B=64
 # take the same geometry), the SVM probe's resample, the largest clouds
@@ -70,27 +71,12 @@ CHAMFER_SHAPES = {
                      (256, 128, 8, 128, 1), (128, 128, 8, 128, 1), (32, 64, 8, 64, 1)],
 }
 
-# Gumbel-argmax (rows, V, dtype): the Stage-II shape in both dtypes, one row,
-# a V that takes the vector path, a ragged V (the scalar path), and 512 and
-# 1024 rows of 8192 (on either side of the exact kernel's limit)
+# Gumbel-argmax (rows, V, dtype): the Stage-II shape in both dtypes, one row
+# (screened), a V below a tile and a ragged V (both taken exactly)
 GUMBEL_SHAPES = [(8192, 8192, torch.bfloat16), (8192, 8192, torch.float32),
                  (1, 8192, torch.bfloat16), (300, 1000, torch.bfloat16),
-                 (37, 1001, torch.float32), (512, 8192, torch.bfloat16),
-                 (1024, 8192, torch.bfloat16)]
-GUMBEL_BITS, GUMBEL_SEGS = (6, 8, 10), (1, 8)
-
-
-def device_ms(fn, iters: int):
-    """Summed device-kernel time of one call, averaged over ``iters`` calls;
-    None when the profiler records no device kernel."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters if ev else None
+                 (37, 1001, torch.float32)]
+GUMBEL_BITS = (6, 8, 10)
 
 
 # the earlier sources' launch functions: name, argument types
@@ -131,6 +117,11 @@ def build_parent(parent: Path) -> dict:
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[name] = fn
     return fns
+
+
+def fmt(ms) -> str:
+    """A device time in ms, or why there is none."""
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def call(fn, *args) -> None:
@@ -203,146 +194,20 @@ def chamfer_runs(x: torch.Tensor, y: torch.Tensor, geo=None, old=None) -> dict:
 
 
 def gumbel_geometries(rows: int, v: int, sms: int):
-    """(k, cut, warps a row, blocks): the exact kernel, then the screen at each
-    bucket count and split swept, its cut ``screen_bits``', the grid the
-    blocks that stay resident (or as many as the rows need)."""
-    yield 0, 0, sampling.WARPS, rows
-    cut = sampling.screen_bits(v)[1]
+    """(k, blocks): each bucket count swept, on the persistent grid (the
+    blocks that stay resident, or as many as the rows need) and on a grid of
+    a block for every 8 rows."""
     for k in GUMBEL_BITS:
-        for segs in GUMBEL_SEGS:
-            per_block = sampling.WARPS // segs
-            yield k, cut, segs, max(1, min(sms * sampling.BLOCKS_PER_SM, -(-rows // per_block)))
+        for blocks in {sampling.launch_geometry(rows, v, sms)[1], -(-rows // sampling.WARPS)}:
+            yield k, blocks
 
 
 def gumbel_launch(logits: torch.Tensor, seed: torch.Tensor, out: torch.Tensor, geo) -> None:
-    """``csrc/gumbel.cu`` at geometry (k, cut, warps a row, blocks)."""
+    """``csrc/gumbel.cu`` at geometry (k, blocks)."""
     v = logits.shape[-1]
     rows = logits.numel() // v
     _backend.launch("gumbel_argmax", logits, seed, out, rows, v, gumbel_chunk(rows, v),
                     int(logits.dtype == torch.bfloat16), *geo)
-
-
-def exact_logit(target: float, g: float):
-    """An f32 logit x with fl(x + g) == target, g an f32 noise value, or None
-    where rounding to even steps over the target."""
-    t = torch.tensor(target, dtype=torch.float32)
-    gt = torch.tensor(g, dtype=torch.float32)
-    x = t - gt
-    for _ in range(8):
-        s = x + gt
-        if s == t:
-            return float(x)
-        x = torch.nextafter(x, torch.tensor(float("inf") if s < t else float("-inf")))
-    return None
-
-
-def gumbel_cases(rows: int, v: int, dtype: torch.dtype, device):
-    """(logits, seed, cases): (rows, V) randn logits of ``dtype`` (generator
-    seed 0) with hard rows written in, the seed words, and {case: (row, the
-    id it must give)}, each case on a row of its own.
-
-    Exact ties (the same value at two lanes, the first index wins) and near
-    ties (one step apart, in either order) of two lanes placed in one
-    thread's loads of a tile, one warp's tile, two tiles of a row (one
-    warp's in turn, or two warps' where the row is split) and tiles 0 and 8
-    (one warp's where the row is split over 8): in f32 the logits solved for
-    the values 30 and one ulp above, in bf16 logits 2^100 and one bf16 step
-    above, which absorb the noise. The same for pairs of lanes whose noise is
-    equal (their logits 30, or one step above), sorted by where they lie. An
-    all-zero row; a NaN, a +inf logit; and where the seed draws u = 1 lanes
-    (+inf noise; the seed is the first [s, 1], s < 16, that has two such
-    rows when rows x V >= 2^25), a -inf logit on one (a NaN value, which
-    wins) and one that wins tied at +inf with a later +inf logit. Cases whose
-    lanes the noise does not give are left out."""
-    seed = torch.tensor([0, 1], dtype=torch.int32, device=device)
-    bits = sampling.hash_bits(rows, v, seed, device)
-    for s in range(16 if rows * v >= 2 ** 25 else 0):
-        seed = torch.tensor([s, 1], dtype=torch.int32, device=device)
-        bits = sampling.hash_bits(rows, v, seed, device)
-        if int(torch.isposinf(sampling.noise_of_bits(bits)).any(-1).sum()) >= 2:
-            break
-    g = sampling.noise_of_bits(bits)
-    del bits
-    gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.randn(rows, v, generator=gen, device=device)
-    inf_rows = torch.isposinf(g).any(-1).nonzero().flatten().tolist()
-    cases = {}
-    vec = 16 // torch.tensor([], dtype=dtype).element_size()
-    vec = vec if v % vec == 0 else 1  # lanes a load: the vector or the scalar path
-    loads = 4 if vec > 1 else 16  # a thread's loads a tile
-
-    def lane(tile, load, thread, q):
-        return ((tile * loads + load) * 32 + thread) * vec + q
-
-    def where(i, j):
-        (ti, ci), (tj, cj) = (divmod(n // vec, 32 * loads) for n in (i, j))
-        return ("two tiles" if ti != tj else "one thread" if ci % 32 == cj % 32 else "one warp")
-
-    def place(name, row, want, **lanes):
-        cases[name] = (row, want)
-        for lane, val in lanes.values():
-            x[row, lane] = val
-        if row in free:
-            free.remove(row)
-
-    # pairs of lanes with equal finite noise below 2, by where they lie
-    srt, idx = g.sort(-1)
-    eq = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] < 2)
-    pairs, taken = {}, set(inf_rows)  # where -> up to 3 (row, i, j) on rows of their own
-    at = eq.nonzero()
-    ends = torch.stack([idx[at[:, 0], at[:, 1]], idx[at[:, 0], at[:, 1] + 1]], 1)
-    for r, (i, j) in zip(at[:, 0].tolist(), ends.sort(1).values.tolist()):
-        at_ = where(i, j)
-        if r not in taken and len(pairs.setdefault(at_, [])) < 3:
-            pairs[at_].append((r, i, j))
-            taken.add(r)
-    free = [r for r in range(rows) if r not in taken]
-    up = 30.125 if dtype == torch.bfloat16 else float(
-        torch.nextafter(torch.tensor(30.0), torch.tensor(64.0)))
-    kinds = (("tie", 30.0, 30.0, 0), ("near tie, later lane larger", 30.0, up, 1),
-             ("near tie, earlier lane larger", up, 30.0, 0))  # name, logits, winner
-    for at_, found in pairs.items():
-        for (r, i, j), (name, a, b, w) in zip(found, kinds):
-            place(f"{name}, equal noise, {at_}", r, (i, j)[w], a=(i, a), b=(j, b))
-    # lanes placed by hand: f32 logits solved for the value 30 (or one ulp
-    # above); bf16 logits 2^100 (or one bf16 step above), which absorb the noise
-    big = (2.0 ** 100, 2.0 ** 100 * (1 + 2 ** -7))
-    first = lane(0, 0, 0, min(1, vec - 1))
-    placed = {"one thread": (first, lane(0, 1, 0, vec - 1)), "one warp": (first, lane(0, 2, 5, 0)),
-              "two tiles": (first, lane(1, 0, 3, 0)), "nine tiles": (first, lane(8, 3, 0, 0))}
-    for at_, (i, j) in placed.items():
-        for name, a, b, w in kinds:
-            if j >= v or len(free) < 4:
-                break
-            if dtype == torch.float32:
-                for r in free:
-                    la, lb = exact_logit(a, float(g[r, i])), exact_logit(b, float(g[r, j]))
-                    if la is not None and lb is not None:
-                        break
-                a, b = la, lb
-            else:
-                r, a, b = free[0], big[a != 30.0], big[b != 30.0]
-            place(f"{name}, {at_}", r, (i, j)[w], a=(i, a), b=(j, b))
-    if len(free) >= 3:
-        x[free[0]] = 0.0
-        place("all-zero row", free[0], int(torch.argmax(g[free[0]])))
-        place("NaN logit", free[0], min(5, v - 1), a=(min(5, v - 1), float("nan")))
-        place("+inf logit", free[0], v - 1, a=(v - 1, float("inf")))
-    if len(inf_rows) >= 2:
-        (ra, ja), (rb, jb) = [(r, int(torch.isposinf(g[r]).nonzero()[0])) for r in inf_rows[:2]]
-        cases["-inf logit on a u = 1 lane"] = (ra, ja)
-        x[ra, ja] = float("-inf")
-        cases["u = 1 lane wins, tied at +inf"] = (rb, jb)
-        if jb < v - 1:
-            x[rb, v - 1] = float("inf")
-    return x.to(dtype), seed, cases
-
-
-def check_gumbel_cases(ids: torch.Tensor, want: torch.Tensor, cases: dict) -> list:
-    """The cases whose kernel id differs from the plain version's or from the
-    id the case must give."""
-    return [name for name, (r, i) in cases.items()
-            if not int(ids[r]) == int(want[r]) == i]
 
 
 def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
@@ -354,8 +219,7 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
         seed = torch.tensor([123456789, -5], dtype=torch.int32, device=dev)
         want = ops.gumbel_argmax_ref(logits, seed)
         bits = sampling.hash_bits(rows_, v, seed, dev)
-        cut = sampling.screen_bits(v)[1]
-        live = {k: sampling.screen_ref(logits, bits, k, cut) for k in GUMBEL_BITS}
+        live = {k: sampling.screen_ref(logits, bits, k) for k in GUMBEL_BITS}
         del bits
         out = torch.empty(rows_, dtype=torch.int32, device=dev)
         picked = sampling.launch_geometry(rows_, v, sms)
@@ -374,7 +238,7 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
             rows.append(dict(kernel="gumbel_argmax", shape=[rows_, v, str(dtype)],
                              geometry=list(geo), picked=geo == picked, ms=ms))
             if ms is None:
-                print(f"    gumbel_argmax {geo}: no device kernel recorded, not measured")
+                print(f"    gumbel_argmax {geo}: device records incomplete, not measured")
             else:
                 times[geo] = ms
         for k, (ids, n) in live.items():
@@ -385,7 +249,7 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
         if picked not in times:
             continue
         best = min(times, key=times.get)
-        line = (f"[gumbel_argmax] {shape}: picked (k, cut, warps a row, blocks) = {picked} "
+        line = (f"[gumbel_argmax] {shape}: picked (k, blocks) = {picked} "
                 f"{times[picked]:.5f} ms; best {best} {times[best]:.5f} ms; survivors a row "
                 + ", ".join(f"k={k} {float(n.float().mean()):.2f} (max {int(n.max())})"
                             for k, (_, n) in live.items()))
@@ -403,8 +267,8 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
             t_old.append(device_ms(run_old, iters))
             rows.append(dict(kernel="gumbel_argmax_parent", shape=[rows_, v, str(dtype)],
                              ms=t_old, new_ms=t_new))
-            line += (f"; parent {t_old[0]:.5f}/{t_old[1]:.5f} ms, current "
-                     f"{t_new[0]:.5f}/{t_new[1]:.5f} ms (parent, current, current, parent)")
+            line += (f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current "
+                     f"{fmt(t_new[0])}/{fmt(t_new[1])} ms (parent, current, current, parent)")
         if rows_ * v > 2 ** 22:
             clock = sm_clock_mhz(lambda: ops.gumbel_argmax(logits, seed))
             rows.append(dict(kernel="gumbel_clock", shape=[rows_, v, str(dtype)],
@@ -412,7 +276,7 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
             line += f"; SM clock, power while it runs: {clock}"
         print(line, flush=True)
         for geo, t in sorted(times.items()):
-            print(f"    {geo}: {t:.5f} ms", flush=True)
+            print(f"    {geo}: {fmt(t)} ms", flush=True)
 
 
 def main() -> None:
@@ -456,11 +320,14 @@ def main() -> None:
                 print(f"MISMATCH fps {(B, N, S)} at {geo}: picks differ beyond tie swaps")
                 bad.append(f"fps {(B, N, S)} {geo}")
                 continue
-            times[geo] = device_ms(run, iters)
+            ms = device_ms(run, iters)
             rows.append(dict(kernel="fps", shape=[B, N, S], c=c, threads=threads, ppt=ppt,
-                             ms=times[geo], per_step_us=times[geo] * 1e3 / (S - 1),
-                             picked=geo == picked, tie_swaps=n_sw,
+                             ms=ms, picked=geo == picked, tie_swaps=n_sw,
                              max_clusters=_max_clusters(N, c, threads, ppt)))
+            if ms is None:
+                print(f"    fps {geo}: device records incomplete, not measured")
+            else:
+                times[geo] = ms
         if picked not in times:
             continue
         best = min(times, key=times.get)
@@ -480,12 +347,12 @@ def main() -> None:
             t_old.append(device_ms(run_old, iters))
             rows.append(dict(kernel="fps_parent", shape=[B, N, S], ms=t_old,
                              new_ms=t_new))
-            line += f"; parent {t_old[0]:.5f}/{t_old[1]:.5f} ms, current {t_new:.5f} ms"
+            line += f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current {fmt(t_new)} ms"
         clock = sm_clock_mhz(lambda: ops.furthest_point_sample(pts, S))
         rows.append(dict(kernel="fps_clock", shape=[B, N, S], sm_clock_power=clock))
         print(line + f"; SM clock, power while it runs: {clock}", flush=True)
         for geo, t in sorted(times.items()):
-            print(f"    C={geo[0]} threads={geo[1]} ppt={geo[2]}: {t:.5f} ms", flush=True)
+            print(f"    C={geo[0]} threads={geo[1]} ppt={geo[2]}: {fmt(t)} ms", flush=True)
     for R, N, k in TOPK_SHAPES:
         d = torch.rand(R, N, generator=gen).to(dev)
         wv, wi = ops.k_smallest_ref(d, k)
@@ -496,7 +363,7 @@ def main() -> None:
         t = device_ms(lambda: ops.k_smallest(d, k), 50)
         lib = device_ms(lambda: torch.topk(d, k, dim=-1, largest=False, sorted=True), 50)
         row = dict(kernel="k_smallest", shape=[R, N, k], ms=t, library_ms=lib)
-        line = f"[k_smallest] ({R}, {N}) k={k}: {t:.5f} ms; torch.topk {lib:.5f} ms"
+        line = f"[k_smallest] ({R}, {N}) k={k}: {fmt(t)} ms; torch.topk {fmt(lib)} ms"
         if "act_ksmallest" in old:
             ov = torch.empty(R, k, device=dev)
             oi = torch.empty(R, k, dtype=torch.int32, device=dev)
@@ -506,7 +373,7 @@ def main() -> None:
             if not torch.equal(oi, wi):
                 bad.append(f"parent k_smallest {(R, N, k)}")
             row.update(parent_ms=t_old, again_ms=t_new)
-            line += f"; parent {t_old[0]:.5f}/{t_old[1]:.5f} ms, current again {t_new:.5f} ms"
+            line += f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current again {fmt(t_new)} ms"
         rows.append(row)
         print(line, flush=True)
     for (B, N, M), swept in CHAMFER_SHAPES.items():
@@ -528,7 +395,7 @@ def main() -> None:
                 rows.append(dict(kernel=kind, shape=[B, N, M], geometry=list(geo),
                                  picked=geo == picked, ms=ms))
                 if ms is None:
-                    print(f"    {kind} {geo}: no device kernel recorded, not measured")
+                    print(f"    {kind} {geo}: device records incomplete, not measured")
                 else:
                     times[kind, geo] = ms
         old_runs = chamfer_runs(x, y, old=old) if "act_chamfer_nn" in old else {}
@@ -550,11 +417,11 @@ def main() -> None:
                 t_old.append(device_ms(old_runs[kind], iters))
                 rows.append(dict(kernel=f"{kind}_parent", shape=[B, N, M], ms=t_old,
                                  new_ms=t_new))
-                line += (f"; parent {t_old[0]:.5f}/{t_old[1]:.5f} ms, current "
-                         f"{t_new[0]:.5f}/{t_new[1]:.5f} ms (parent, current, current, parent)")
+                line += (f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current "
+                         f"{fmt(t_new[0])}/{fmt(t_new[1])} ms (parent, current, current, parent)")
             print(line, flush=True)
             for geo, t in sorted(mine.items()):
-                print(f"    {geo}: {t:.5f} ms", flush=True)
+                print(f"    {geo}: {fmt(t)} ms", flush=True)
     sweep_gumbel(dev, sms, old, rows, bad)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))

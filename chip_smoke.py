@@ -189,7 +189,6 @@ def stage_two(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.engine.serve import load_config
     from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
     from act_tpu_torch.models.teacher import teacher_forward
-    from act_tpu_torch.kernel_sweep import check_gumbel_cases, gumbel_cases
     from act_tpu_torch.ops import _backend, sampling
     from act_tpu_torch.ops.fps import _sms, tie_swaps
 
@@ -226,16 +225,16 @@ def stage_two(dev, device_ms, kernel_events, measure):
                   f"{n_inf} lanes drew u = 1 (+inf noise)", flush=True)
         # the screen's bound, then constructed ties, near ties, NaN and +-inf rows
         geo = sampling.launch_geometry(bs * G, V, _sms(dev.index or 0))
-        if sampling.bound_violations(geo[0], geo[1], dev) != (0, 0):
-            fail(f"gumbel_argmax: the noise leaves its bucket bounds at k, cut = {geo[:2]}")
-        hard, hard_seed, cases = gumbel_cases(bs * G, V, torch.bfloat16, dev)
+        if sampling.bound_violations(geo[0], dev) != (0, 0):
+            fail(f"gumbel_argmax: the noise leaves its bucket bounds at k = {geo[0]}")
+        hard, hard_seed, cases = sampling.gumbel_cases(bs * G, V, torch.bfloat16, dev)
         k, r = ops.gumbel_argmax(hard, hard_seed), ops.gumbel_argmax_ref(hard, hard_seed)
-        wrong = check_gumbel_cases(k, r, cases)
+        wrong = sampling.check_gumbel_cases(k, r, cases)
         if not torch.equal(k, r) or wrong:
             fail(f"gumbel_argmax hard rows: {int((k != r).sum())} ids differ from the plain "
                  f"version; cases wrong: {wrong}")
         errs[f"gumbel_argmax hard rows seed {hard_seed.tolist()}"] = 0.0
-        print(f"[check] gumbel_argmax geometry (k, cut, warps a row, blocks) = {geo}; noise "
+        print(f"[check] gumbel_argmax geometry (k, blocks) = {geo}; noise "
               f"within its bucket bounds for all 2^31 bits; {len(cases)} hard rows at "
               f"({bs * G}, {V}) bf16, seed {hard_seed.tolist()}, ids equal the plain version's "
               f"and each case's own (tolerance: exact): {', '.join(cases)}", flush=True)
@@ -384,7 +383,6 @@ def stage_two(dev, device_ms, kernel_events, measure):
                 lambda: tk.forward_tokenizer_features(nbr, ctr, rngs=step_rngs(0, 0, dev)), 3),
             "  of which encoder": device_ms(lambda: tk.encoder(nbr), 3),
             "  dgcnn_1": device_ms(lambda: tk.dgcnn_1(feats, ctr), 3),
-            "  gumbel_argmax": device_ms(lambda: ops.gumbel_argmax(lg, seeds[0]), 3),
             "  teacher": device_ms(
                 lambda: teacher_forward(tk, sampled, ctr, step_rngs(0, 0, dev)), 3),
             "  dgcnn_2": device_ms(lambda: tk.dgcnn_2(taught, ctr), 3)}
@@ -714,8 +712,6 @@ def stage_one(dev, device_ms, kernel_events, measure):
 
 def main() -> None:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     sys.path.insert(0, ROOT)
@@ -724,6 +720,7 @@ def main() -> None:
         from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_model
         from act_tpu_torch.ops import _backend
         from act_tpu_torch.ops.fps import tie_swaps
+        from act_tpu_torch.profiling import device_ms, kernel_events
         from act_tpu_torch.serve_http import make_server
     except ImportError as e:
         fail(f"the act_tpu_torch package is not beside this script ({e})")
@@ -866,26 +863,10 @@ def main() -> None:
     # -- 5. times on the card -------------------------------------------------
     # A kernel's time is its device time from torch.profiler (CUPTI): at these
     # sizes a call's CUDA-event time is the host's dispatch time, which is
-    # printed beside it as "per call".
+    # printed beside it as "per call". A window whose records are not all
+    # there gives no device time (act_tpu_torch/profiling.py); the row then
+    # keeps the CUDA-event time and says so.
     print(f"[time] card: {card}", flush=True)
-
-    def kernel_events(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        # device kernels only: the optimizer's user annotations also appear
-        # as device-side ranges, spanning kernels already counted
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
-
-    def device_ms(fn, iters):
-        """Summed duration of the device kernels a call runs, averaged over
-        iters calls; None when the profiler records no device kernel."""
-        ev = kernel_events(fn, iters)
-        return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters if ev else None
 
     def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1):
         """Times of one launch shape; ``n`` launches of it a step or request."""

@@ -144,35 +144,27 @@ def test_draw_seed_and_cpu_path_launch_nothing():
                                     (512, 8192), (513, 8192), (8192, 1000)])
 @pytest.mark.parametrize("sms", [132, 114, 1])
 def test_launch_geometry_contract(rows, V, sms):
-    """Calls of at most 2^22 logits take the exact kernel, a block a row.
-    Otherwise k and the cut within the kernel's range (about 32 candidates a row),
-    the table within a block's default shared memory; 1, 2, 4 or 8 warps a
-    row, no more than the row has tiles; no more blocks than stay resident;
-    the persistent walk (a block takes 8 / segs rows a round) covers every
-    row once."""
-    k, cut, segs, blocks = sampling.launch_geometry(rows, V, sms)
-    if rows * V <= sampling.EXACT_LOGITS:  # the exact kernel: a block a row
-        assert (k, cut, segs, blocks) == (0, 0, sampling.WARPS, rows)
-        return
-    assert sampling.MIN_BITS <= k <= sampling.MAX_BITS and 1 <= cut <= sampling.MAX_CUT
-    assert (2 << k) <= max(2 << sampling.MIN_BITS, V // 4)
-    assert V >> cut >= 32 or cut == 1
-    assert sampling.table_bytes(k) + 16 * sampling.WARPS <= sampling.SHARED_LIMIT
-    assert segs in (1, 2, 4, 8) and (segs == 1 or (segs // 2) * sampling.TILE < V)
+    """k within the kernel's range, the table within a block's default shared
+    memory; no more blocks than stay resident; the persistent walk (a warp a
+    row, rows blockIdx * 8 + warp, then the next blocks * 8) covers every row
+    once."""
+    k, blocks = sampling.launch_geometry(rows, V, sms)
+    assert sampling.MIN_BITS <= k <= sampling.MAX_BITS
+    assert sampling.table_bytes(k) <= sampling.SHARED_LIMIT
     assert 1 <= blocks <= sms * sampling.BLOCKS_PER_SM
-    per = sampling.WARPS // segs
-    walked = np.concatenate([np.arange(b * per + g, rows, blocks * per)
-                             for b in range(blocks) for g in range(per)])
+    assert blocks <= -(-rows // sampling.WARPS)
+    w = sampling.WARPS
+    walked = np.concatenate([np.arange(b * w + g, rows, blocks * w)
+                             for b in range(blocks) for g in range(w)])
     np.testing.assert_array_equal(np.sort(walked), np.arange(rows))
 
 
 def test_launch_geometry_at_the_path_shapes():
-    """A row to a warp at the Stage-II shape; one row and 512 rows exact, a
-    block a row; 1024 rows split over 4 warps each."""
-    assert sampling.launch_geometry(8192, 8192, 132) == (8, 8, 1, 528)
-    assert sampling.launch_geometry(1, 8192, 132) == (0, 0, 8, 1)
-    assert sampling.launch_geometry(512, 8192, 132) == (0, 0, 8, 512)
-    assert sampling.launch_geometry(1024, 8192, 132) == (8, 8, 4, 512)
+    """The Stage-II shape fills the card's 528 resident blocks; one row takes
+    one block; every k the kernel takes fits a block's shared memory."""
+    assert sampling.launch_geometry(8192, 8192, 132) == (8, 528)
+    assert sampling.launch_geometry(1, 8192, 132) == (8, 1)
+    assert sampling.launch_geometry(1024, 8192, 132) == (8, 128)
     assert sampling.table_bytes(sampling.MAX_BITS) <= sampling.SHARED_LIMIT
 
 
@@ -184,16 +176,16 @@ def test_model_hash_is_the_plain_versions(rng):
                                ops.gumbel_perturbed_ref(x, seed_tensor()), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("k,cut", [(4, 1), (4, 4), (8, 8), (10, 8), (11, 5)])
-def test_bucket_table_brackets_the_noise(k, cut):
+@pytest.mark.parametrize("k", [6, 8, 10])
+def test_bucket_table_brackets_the_noise(k):
     """Entry 0 bounds the bits below the cut, entries 1 to 2^k the top buckets
     and the rest the uniform ones, each ordered and bracketing its bits'
     noise: 2^22 random bits and the ends of the range and of the cut lie
     within both of their entries (with the CPU's log; the card's is checked
     over all 2^31 bits by the GPU tests); only the two last buckets reach
     +inf (their lanes whose u rounds to 1)."""
-    glo, ghi = sampling.bucket_table(k, cut)
-    n, b0 = 1 << k, sampling.cut_bits(cut)
+    glo, ghi = sampling.bucket_table(k)
+    n, b0 = 1 << k, sampling.B0
     assert glo.shape == ghi.shape == (2 * n + 1,)
     assert bool((glo <= ghi).all())
     for part in (glo[:n + 1], ghi[:n + 1]), (glo[n + 1:], ghi[n + 1:]):
@@ -204,42 +196,42 @@ def test_bucket_table_brackets_the_noise(k, cut):
                       torch.arange(2 ** 16), 2 ** 31 - 1 - torch.arange(2 ** 16),
                       b0 - 2 ** 15 + torch.arange(2 ** 16)])
     f = sampling.noise_of_bits(bits)
-    top, uni = sampling.buckets(bits, k, cut)
+    top, uni = sampling.buckets(bits, k)
     for b in (top, uni):
         assert bool((glo[b] <= f).all()) and bool((f <= ghi[b]).all())
     assert int(top.max()) == n and int(uni.min()) == n + 1 and int(uni.max()) == 2 * n
     assert torch.equal((top > 0), bits >= b0)
 
 
-@pytest.mark.parametrize("k,cut", [(8, 8), (6, 4), (10, 6)])
+@pytest.mark.parametrize("k", [8, 6, 10])
 @pytest.mark.parametrize("rows,V,dtype", [(256, 8192, torch.bfloat16),
                                           (64, 10000, torch.float32),
                                           (300, 1000, torch.bfloat16)])
-def test_screen_model_equals_plain_version(k, cut, rows, V, dtype):
+def test_screen_model_equals_plain_version(k, rows, V, dtype):
     """The kernel's rule (prune a lane whose upper bound is below the row's
     largest lower bound, then the exact argmax of the rest) gives the plain
     version's ids on random rows and on the constructed exact and near ties,
-    NaN, +inf and all-zero rows of ``kernel_sweep.gumbel_cases``."""
-    from act_tpu_torch.kernel_sweep import check_gumbel_cases, gumbel_cases
-    x, seed, cases = gumbel_cases(rows, V, dtype, "cpu")
+    NaN, +inf and all-zero rows of ``sampling.gumbel_cases``; at the path's
+    k and V = 8192 a handful of lanes a row survive."""
+    x, seed, cases = sampling.gumbel_cases(rows, V, dtype, "cpu")
     want = ops.gumbel_argmax_ref(x, seed)
-    ids, live = sampling.screen_ref(x, sampling.hash_bits(rows, V, seed, "cpu"), k, cut)
+    ids, live = sampling.screen_ref(x, sampling.hash_bits(rows, V, seed, "cpu"), k)
     assert torch.equal(ids, want)
-    assert check_gumbel_cases(ids, want, cases) == []
+    assert sampling.check_gumbel_cases(ids, want, cases) == []
     assert {"tie, one warp", "NaN logit", "+inf logit", "all-zero row"} <= set(cases)
     assert int(live.min()) >= 1
-    if (k, cut) == sampling.screen_bits(V):
+    if k == sampling.BUCKET_BITS and V == 8192:
         assert float(live.float().median()) <= 4
 
 
-@pytest.mark.parametrize("k,cut", [(8, 8), (4, 1), (10, 4)])
-def test_screen_model_special_rows(k, cut):
+@pytest.mark.parametrize("k", [8, 6, 10])
+def test_screen_model_special_rows(k):
     """Rows of zeros, -inf, NaN and +inf with hand-set bits: a u = 1 lane
     (bits 2^31 - 1, +inf noise) wins its row; -inf on it gives NaN, which
     wins; a tie at +inf goes to the first index; an all -inf row picks 0;
     two logits of 1e30 absorb their noise and tie, the first index wins."""
     v = 64
-    bits = torch.from_numpy(np.random.default_rng(k + cut).integers(0, 2 ** 30, (6, v)))
+    bits = torch.from_numpy(np.random.default_rng(k).integers(0, 2 ** 30, (6, v)))
     x = torch.zeros(6, v)
     bits[0, 9] = bits[1, 9] = bits[2, 40] = 2 ** 31 - 1
     x[1, 9] = float("-inf")
@@ -247,7 +239,7 @@ def test_screen_model_special_rows(k, cut):
     x[3, 20] = float("nan")
     x[4] = float("-inf")
     x[5, 30] = x[5, 31] = 1e30
-    ids, _ = sampling.screen_ref(x, bits, k, cut)
+    ids, _ = sampling.screen_ref(x, bits, k)
     exact = torch.argmax(x + sampling.noise_of_bits(bits), dim=-1).to(torch.int32)
     assert torch.equal(ids, exact)
     assert ids.tolist() == [9, 9, 7, 20, 0, 30]
