@@ -1,16 +1,18 @@
 """Device times of a call from ``torch.profiler`` (CUPTI), for ``chip_smoke.py``
 and ``act_tpu_torch.kernel_sweep``.
 
-On the H100 machines the profiler often drops the record of the first kernel
-of a window, and sometimes more (every record of a one-call window, or one
-record in the middle), so that a window's sum reads as a partial time. Each
-window therefore opens with a sentinel kernel, launched and finished before
-the calls and left out of the records, and ``device_ms`` reports no time for
-a window in which some kernel name was not recorded a whole number of times
-per call.
+On the H100 machines the profiler often drops the records of the first
+kernels of a window (in one run of ``chip_smoke.py``, all three sentinels
+below in 27 of 79 windows), so that a window's sum can read as a partial
+time. Each window therefore opens with three short spin kernels and a 5 ms
+pause, finished before the calls and left out of the records (with them every
+window of that run was complete), and ``device_ms`` reports no time for a
+window in which some kernel name was not recorded a whole number of times per
+call.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Callable, List, Optional
 
@@ -19,16 +21,19 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+SENTINELS, SENTINEL_CYCLES, PAUSE_S = 3, 200_000, 0.005
 
 
 def kernel_events(fn: Callable[[], object], iters: int) -> List:
     """The device kernels of ``iters`` calls of ``fn``, after one call
-    outside the window, without the window's sentinel."""
+    outside the window, without the window's sentinels."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SENTINEL_CYCLES)
         torch.cuda.synchronize()
+        time.sleep(PAUSE_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
