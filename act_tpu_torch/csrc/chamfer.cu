@@ -63,15 +63,35 @@
 // completes (every column when N <= tq, every row when M <= tt) is written
 // directly, without memset, atomics or unpacking.
 //
-// Design of the backward. One thread per point of x and of y (B*N + B*M
-// threads) reads its saved partner index, gathers the partner, computes
-// v = (2 (q - partner)) g in the JAX function's order, adds v to its own
-// gradient row and -v to its partner's row with atomicAdd on f32. The launch
-// function zeroes dx and dy first (cudaMemsetAsync on the same stream). The
-// atomic sums run in an order that changes from run to run, so the gradients
-// equal the plain version (ops/reference.py::chamfer_bwd_ref) to rounding,
-// not bit for bit. An index outside the partner cloud makes the point's own
-// gradient NaN.
+// Design of the backward. The function is v1 = (2 (x - y[i1])) g1,
+// v2 = (2 (y - x[i2])) g2, dx = v1 - scatter_add(i2, v2),
+// dy = v2 - scatter_add(i1, v1), each product and difference rounded on its
+// own in the JAX function's order. Two bodies serve it.
+// - Groups (N <= 32 and M <= 32: both recon calls of a Stage-I step): a warp
+//   owns a cloud pair, a lane a point of x and a point of y. Every global
+//   load of the warp is issued first (the pair's coordinates, 3 coalesced
+//   words a lane and cloud, its indices and output gradients), then the
+//   coordinates go to shared memory and v1 and v2 are computed once each.
+//   Each source sets its lane's bit in its target's mask with a shared
+//   atomicOr (an OR, so the mask does not depend on the atomics' order).
+//   Each target then sums its sources' v in ascending source index,
+//   starting from +0, which is the order of CPU index_add_ in the plain
+//   version (ops/reference.py::chamfer_bwd_ref). dx and dy are staged in
+//   shared memory and written once each with coalesced plain stores: no
+//   memset, no global atomic, and the gradients equal the plain version run
+//   on the CPU bit for bit, from run to run. (Measured on the H100, PERF.md
+//   §6: loading the coordinates in a loop of load-then-store serialised
+//   three round trips a cloud, and __match_any_sync cost more than the
+//   shared atomics.)
+// - Larger clouds (no path sends them under grad: validation runs
+//   chamfer_nn_min without grad) keep the first body: one thread per point of
+//   x and of y reads its partner, adds v to its own row and -v to its
+//   partner's with atomicAdd on f32, after the launch function zeroes dx and
+//   dy (cudaMemsetAsync on the same stream). Those sums run in an order that
+//   changes from run to run: the gradients equal the plain version to
+//   rounding, not bit for bit.
+// In both, an index outside the partner cloud makes the point's own gradient
+// NaN and adds nothing to any other row.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -352,6 +372,88 @@ int launch_nn(const void* x, const void* y, void* d1, void* i1, void* d2, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kGroupMax = 32;   // points of each cloud that one warp's lanes own
+constexpr int kGroupWarps = 8;  // warps (cloud pairs) a block of the group body
+
+// v = (2 (q - p)) g of one coordinate, in the JAX function's order
+__device__ __forceinline__ float grad_term(float q, float p, float g) {
+  return __fmul_rn(__fmul_rn(2.f, __fsub_rn(q, p)), g);
+}
+
+// One warp's shared memory: the pair's coordinates (then its gradients), both
+// v, and for each target the lanes that scatter into it.
+struct GroupSmem {
+  float x[3 * kGroupMax], y[3 * kGroupMax];  // coordinates, then dx and dy
+  float v1[3 * kGroupMax], v2[3 * kGroupMax];
+  unsigned into_x[kGroupMax], into_y[kGroupMax];  // lane masks of the sources
+};
+
+// the group body: a warp a cloud pair, n, m <= 32
+__global__ void __launch_bounds__(kGroupWarps * 32)
+    bwd_group_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     const int* __restrict__ i1, const int* __restrict__ i2,
+                     const float* __restrict__ g1, const float* __restrict__ g2,
+                     float* __restrict__ dx, float* __restrict__ dy, int b, int n, int m) {
+  __shared__ GroupSmem smem[kGroupWarps];
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const long long cloud = static_cast<long long>(blockIdx.x) * kGroupWarps + warp;
+  if (cloud >= b) return;  // the whole warp, before any __syncwarp
+  GroupSmem& s = smem[warp];
+  const long long px = cloud * n, py = cloud * m;  // first rows of the pair
+  float cx[3], cy[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int k = l + 32 * r;
+    cx[r] = k < 3 * n ? x[px * 3 + k] : 0.f;
+    cy[r] = k < 3 * m ? y[py * 3 + k] : 0.f;
+  }
+  const int j1 = l < n ? i1[px + l] : -1, j2 = l < m ? i2[py + l] : -1;
+  const float h1 = l < n ? g1[px + l] : 0.f, h2 = l < m ? g2[py + l] : 0.f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    s.x[l + 32 * r] = cx[r];
+    s.y[l + 32 * r] = cy[r];
+  }
+  s.into_x[l] = 0u;
+  s.into_y[l] = 0u;
+  const bool ok1 = j1 >= 0 && j1 < m, ok2 = j2 >= 0 && j2 < n;  // a lane past n: j1 = -1
+  __syncwarp();
+  float v1[3], v2[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    v1[c] = ok1 ? grad_term(s.x[3 * l + c], s.y[3 * j1 + c], h1) : NAN;
+    v2[c] = ok2 ? grad_term(s.y[3 * l + c], s.x[3 * j2 + c], h2) : NAN;
+    s.v1[3 * l + c] = v1[c];
+    s.v2[3 * l + c] = v2[c];
+  }
+  // each target's sources, as a lane mask
+  if (ok1) atomicOr(&s.into_y[j1], 1u << l);
+  if (ok2) atomicOr(&s.into_x[j2], 1u << l);
+  __syncwarp();
+  // each target's sum in ascending source index from +0, then its gradient
+  // row, staged over its coordinates (which were read before the last sync)
+  float sx[3] = {0.f, 0.f, 0.f}, sy[3] = {0.f, 0.f, 0.f};
+  for (unsigned k = s.into_x[l]; k; k &= k - 1) {
+    const int src = __ffs(k) - 1;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sx[c] = __fadd_rn(sx[c], s.v2[3 * src + c]);
+  }
+  for (unsigned k = s.into_y[l]; k; k &= k - 1) {
+    const int src = __ffs(k) - 1;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sy[c] = __fadd_rn(sy[c], s.v1[3 * src + c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (l < n) s.x[3 * l + c] = __fsub_rn(v1[c], sx[c]);
+    if (l < m) s.y[3 * l + c] = __fsub_rn(v2[c], sy[c]);
+  }
+  __syncwarp();
+  for (int k = l; k < 3 * n; k += 32) dx[px * 3 + k] = s.x[k];
+  for (int k = l; k < 3 * m; k += 32) dy[py * 3 + k] = s.y[k];
+}
+
+// the body of larger clouds: a thread a point, atomics into zeroed dx, dy
 __global__ void bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
                            const int* __restrict__ i1, const int* __restrict__ i2,
                            const float* __restrict__ g1, const float* __restrict__ g2,
@@ -404,24 +506,32 @@ int act_chamfer_nn_min(const void* x, const void* y, void* d1, void* d2, int b, 
 }
 
 // x (B, N, 3), y (B, M, 3) f32, i1 (B, N), i2 (B, M) int32, g1 (B, N), g2
-// (B, M) f32 -> dx (B, N, 3), dy (B, M, 3) f32 (zeroed here first);
-// contiguous on the device. Returns the first cudaError_t of the memsets and
-// the launch.
+// (B, M) f32 -> dx (B, N, 3), dy (B, M, 3) f32; contiguous on the device.
+// N <= 32 and M <= 32 take the group body, which writes every element of dx
+// and dy; larger clouds zero them here first and take the atomic body.
+// Returns the first cudaError_t of the memsets and the launch.
 int act_chamfer_bwd(const void* x, const void* y, const void* i1, const void* i2,
                     const void* g1, const void* g2, void* dx, void* dy, int b, int n, int m,
                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(b) * n + static_cast<long long>(b) * m;
   if (rows == 0) return static_cast<int>(cudaSuccess);
+  const float *xf = static_cast<const float*>(x), *yf = static_cast<const float*>(y);
+  const int *i1p = static_cast<const int*>(i1), *i2p = static_cast<const int*>(i2);
+  const float *g1p = static_cast<const float*>(g1), *g2p = static_cast<const float*>(g2);
+  float *dxp = static_cast<float*>(dx), *dyp = static_cast<float*>(dy);
+  if (n <= kGroupMax && m <= kGroupMax) {
+    bwd_group_kernel<<<static_cast<unsigned>((b + kGroupWarps - 1LL) / kGroupWarps),
+                       kGroupWarps * 32, 0, st>>>(xf, yf, i1p, i2p, g1p, g2p, dxp, dyp, b, n, m);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = cudaMemsetAsync(dx, 0, static_cast<size_t>(b) * n * 3 * sizeof(float), st);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(dy, 0, static_cast<size_t>(b) * m * 3 * sizeof(float), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
   bwd_kernel<<<static_cast<unsigned>((rows + threads - 1) / threads), threads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const int*>(i1),
-      static_cast<const int*>(i2), static_cast<const float*>(g1), static_cast<const float*>(g2),
-      static_cast<float*>(dx), static_cast<float*>(dy), b, n, m);
+      xf, yf, i1p, i2p, g1p, g2p, dxp, dyp, b, n, m);
   return static_cast<int>(cudaGetLastError());
 }
 

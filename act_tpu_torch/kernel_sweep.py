@@ -1,6 +1,6 @@
-"""Sweeps of the FPS, Chamfer and Gumbel kernels' launch geometries and times
-of the k-smallest kernel on one CUDA card, beside an earlier version of the
-kernels.
+"""Sweeps of the FPS, Chamfer, Gumbel and gather kernels' launch geometries
+and times of the k-smallest kernel on one CUDA card, beside an earlier
+version of the redesigned kernels.
 
   python -m act_tpu_torch.kernel_sweep [--parent DIR] [--out FILE]
 
@@ -14,25 +14,34 @@ version (indices equal, values bit-equal) and ``torch.topk``. It runs
 validation, whole-cloud, both recon and a ragged shape, at each tiling it
 sweeps and the one ``ops/chamfer.py`` ``launch_geometry`` picks, checks every
 run against the plain versions (distances bit-equal, indices equal) and
-prints the device times. It runs ``csrc/gumbel.cu`` at the Stage-II shape
+prints the device times. It runs ``chamfer_bwd`` at both recon shapes (the
+group body, checked bit-equal to the plain version run on the CPU) and at a
+validation-sized pair (the atomic body, within ``BWD_RTOL``). It runs
+``csrc/gumbel.cu`` at the Stage-II shape
 (bf16 and f32) and at smaller and ragged ones, at each bucket count and grid
 it sweeps and the one ``ops/sampling.py`` ``launch_geometry`` picks, checks
 every run id for id against
 ``gumbel_argmax_ref`` (outputs filled with -1 before each checked run), and
 prints the device times and the screen's survivors a row (from its plain
-model ``sampling.screen_ref``). A device time that the profiler did not
-record in full is reported as not measured (``act_tpu_torch/profiling.py``).
-With ``--parent DIR`` (a checkout that holds an earlier
-``act_tpu_torch/csrc``), that version's ``fps.cu``, ``topk.cu``,
-``chamfer.cu`` and ``gumbel.cu``, where they differ from the current ones,
-are built too and timed at the same shapes in the same process, in turns
-with the current ones.
+model ``sampling.screen_ref``). It runs ``csrc/gather.cu`` at every gather
+shape of the paths with each body at 128 and 256 threads and the
+(body, threads) that ``ops/gather.py`` ``launch_geometry`` picks, each run
+checked bit-equal to ``gather_points``.
+Checked runs write into outputs first filled with NaN or -1. A device time
+that the profiler did not record in full is reported as not measured
+(``act_tpu_torch/profiling.py``).
+With ``--parent DIR`` (a checkout that holds an earlier ``act_tpu_torch/csrc``
+and ``act_tpu_torch/ops/_backend.py``), that version's ``chamfer.cu`` and
+``gather.cu``, where they differ from the current ones, are built too and
+their ``chamfer_bwd`` and gather are timed at the same shapes in the same
+process, in turns with the current ones (parent, current, current, parent).
 Writes every row as JSON to ``--out`` (default
 ``chiprun_out/kernel_sweep.json``).
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import json
 import subprocess
@@ -44,6 +53,7 @@ import torch
 from act_tpu_torch import ops
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
+from act_tpu_torch.ops import gather as gather_mod
 from act_tpu_torch.ops import sampling
 from act_tpu_torch.ops.fps import MAX_PPT, _max_clusters, _sms, launch_geometry, tie_swaps
 from act_tpu_torch.ops.reference import gumbel_chunk
@@ -79,26 +89,41 @@ GUMBEL_SHAPES = [(8192, 8192, torch.bfloat16), (8192, 8192, torch.float32),
 GUMBEL_BITS = (6, 8, 10)
 
 
-# the earlier sources' launch functions: name, argument types
-PARENT_FNS = {
-    "fps": [("act_fps", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])],
-    "topk": [("act_ksmallest", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])],
-    "chamfer": [("act_chamfer_nn", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
-                ("act_chamfer_nn_min",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])],
-    "gumbel": [("act_gumbel_argmax", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p])],
-}
+# chamfer_bwd (B, N, M): both recon calls of a Stage-I step (the group body)
+# and one validation-sized pair (the atomic body, within BWD_RTOL)
+BWD_SHAPES = [(4096, 8, 32), (4096, 32, 32), (1, 2048, 1024)]
+BWD_RTOL = 1e-5  # the atomic body: f32 sums in a changing order
+# gather (B, N, S): Stage II's centers and neighbourhoods, Stage I's, the
+# B=32 request's resample, centers and neighbourhoods, and the B=1 request's
+GATHER_SHAPES = [(128, 1024, 64), (128, 1024, 2048), (64, 1024, 64), (64, 1024, 2048),
+                 (32, 8192, 1024), (32, 1024, 64), (32, 1024, 2048), (1, 8192, 1024),
+                 (1, 1024, 64), (1, 1024, 2048)]
+# gather (tile, threads) swept beside the pick: each body at 128 and 256
+GATHER_GEOMETRIES = ((False, 128), (False, 256), (True, 128), (True, 256))
+# the sources whose earlier version --parent times
+PARENT_STEMS = ("chamfer", "gather")
+
+
+def parent_kernels(parent: Path) -> dict:
+    """The parent commit's own kernel table, ``KERNELS`` of its
+    ``act_tpu_torch/ops/_backend.py`` (name -> (source stem, C launch
+    function, argument types)), read without importing that module."""
+    tree = ast.parse((parent / "act_tpu_torch" / "ops" / "_backend.py").read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "KERNELS" for t in n.targets))
+    return eval(compile(ast.Expression(node.value), "parent KERNELS", "eval"),
+                {"_P": ctypes.c_void_p, "_I": ctypes.c_int})
 
 
 def build_parent(parent: Path) -> dict:
-    """The earlier fps.cu, topk.cu, chamfer.cu and gumbel.cu that differ from
-    the current ones, built as in ``_backend``, by launch function (PARENT_FNS
-    holds each one's signature before its redesign)."""
+    """The earlier ``PARENT_STEMS`` sources that differ from the current
+    ones, built as in ``_backend``, by C launch function, each bound with
+    its signature at the parent commit (from :func:`parent_kernels`)."""
+    table = parent_kernels(parent)
     out_dir = _backend.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem in PARENT_FNS:
+    for stem in PARENT_STEMS:
         src = parent / "act_tpu_torch" / "csrc" / f"{stem}.cu"
         if src.read_bytes() == (_backend.CSRC / f"{stem}.cu").read_bytes():
             continue
@@ -112,10 +137,11 @@ def build_parent(parent: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"parent {stem}.cu failed to build:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for name, argtypes in PARENT_FNS[stem]:
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            fns[name] = fn
+        for src_stem, name, argtypes in table.values():
+            if src_stem == stem:
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                fns[name] = fn
     return fns
 
 
@@ -161,25 +187,15 @@ def sm_clock_mhz(fn, seconds: float = 1.0) -> str:
     return out.stdout.strip()
 
 
-def chamfer_runs(x: torch.Tensor, y: torch.Tensor, geo=None, old=None) -> dict:
-    """Closures that launch ``chamfer_nn`` and ``chamfer_nn_min`` once and
-    return their outputs: at tiling ``geo``, or the earlier source's
-    functions ``old``."""
+def chamfer_runs(x: torch.Tensor, y: torch.Tensor, geo) -> dict:
+    """Closures that launch ``chamfer_nn`` and ``chamfer_nn_min`` once at
+    tiling ``geo`` and return their outputs."""
     (B, N, _), M = x.shape, y.shape[1]
     # NaN and -1 until a launch writes them: a launch that writes nothing fails the check
     d1, d2 = x.new_full((B, N), float("nan")), x.new_full((B, M), float("nan"))
     i1, i2 = (torch.full((B, n), -1, dtype=torch.int32, device=x.device) for n in (N, M))
     out = x.new_full((B * (N + M),), float("nan"))
     m1, m2 = out[:B * N].view(B, N), out[B * N:].view(B, M)
-    if old is not None:
-        def nn():
-            call(old["act_chamfer_nn"], x, y, d1, i1, d2, i2, B, N, M)
-            return d1, d2, i1, i2
-
-        def nn_min():
-            call(old["act_chamfer_nn_min"], x, y, m1, m2, B, N, M)
-            return m1, m2
-        return {"chamfer_nn": nn, "chamfer_nn_min": nn_min}
     keys = (torch.empty(B * (N + M), dtype=torch.int64, device=x.device)
             if N > geo[0] or M > geo[1] else 0)
 
@@ -210,7 +226,7 @@ def gumbel_launch(logits: torch.Tensor, seed: torch.Tensor, out: torch.Tensor, g
                     int(logits.dtype == torch.bfloat16), *geo)
 
 
-def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
+def sweep_gumbel(dev, sms: int, rows: list, bad: list) -> None:
     """The Gumbel part of the sweep: rows to ``rows``, failures to ``bad``."""
     for rows_, v, dtype in GUMBEL_SHAPES:
         shape = f"({rows_}, {v}) {str(dtype).split('.')[-1]}"
@@ -253,22 +269,6 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
                 f"{times[picked]:.5f} ms; best {best} {times[best]:.5f} ms; survivors a row "
                 + ", ".join(f"k={k} {float(n.float().mean()):.2f} (max {int(n.max())})"
                             for k, (_, n) in live.items()))
-        if "act_gumbel_argmax" in old:
-            def run_old():
-                call(old["act_gumbel_argmax"], logits, seed, out, rows_, v,
-                     gumbel_chunk(rows_, v), int(dtype == torch.bfloat16))
-            out.fill_(-1)
-            run_old()
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                bad.append(f"parent gumbel_argmax {shape}")
-            t_old = [device_ms(run_old, iters)]
-            t_new = [device_ms(lambda: ops.gumbel_argmax(logits, seed), iters) for _ in range(2)]
-            t_old.append(device_ms(run_old, iters))
-            rows.append(dict(kernel="gumbel_argmax_parent", shape=[rows_, v, str(dtype)],
-                             ms=t_old, new_ms=t_new))
-            line += (f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current "
-                     f"{fmt(t_new[0])}/{fmt(t_new[1])} ms (parent, current, current, parent)")
         if rows_ * v > 2 ** 22:
             clock = sm_clock_mhz(lambda: ops.gumbel_argmax(logits, seed))
             rows.append(dict(kernel="gumbel_clock", shape=[rows_, v, str(dtype)],
@@ -279,14 +279,119 @@ def sweep_gumbel(dev, sms: int, old: dict, rows: list, bad: list) -> None:
             print(f"    {geo}: {fmt(t)} ms", flush=True)
 
 
+def parent_vs_current(run_old, run_new, iters: int):
+    """Device times in turns: parent, current, current, parent."""
+    t_old = [device_ms(run_old, iters)]
+    t_new = [device_ms(run_new, iters) for _ in range(2)]
+    t_old.append(device_ms(run_old, iters))
+    return t_old, t_new
+
+
+def turns(t_old, t_new) -> str:
+    return (f"parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current {fmt(t_new[0])}/"
+            f"{fmt(t_new[1])} ms (parent, current, current, parent)")
+
+
+def sweep_chamfer_bwd(dev, old: dict, rows: list, bad: list) -> None:
+    """``chamfer_bwd`` at ``BWD_SHAPES`` from the plain forward's indices:
+    the group body bit-equal to the plain version run on the CPU, the atomic
+    body within ``BWD_RTOL`` of the largest gradient; the parent's in turns."""
+    gen = torch.Generator().manual_seed(7)
+    for B, N, M in BWD_SHAPES:
+        args = [torch.randn(B, N, 3, generator=gen), torch.randn(B, M, 3, generator=gen)]
+        args += list(ops.chamfer_ref(*args)[2:])
+        args += [torch.randn(B, N, generator=gen), torch.randn(B, M, generator=gen)]
+        want = ops.chamfer_bwd_ref(*args)
+        a = [t.to(dev) for t in args]
+        dx, dy = torch.empty_like(a[0]), torch.empty_like(a[1])
+        group = max(N, M) <= 32
+
+        def check(tag, launch):
+            dx.fill_(float("nan"))
+            dy.fill_(float("nan"))
+            launch()
+            torch.cuda.synchronize()
+            for g, w in zip((dx.cpu(), dy.cpu()), want):
+                ok = (torch.equal(g, w) if group and tag == "current" else
+                      bool(((g - w).abs() <= BWD_RTOL * w.abs().max()).all()))
+                if not ok:
+                    print(f"MISMATCH chamfer_bwd {tag} {(B, N, M)}: differs from the plain version")
+                    bad.append(f"chamfer_bwd {tag} {(B, N, M)}")
+
+        def run_new():
+            _backend.launch("chamfer_bwd", *a, dx, dy, B, N, M)
+        check("current", run_new)
+        line = (f"[chamfer_bwd] ({B}, {N})x({B}, {M}) {'group' if group else 'atomic'} body: "
+                f"{'bit-equal' if group else f'within {BWD_RTOL}'}")
+        row = dict(kernel="chamfer_bwd", shape=[B, N, M], body="group" if group else "atomic")
+        if "act_chamfer_bwd" in old:
+            def run_old():
+                call(old["act_chamfer_bwd"], *a, dx, dy, B, N, M)
+            check("parent", run_old)
+            t_old, t_new = parent_vs_current(run_old, run_new, 100)
+            row.update(parent_ms=t_old, ms=t_new)
+            line += "; " + turns(t_old, t_new)
+        else:
+            row.update(ms=device_ms(run_new, 100))
+            line += f"; {fmt(row['ms'])} ms"
+        rows.append(row)
+        print(line, flush=True)
+
+
+def sweep_gather(dev, old: dict, rows: list, bad: list) -> None:
+    """The gather at ``GATHER_SHAPES`` (C = 3) at each (body, threads) of
+    ``GATHER_GEOMETRIES`` and the pick, each run bit-equal to
+    ``gather_points``; the parent's in turns."""
+    gen = torch.Generator().manual_seed(8)
+    for B, N, S in GATHER_SHAPES:
+        pts = torch.randn(B, N, 3, generator=gen).to(dev)
+        idx = torch.randint(0, N, (B, S), generator=gen, dtype=torch.int32).to(dev)
+        want = ops.gather_points(pts, idx)
+        out = torch.empty(B, S, 3, device=dev)
+        picked = gather_mod.launch_geometry(B, S, True)  # fresh tensors: aligned
+        times = {}
+        for geo in sorted(set(GATHER_GEOMETRIES) | {picked}):
+            def run(geo=geo):
+                _backend.launch("gather", pts, idx, out, B, N, S, 3, *geo)
+            out.fill_(float("nan"))
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                print(f"MISMATCH gather {(B, N, S)} at {geo}: not bit-equal")
+                bad.append(f"gather {(B, N, S)} {geo}")
+                continue
+            times[geo] = device_ms(run, 200)
+            rows.append(dict(kernel="gather", shape=[B, N, S], geometry=list(geo),
+                             picked=geo == picked, ms=times[geo]))
+        line = (f"[gather] ({B}, {N}, 3) by ({B}, {S}): picked (tile, threads) = {picked} "
+                f"{fmt(times.get(picked))} ms; " + ", ".join(
+                    f"{g}: {fmt(ms)}" for g, ms in sorted(times.items())))
+        if "act_gather" in old:
+            # the arguments of the parent's signature (without the geometry
+            # where it takes none)
+            old_args = (pts, idx, out, B, N, S, 3, *picked)[:len(old["act_gather"].argtypes) - 1]
+
+            def run_old():
+                call(old["act_gather"], *old_args)
+            out.fill_(float("nan"))
+            run_old()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                bad.append(f"parent gather {(B, N, S)}")
+            t_old, t_new = parent_vs_current(run_old, lambda: ops.gather_coords(pts, idx), 200)
+            rows.append(dict(kernel="gather_parent", shape=[B, N, S], ms=t_old, new_ms=t_new))
+            line += "; " + turns(t_old, t_new)
+        print(line, flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/kernel_sweep.json"))
     args = ap.parse_args()
     dev = _backend.resolve_device("cuda")
-    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn", "gumbel_argmax"))
-    for stem in ("fps", "topk", "chamfer", "gumbel"):
+    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn", "gumbel_argmax", "gather"))
+    for stem in ("fps", "topk", "chamfer", "gumbel", "gather"):
         for line in _backend.BUILD_LOG.get(stem, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
@@ -335,19 +440,6 @@ def main() -> None:
                 f"ppt={picked[2]} {times[picked]:.5f} ms "
                 f"({times[picked] * 1e3 / (S - 1):.4f} us a step); best {best} "
                 f"{times[best]:.5f} ms")
-        if "act_fps" in old:
-            def run_old():
-                call(old["act_fps"], pts, start, out, B, N, S)
-            run_old()
-            torch.cuda.synchronize()
-            if tie_swaps(out, want) < 0:
-                bad.append(f"parent fps {(B, N, S)}")
-            t_old = [device_ms(run_old, iters)]
-            t_new = device_ms(lambda: ops.furthest_point_sample(pts, S), iters)
-            t_old.append(device_ms(run_old, iters))
-            rows.append(dict(kernel="fps_parent", shape=[B, N, S], ms=t_old,
-                             new_ms=t_new))
-            line += f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current {fmt(t_new)} ms"
         clock = sm_clock_mhz(lambda: ops.furthest_point_sample(pts, S))
         rows.append(dict(kernel="fps_clock", shape=[B, N, S], sm_clock_power=clock))
         print(line + f"; SM clock, power while it runs: {clock}", flush=True)
@@ -362,20 +454,8 @@ def main() -> None:
             bad.append(f"k_smallest {(R, N, k)}")
         t = device_ms(lambda: ops.k_smallest(d, k), 50)
         lib = device_ms(lambda: torch.topk(d, k, dim=-1, largest=False, sorted=True), 50)
-        row = dict(kernel="k_smallest", shape=[R, N, k], ms=t, library_ms=lib)
-        line = f"[k_smallest] ({R}, {N}) k={k}: {fmt(t)} ms; torch.topk {fmt(lib)} ms"
-        if "act_ksmallest" in old:
-            ov = torch.empty(R, k, device=dev)
-            oi = torch.empty(R, k, dtype=torch.int32, device=dev)
-            t_old = [device_ms(lambda: call(old["act_ksmallest"], d, ov, oi, R, N, k), 50)]
-            t_new = device_ms(lambda: ops.k_smallest(d, k), 50)
-            t_old.append(device_ms(lambda: call(old["act_ksmallest"], d, ov, oi, R, N, k), 50))
-            if not torch.equal(oi, wi):
-                bad.append(f"parent k_smallest {(R, N, k)}")
-            row.update(parent_ms=t_old, again_ms=t_new)
-            line += f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current again {fmt(t_new)} ms"
-        rows.append(row)
-        print(line, flush=True)
+        rows.append(dict(kernel="k_smallest", shape=[R, N, k], ms=t, library_ms=lib))
+        print(f"[k_smallest] ({R}, {N}) k={k}: {fmt(t)} ms; torch.topk {fmt(lib)} ms", flush=True)
     for (B, N, M), swept in CHAMFER_SHAPES.items():
         x = torch.randn(B, N, 3, generator=gen).to(dev)
         y = torch.randn(B, M, 3, generator=gen).to(dev)
@@ -398,31 +478,18 @@ def main() -> None:
                     print(f"    {kind} {geo}: device records incomplete, not measured")
                 else:
                     times[kind, geo] = ms
-        old_runs = chamfer_runs(x, y, old=old) if "act_chamfer_nn" in old else {}
         for kind in ("chamfer_nn", "chamfer_nn_min"):
             mine = {g: t for (k, g), t in times.items() if k == kind}
             if picked not in mine:
                 continue
             best = min(mine, key=mine.get)
-            line = (f"[{kind}] ({B}, {N})x({B}, {M}): picked (tq, tt, r, threads, pack) = "
-                    f"{picked} {mine[picked]:.5f} ms; best {best} {mine[best]:.5f} ms")
-            if kind in old_runs:
-                got = old_runs[kind]()
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(got, want[kind])):
-                    bad.append(f"parent {kind} {(B, N, M)}")
-                current = chamfer_mod.nn_pair if kind == "chamfer_nn" else chamfer_mod.nn_pair_min
-                t_old = [device_ms(old_runs[kind], iters)]
-                t_new = [device_ms(lambda: current(x, y), iters) for _ in range(2)]
-                t_old.append(device_ms(old_runs[kind], iters))
-                rows.append(dict(kernel=f"{kind}_parent", shape=[B, N, M], ms=t_old,
-                                 new_ms=t_new))
-                line += (f"; parent {fmt(t_old[0])}/{fmt(t_old[1])} ms, current "
-                         f"{fmt(t_new[0])}/{fmt(t_new[1])} ms (parent, current, current, parent)")
-            print(line, flush=True)
+            print(f"[{kind}] ({B}, {N})x({B}, {M}): picked (tq, tt, r, threads, pack) = "
+                  f"{picked} {mine[picked]:.5f} ms; best {best} {mine[best]:.5f} ms", flush=True)
             for geo, t in sorted(mine.items()):
                 print(f"    {geo}: {fmt(t)} ms", flush=True)
-    sweep_gumbel(dev, sms, old, rows, bad)
+    sweep_chamfer_bwd(dev, old, rows, bad)
+    sweep_gumbel(dev, sms, rows, bad)
+    sweep_gather(dev, old, rows, bad)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
     print(f"wrote {args.out}", flush=True)

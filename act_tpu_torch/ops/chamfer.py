@@ -20,7 +20,7 @@ source).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +30,11 @@ from act_tpu_torch.ops.reference import chamfer_bwd_ref, chamfer_min_ref, chamfe
 
 SHARED_LIMIT = 48 * 1024  # a block's default shared memory: no opt-in attribute
 MAX_THREADS = 256
+# clouds of at most this many points take chamfer_bwd's group body, which
+# equals the plain version run on the CPU bit for bit (csrc/chamfer.cu)
+BWD_GROUP_MAX = 32
+BWD_CASES = ("one target", "n=1", "m=1", "n=m=1", "ragged", "signed zeros, mixed magnitudes",
+             "out of range")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -139,7 +144,11 @@ def nn_pair_min(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 def chamfer_bwd(x: torch.Tensor, y: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
                 g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradients (dx, dy) of (d1, d2) from the saved indices and the
-    output gradients g1 (B, N), g2 (B, M); the kernel takes f32 and int32."""
+    output gradients g1 (B, N), g2 (B, M); the kernel takes f32 and int32.
+
+    On the card, clouds of at most ``BWD_GROUP_MAX`` points give the plain
+    version's values on the CPU bit for bit; larger ones agree to rounding.
+    An index outside the partner cloud makes that point's gradient NaN."""
     _check_clouds(x, y)
     if not (i1.shape == g1.shape == x.shape[:2] and i2.shape == g2.shape == y.shape[:2]):
         raise ValueError(f"chamfer_bwd: i1, g1 must be {tuple(x.shape[:2])} and i2, g2 "
@@ -152,9 +161,60 @@ def chamfer_bwd(x: torch.Tensor, y: torch.Tensor, i1: torch.Tensor, i2: torch.Te
                         (g1, "g1", torch.float32), (g2, "g2", torch.float32)):
         _backend.check_cuda_input(t, f"chamfer_bwd {what}", dt)
     (B, N, _), M = x.shape, y.shape[1]
-    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    dx, dy = torch.empty_like(x), torch.empty_like(y)  # the kernel writes every element
     _backend.launch("chamfer_bwd", x, y, i1, i2, g1, g2, dx, dy, B, N, M)
     return dx, dy
+
+
+def bwd_case(name: str) -> Tuple[List[torch.Tensor], Optional[tuple]]:
+    """A hard case of the backward's group body, 50 cloud pairs on the CPU:
+    ((x, y, i1, i2, g1, g2), the (cloud, point) of x and of y whose index is
+    out of range, or None). ``name`` is one of ``BWD_CASES``: every source
+    of both clouds on one point; one-point clouds; a ragged (B, 7) x (B, 29)
+    pair; output gradients of -0 and of magnitudes 1e-8 to 1e8, the sources
+    of y on three points of x; an index past the end of y and one below 0.
+    Other cases use the nearest-neighbour indices of random clouds."""
+    gen = torch.Generator().manual_seed(BWD_CASES.index(name))
+    B = 50
+    N, M = {"n=1": (1, 32), "m=1": (32, 1), "n=m=1": (1, 1), "ragged": (7, 29)}.get(name, (32, 32))
+    x, y = torch.randn(B, N, 3, generator=gen), torch.randn(B, M, 3, generator=gen)
+    _, _, i1, i2 = chamfer_ref(x, y)
+    g1, g2 = torch.randn(B, N, generator=gen), torch.randn(B, M, generator=gen)
+    bad = None
+    if name == "one target":
+        i1, i2 = torch.full_like(i1, 5), torch.zeros_like(i2)
+    elif name == "signed zeros, mixed magnitudes":
+        g1 = g1 * 10.0 ** torch.randint(-8, 9, g1.shape, generator=gen).float()
+        g2 = g2 * 10.0 ** torch.randint(-8, 9, g2.shape, generator=gen).float()
+        g1[:, ::3], g2[:, 1::3] = -0.0, -0.0
+        i2 = torch.randint(0, 3, i2.shape, generator=gen, dtype=torch.int32)
+    elif name == "out of range":
+        i1[3, 4], i2[7, 0] = M, -1
+        bad = ((3, 4), (7, 0))
+    return [x, y, i1, i2, g1, g2], bad
+
+
+def check_bwd_case(name: str, fn: Callable) -> bool:
+    """Whether ``fn`` (CPU inputs -> CPU (dx, dy)) gives case ``name`` of
+    :func:`bwd_case` as the plain version does on the CPU, bit for bit and
+    signs of zeros included. An index out of range must make its own row
+    NaN and add nothing elsewhere; the plain version cannot take it, so the
+    other rows are held to it with that point's gradient 0 at index 0 (a
+    zero adds nothing to a sum that starts at +0)."""
+    args, bad = bwd_case(name)
+    got = [t.clone() for t in fn(*args)]
+    if bad is not None:
+        (bx, px), (by, py) = bad
+        if not (torch.isnan(got[0][bx, px]).all() and torch.isnan(got[1][by, py]).all()):
+            return False
+        args[2][bx, px] = args[3][by, py] = 0
+        args[4][bx, px] = args[5][by, py] = 0.0
+        got[0][bx, px], got[1][by, py] = 0.0, 0.0
+    want = list(chamfer_bwd_ref(*args))
+    if bad is not None:
+        want[0][bx, px], want[1][by, py] = 0.0, 0.0
+    return all(torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+               for a, b in zip(got, want))
 
 
 class _Chamfer(torch.autograd.Function):

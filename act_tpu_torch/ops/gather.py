@@ -6,12 +6,30 @@ gather launches the kernel, whatever its size.
 """
 from __future__ import annotations
 
+from typing import Callable, List, Tuple
+
 import torch
 
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops.reference import gather_points
 
 MAX_CHANNELS = 8
+MAX_THREADS = 256
+TILE_POINTS = 1 << 16  # gathers of at least this many points take the tile body
+
+
+def launch_geometry(B: int, S: int, aligned: bool) -> Tuple[bool, int]:
+    """(tile, threads) of a gather of (B, S) indices: the body of
+    ``csrc/gather.cu`` and the threads a block. Gathers of at least
+    ``TILE_POINTS`` points whose index and output views are 16-byte aligned
+    with S a multiple of 4 (``aligned``) take the tile body (a warp 128
+    points), 256 threads a block from 2^17 points, else 128; all others a
+    thread an element, 256 a block. The split and the blocks are the fastest
+    that ``python -m act_tpu_torch.kernel_sweep`` measured at the paths'
+    shapes on the H100 (``PERF.md`` §6)."""
+    if aligned and B * S >= TILE_POINTS:
+        return True, MAX_THREADS if B * S >= 2 * TILE_POINTS else 128
+    return False, MAX_THREADS
 
 
 def gather_coords(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -33,5 +51,42 @@ def gather_coords(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     S = idx.numel() // max(B, 1)
     out = torch.empty(*idx.shape, C, dtype=torch.float32, device=points.device)
     if out.numel():
-        _backend.launch("gather", points, idx, out, B, N, S, C)
+        aligned = S % 4 == 0 and idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        _backend.launch("gather", points, idx, out, B, N, S, C, *launch_geometry(B, S, aligned))
     return out
+
+
+def check_gather_cases(fn: Callable, device) -> List[str]:
+    """The hard cases on which ``fn`` (``gather_coords``) differs from
+    ``gather_points`` bit for bit: every C in 1-8 through both bodies (small
+    gathers, and gathers of 2^16 and 2^17 points with S a multiple of 4, the
+    last tile of a cloud ragged or not), S not a multiple of 4 and an index
+    view at an odd element offset (the element body at any size), B = 0 and
+    S = 0; and whether an index outside [0, N) gathers NaN while its
+    neighbours gather their rows, in both bodies."""
+    gen = torch.Generator().manual_seed(5)
+    wrong = []
+    for C in range(1, MAX_CHANNELS + 1):
+        pts = torch.randn(64, 1000, C, generator=gen).to(device)
+        cases = {f"C={C} idx {s}": torch.randint(0, 1000, s, generator=gen).int().to(device)
+                 for s in ((3, 50, 7), (3, 64), (3, 1001), (3, 2), (3, 1), (32, 2048),
+                           (32, 2052), (32, 2050), (64, 2048))}
+        base = torch.randint(0, 1000, (32 * 2048 + 1,), generator=gen).int().to(device)
+        cases[f"C={C} idx at an odd offset"] = base[1:].view(32, 2048)
+        cases[f"C={C} B=0"] = base[:0].view(0, 5)
+        cases[f"C={C} S=0"] = base[:0].view(3, 0)
+        for tag, idx in cases.items():
+            p = pts[:idx.shape[0]]
+            got = fn(p, idx)
+            want = gather_points(p, idx) if idx.numel() else p.new_empty(*idx.shape, C)
+            if got.shape != want.shape or not torch.equal(got, want):
+                wrong.append(tag)
+    pts = torch.randn(32, 1000, 3, generator=gen).to(device)
+    for S in (4, 2048):  # the element body, the tile body
+        idx = torch.randint(0, 1000, (32, S), generator=gen).int()
+        idx[0, :4] = torch.tensor([0, 1000, -1, 7], dtype=torch.int32)
+        out = fn(pts, idx.to(device))
+        if not (torch.isnan(out[0, 1:3]).all() and torch.equal(out[0, 0], pts[0, 0])
+                and torch.equal(out[0, 3], pts[0, 7])):
+            wrong.append(f"out of range, S={S}")
+    return wrong

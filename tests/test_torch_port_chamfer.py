@@ -152,6 +152,59 @@ def test_gradients_match_jax(rng, monkeypatch, loss, B, N, M):
         np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
 
 
+@pytest.mark.parametrize("case", ["mixed magnitudes", "many onto one", "signed zeros"])
+def test_bwd_ref_sums_in_ascending_source_order(rng, case):
+    """``chamfer_bwd_ref`` on the CPU equals an explicit loop that sums each
+    target's sources in ascending source index from +0, bit for bit, on
+    values whose f32 sum depends on the order (magnitudes 1e-8 to 1e8, up to
+    200 sources on one target, gradients of -0). The card's group body sums
+    in that order, so its gradients equal the plain version bit for bit."""
+    B, N, M = 3, 32, 200 if case == "many onto one" else 32
+    x, y = (t(a) for a in clouds(rng, B, N, M))
+    i1 = t(rng.integers(0, M, size=(B, N)).astype(np.int32))
+    i2 = t(rng.integers(0, 2 if case == "many onto one" else N, size=(B, M)).astype(np.int32))
+    g1, g2 = (t(rng.normal(size=(B, n)).astype(np.float32)
+                * 10.0 ** rng.integers(-8, 9, size=(B, n)).astype(np.float32)) for n in (N, M))
+    if case == "signed zeros":
+        g1[:, ::2], g2[:, 1::2] = -0.0, -0.0
+    dx, dy = ops.chamfer_bwd_ref(x, y, i1, i2, g1, g2)
+    v1 = 2.0 * (x - ops.gather_points(y, i1)) * g1[:, :, None]
+    v2 = 2.0 * (y - ops.gather_points(x, i2)) * g2[:, :, None]
+    for d, v, w, idx, n in ((dx, v1, v2, i2, N), (dy, v2, v1, i1, M)):
+        want = v.clone()
+        for b in range(B):
+            sums = [np.zeros(3, np.float32) for _ in range(n)]
+            for src, j in enumerate(idx[b].tolist()):  # ascending source index
+                sums[j] = (sums[j] + w[b, src].numpy()).astype(np.float32)
+            want[b] = v[b] - torch.from_numpy(np.stack(sums))
+        assert torch.equal(d, want) and torch.equal(torch.signbit(d), torch.signbit(want))
+    if case == "mixed magnitudes":  # the order matters for these values
+        sx = torch.zeros(B * N, 3).index_add_(0, (torch.arange(B)[:, None] * N + i2.long())
+                                              .reshape(-1).flip(0), v2.reshape(-1, 3).flip(0))
+        assert not torch.equal(v1 - sx.reshape(B, N, 3), dx)
+
+
+@pytest.mark.parametrize("name", [n for n in chamfer_mod.BWD_CASES if n != "out of range"])
+def test_bwd_hard_cases_hold_the_plain_version(name):
+    """``check_bwd_case`` (which the card's backward is held to) passes the
+    plain version itself; on the order-sensitive case it fails a backward
+    that sums each target's sources in descending order."""
+    assert chamfer_mod.check_bwd_case(name, ops.chamfer_bwd_ref)
+    if name != "signed zeros, mixed magnitudes":
+        return
+
+    def descending(x, y, i1, i2, g1, g2):
+        (B, N, _), M = x.shape, y.shape[1]
+        v1 = 2.0 * (x - ops.gather_points(y, i1)) * g1[:, :, None]
+        v2 = 2.0 * (y - ops.gather_points(x, i2)) * g2[:, :, None]
+        rx = (torch.arange(B)[:, None] * N + i2.long()).reshape(-1).flip(0)
+        ry = (torch.arange(B)[:, None] * M + i1.long()).reshape(-1).flip(0)
+        sx = torch.zeros(B * N, 3).index_add_(0, rx, v2.reshape(-1, 3).flip(0))
+        sy = torch.zeros(B * M, 3).index_add_(0, ry, v1.reshape(-1, 3).flip(0))
+        return v1 - sx.reshape(B, N, 3), v2 - sy.reshape(B, M, 3)
+    assert not chamfer_mod.check_bwd_case(name, descending)
+
+
 def test_split_loss_and_l2_agree(rng):
     x, y = clouds(rng, 4, 10, 12)
     a, b = ops.chamfer_distance_l2_split(t(x), t(y))

@@ -14,7 +14,9 @@ from act_tpu_torch import ops
 from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
-from act_tpu_torch.kernel_sweep import (CHAMFER_SHAPES, GUMBEL_SHAPES, chamfer_runs,
+from act_tpu_torch.ops import gather as gather_mod
+from act_tpu_torch.kernel_sweep import (BWD_RTOL, CHAMFER_SHAPES, GATHER_GEOMETRIES,
+                                        GATHER_SHAPES, GUMBEL_SHAPES, chamfer_runs,
                                         gumbel_geometries, gumbel_launch)
 from act_tpu_torch.ops import sampling
 from act_tpu_torch.ops.fps import _sms, tie_swaps
@@ -192,13 +194,43 @@ def test_fps_kernel_rejects_start_out_of_range(cuda):
 
 
 def test_gather_kernel_is_exact(cuda):
+    """Bit-equal to ``gather_points`` for every C in 1-8 through both bodies
+    (below and from 2^16 points, the last tile of a cloud ragged or not), S
+    not a multiple of 4 and an index view at an odd element offset (the
+    element body at any size), B = 0 and S = 0; an index outside [0, N)
+    gathers NaN (``ops/gather.py`` ``check_gather_cases``)."""
     pts = cloud(4, 3, 1000, 6, device=cuda)
     idx = torch.randint(0, 1000, (3, 50, 7), generator=torch.Generator().manual_seed(5))
     idx = idx.int().to(cuda)
     assert torch.equal(ops.gather_coords(pts, idx), ops.gather_points(pts, idx))
-    bad = torch.tensor([[0, 1000, -1]], dtype=torch.int32, device=cuda)
-    out = ops.gather_coords(pts[:1], bad)
-    assert torch.isnan(out[0, 1:]).all() and torch.equal(out[0, 0], pts[0, 0])
+    assert gather_mod.check_gather_cases(ops.gather_coords, cuda) == []
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_gather_kernel_every_geometry(cuda, shape):
+    """Each (body, threads) that kernel_sweep times, at each gather shape of
+    the paths, into an output first filled with NaN: bit-equal."""
+    B, N, S = shape
+    pts = cloud(40, B, N, 3, device=cuda)
+    idx = torch.randint(0, N, (B, S), generator=torch.Generator().manual_seed(41))
+    idx = idx.int().to(cuda)
+    want = ops.gather_points(pts, idx)
+    for geo in GATHER_GEOMETRIES:
+        out = torch.full((B, S, 3), float("nan"), device=cuda)
+        _backend.launch("gather", pts, idx, out, B, N, S, 3, *geo)
+        assert torch.equal(out, want), geo
+
+
+def test_gather_kernel_rejects_an_unaligned_tile(cuda):
+    """The tile body needs S a multiple of 4 and aligned views: the launch
+    refuses it otherwise (the wrapper then picks the element body)."""
+    pts = cloud(42, 32, 100, 3, device=cuda)
+    idx = torch.zeros(32 * 2048 + 1, dtype=torch.int32, device=cuda)
+    out = torch.empty(32, 2048, 3, device=cuda)
+    with pytest.raises(RuntimeError, match="gather kernel launch failed"):
+        _backend.launch("gather", pts, idx[1:], out, 32, 100, 2048, 3, 1, 128)
+    got = ops.gather_coords(pts, idx[1:].view(32, 2048))
+    assert torch.equal(got, pts[:, :1].expand(-1, 2048, -1))
 
 
 def test_group_points_counts_launches(cuda):
@@ -398,8 +430,9 @@ def test_chamfer_kernels_match_plain(cuda, B, N, M):
     """The recon loss's and the validation's shapes, the whole-cloud op shape,
     a ragged pair and single-point clouds: distances bit-equal and indices
     exact (both sides compute ((dx*dx + dy*dy) + dz*dz) with separate
-    roundings); the backward within 1e-5 of the largest gradient (atomicAdd
-    sums in a changing order)."""
+    roundings); the backward bit-equal to the plain version run on the CPU
+    for clouds of at most 32 points (the group body), else within 1e-5 of
+    the largest gradient (the atomic body's sums run in a changing order)."""
     x, y = cloud(20, B, N, 3, device=cuda), cloud(21, B, M, 3, device=cuda)
     got, want = chamfer_mod.nn_pair(x, y), ops.chamfer_ref(x, y)
     for a, b in zip(got, want):
@@ -408,9 +441,24 @@ def test_chamfer_kernels_match_plain(cuda, B, N, M):
         assert torch.equal(a, b)
     g1, g2 = cloud(22, B, N, device=cuda), cloud(23, B, M, device=cuda)
     gb = chamfer_mod.chamfer_bwd(x, y, want[2], want[3], g1, g2)
-    wb = ops.chamfer_bwd_ref(x, y, want[2], want[3], g1, g2)
-    for a, b in zip(gb, wb):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    if max(N, M) <= chamfer_mod.BWD_GROUP_MAX:
+        wb = ops.chamfer_bwd_ref(*(t.cpu() for t in (x, y, want[2], want[3], g1, g2)))
+        for a, b in zip(gb, wb):
+            assert torch.equal(a.cpu(), b)
+    else:
+        wb = ops.chamfer_bwd_ref(x, y, want[2], want[3], g1, g2)
+        for a, b in zip(gb, wb):
+            torch.testing.assert_close(a, b, rtol=0, atol=BWD_RTOL * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name", chamfer_mod.BWD_CASES)
+def test_chamfer_bwd_group_body_hard_cases(cuda, name):
+    """The group body bit-equal to the plain version run on the CPU, signs of
+    zeros included, on ``ops/chamfer.py`` ``bwd_case``'s hard cases; an index
+    out of range makes its own row NaN and adds nothing elsewhere."""
+    def on_card(*args):
+        return [t.cpu() for t in chamfer_mod.chamfer_bwd(*(t.to(cuda) for t in args))]
+    assert chamfer_mod.check_bwd_case(name, on_card)
 
 
 def test_chamfer_kernel_ties_take_the_first_index(cuda):

@@ -253,3 +253,23 @@ def test_fps_launch_geometry():
     assert launch_geometry(128, 1024, 132, roomy) == (1, 128, 8)
     assert launch_geometry(32, 8192, 132, lambda N, c, t, p: 0 if c == 4 else 1000)[0] == 2
     assert launch_geometry(32, 8192, 132, lambda N, c, t, p: 31)[0] == 1
+
+
+def test_gather_launch_geometry():
+    """The gather's body and block: the tile body (128, then 256 threads)
+    from 2^16 aligned points, a thread an element (256) below and for every
+    unaligned gather, whatever its size."""
+    from act_tpu_torch.ops.gather import TILE_POINTS, launch_geometry
+    for B in (1, 2, 32, 64, 128, 1000):
+        for S in (1, 3, 64, 1001, 1024, 2048, 8192, 1 << 16):
+            for aligned in (False, True):
+                tile, threads = launch_geometry(B, S, aligned)
+                assert threads in (128, 256)
+                assert tile == (aligned and B * S >= TILE_POINTS)
+                assert threads == 128 if tile and B * S < 2 * TILE_POINTS else threads == 256
+    assert launch_geometry(128, 2048, True) == (True, 256)  # Stage II's neighbourhoods
+    assert launch_geometry(64, 2048, True) == (True, 256)  # Stage I's
+    assert launch_geometry(32, 2048, True) == (True, 128)  # the B=32 request's
+    assert launch_geometry(128, 64, True) == (False, 256)  # the centers
+    assert launch_geometry(32, 1024, True) == (False, 256)  # the serving resample
+    assert launch_geometry(128, 2048, False) == (False, 256)
