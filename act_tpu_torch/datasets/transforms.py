@@ -1,9 +1,11 @@
 """Batch point-cloud augmentations, drawn from an explicit generator.
 
-Counterpart of ``act_tpu/datasets/transforms.py:21-32``; same ranges as the
-reference (datasets/data_transforms.py:20-34).
+Counterpart of ``act_tpu/datasets/transforms.py:21-48``; same ranges as the
+reference (datasets/data_transforms.py:6-34).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,3 +20,19 @@ def scale_and_translate(pc: torch.Tensor, generator: torch.Generator,
     scale = scale_low + (scale_high - scale_low) * u[0]
     shift = -translate_range + 2.0 * translate_range * u[1]
     return pc * scale + shift
+
+
+def rotate_y_by(pc: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rotate each cloud of pc (B, N, 3) about the up (y) axis by its angle
+    (B,): ``pc @ R`` with R row-major as in the reference."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+    R = torch.stack([c, zeros, s, zeros, ones, zeros, -s, zeros, c], dim=-1)
+    return torch.matmul(pc, R.reshape(-1, 3, 3).to(pc.dtype))
+
+
+def rotate_y(pc: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Per-cloud rotation about y by an angle U(0, 2 pi) (PointcloudRotate,
+    the finetune default). pc (B, N, 3)."""
+    u = torch.rand(pc.shape[0], generator=generator, device=pc.device)
+    return rotate_y_by(pc, u * (2 * math.pi))

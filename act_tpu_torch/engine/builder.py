@@ -1,6 +1,7 @@
-"""Optimizer and LR-schedule builders, freezing and the frozen-bf16 cast.
+"""Optimizer, LR- and BN-momentum-schedule and dataset builders, freezing and
+the frozen-bf16 cast.
 
-Counterpart of ``act_tpu/engine/builder.py:32-88, 144-184`` and of the Stage-I
+Counterpart of ``act_tpu/engine/builder.py:32-88, 113-220`` and of the Stage-I
 freezing of ``act_tpu/engine/runner_autoencoder.py:130-143``:
 
 - weight decay on every trainable parameter except 1-D ones and those whose
@@ -11,15 +12,27 @@ freezing of ``act_tpu/engine/runner_autoencoder.py:130-143``:
   the base lr over ``initial_epochs``, then a cosine to 1e-7, per step;
 - AdamW is ``torch.optim.AdamW`` (optax ``adamw``: b1 0.9, b2 0.999, eps
   1e-8, decoupled decay), with ``clip_grad_norm_`` first when
-  ``grad_norm_clip`` is set.
+  ``grad_norm_clip`` is set;
+- the BN-momentum schedule sets each ``BatchNorm.momentum`` (torch's
+  convention) for the epoch, what the JAX package's ``apply_bn_ratio``
+  retargets its fixed-momentum update to;
+- ``dataset_builder`` makes the (dataset, loader) of a config node, shuffled
+  and without the last partial batch for ``subset: train``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Tuple
+from functools import partial
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from act_tpu_torch.datasets.build import build_dataset_from_cfg
+from act_tpu_torch.datasets.loader import DataLoader
+from act_tpu_torch.models.common import BatchNorm
+from act_tpu_torch.models.point_transformer import trainable
+from act_tpu_torch.utils.misc import bn_momentum_schedule
 
 FROZEN_KEEP_F32 = ("norm", "ln_", "bn", "gn")
 
@@ -35,6 +48,14 @@ def freeze(model: nn.Module, prefixes: Iterable[str]) -> None:
     prefixes = tuple(f"{p}." for p in prefixes)
     for name, p in model.named_parameters():
         if name.startswith(prefixes):
+            p.requires_grad_(False)
+
+
+def freeze_transfer(model: nn.Module, transfer_type: str) -> None:
+    """``requires_grad=False`` on every parameter of a PointTransformer that
+    ``transfer_type`` does not train (``point_transformer.trainable``)."""
+    for name, p in model.named_parameters():
+        if not trainable(name, transfer_type):
             p.requires_grad_(False)
 
 
@@ -110,3 +131,40 @@ def build_optimizer(config, model: nn.Module, steps_per_epoch: int
     schedule = build_schedule(config, steps_per_epoch)
     return (torch.optim.AdamW(groups, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8),
             schedule)
+
+
+def build_bnm_schedule(config) -> Optional[Callable[[int], float]]:
+    """epoch -> BatchNorm momentum (torch's convention) from the config's
+    ``bnmscheduler`` node (reference tools/builder.py:89-93), or None when the
+    config has none (no shipped config has one)."""
+    node = config.get("bnmscheduler", None)
+    if node is None:
+        return None
+    if node["type"] != "Lambda":
+        raise NotImplementedError(node["type"])
+    k = node["kwargs"]
+    if k.get("decay_step", None) is None:
+        raise NotImplementedError("bnmscheduler requires decay_step")
+    return partial(bn_momentum_schedule, bn_momentum=float(k["bn_momentum"]),
+                   bn_decay=float(k["bn_decay"]), decay_step=int(k["decay_step"]),
+                   lowest_decay=float(k["lowest_decay"]))
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """Every BatchNorm of ``model`` updates its running statistics as
+    ``(1 - momentum) * running + momentum * batch`` from now on."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = float(momentum)
+
+
+def dataset_builder(dataset_cfg, seed: int = 0):
+    """A dataset config node -> (dataset, DataLoader) (``builder.py:191-220``):
+    batch size ``others.bs``, shuffled by (seed, epoch) and without the last
+    partial batch for ``subset: train``; one process, no workers."""
+    dataset = build_dataset_from_cfg(dataset_cfg)
+    node = dataset_cfg.others if "others" in dataset_cfg else dataset_cfg
+    shuffle = node.subset == "train"
+    loader = DataLoader(dataset, batch_size=int(node.bs), shuffle=shuffle,
+                        drop_last=shuffle, seed=seed)
+    return dataset, loader

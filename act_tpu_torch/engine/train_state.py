@@ -1,7 +1,8 @@
-"""The Stage-II pretrain and the Stage-I autoencoder train steps.
+"""The Stage-II pretrain, the Stage-I autoencoder and the finetune train steps.
 
-Counterpart of ``act_tpu/engine/train_state.py:54-59, 107-170, 209-245``
-(``step_rngs``, ``make_pretrain_step``, ``make_autoencoder_step``): loss in
+Counterpart of ``act_tpu/engine/train_state.py:54-59, 107-170, 209-283``
+(``step_rngs``, ``make_pretrain_step``, ``make_autoencoder_step``,
+``make_finetune_step``): loss in
 training mode (BatchNorm running statistics update as well, frozen ones
 included), backward, then AdamW at the scheduled lr. Every random draw of a
 step comes from one generator per named stream, seeded from (seed, step,
@@ -18,6 +19,7 @@ from torch import nn
 
 from act_tpu_torch.datasets.synthetic import SYNTHETIC_LEN, synthetic_batch
 from act_tpu_torch.datasets.transforms import scale_and_translate
+from act_tpu_torch.models.point_transformer import get_loss_acc
 
 STREAMS = ("gumbel", "mask", "dropout", "droppath", "augment")
 
@@ -96,6 +98,25 @@ def autoencoder_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     loss.backward()
     _update(optimizer, schedule(step), grad_norm_clip)
     return loss.detach(), recon.detach(), kld.detach()
+
+
+def finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                  schedule: Callable[[int], float], pts: torch.Tensor, labels: torch.Tensor,
+                  step: int, rngs: Dict[str, torch.Generator],
+                  transform: Optional[Callable] = None,
+                  grad_norm_clip: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One classification train step on the (B, N, 3) batch ``pts`` and its
+    (B,) labels: ``transform(pts, rngs['augment'])`` when given, the
+    train-mode forward, CE loss, backward, clip, AdamW at the scheduled lr.
+    Returns (loss, accuracy in %), detached, still on the device."""
+    if transform is not None:
+        pts = transform(pts, rngs["augment"])
+    model.train()
+    optimizer.zero_grad(set_to_none=False)
+    loss, acc = get_loss_acc(model(pts, rngs=rngs), labels)
+    loss.backward()
+    _update(optimizer, schedule(step), grad_norm_clip)
+    return loss.detach(), acc.detach()
 
 
 def _update(optimizer: torch.optim.Optimizer, lr: float,

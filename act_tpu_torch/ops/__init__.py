@@ -4,7 +4,8 @@ from act_tpu_torch.ops.chamfer import (chamfer_distance_l1, chamfer_distance_l2,
                                        chamfer_distance_l2_split, chamfer_distances)
 from act_tpu_torch.ops.fps import furthest_point_sample
 from act_tpu_torch.ops.gather import gather_coords
-from act_tpu_torch.ops.group import graph_feature_idx, group_points, knn
+from act_tpu_torch.ops.group import (fps_subsample, fps_subsample_by, graph_feature_idx,
+                                     group_points, knn)
 from act_tpu_torch.ops.reference import (chamfer_bwd_ref, chamfer_min_ref, chamfer_ref,
                                          furthest_point_sample_ref,
                                          gather_points, graph_feature_idx_ref,
@@ -17,7 +18,8 @@ from act_tpu_torch.ops.topk import k_smallest
 __all__ = [
     "LAUNCHES", "reset_launches", "resolve_device", "chamfer_distance_l1",
     "chamfer_distance_l2", "chamfer_distance_l2_split", "chamfer_distances",
-    "furthest_point_sample", "gather_coords", "graph_feature_idx", "group_points", "knn",
+    "furthest_point_sample", "fps_subsample", "fps_subsample_by", "gather_coords",
+    "graph_feature_idx", "group_points", "knn",
     "chamfer_bwd_ref", "chamfer_min_ref", "chamfer_ref",
     "furthest_point_sample_ref", "gather_points", "graph_feature_idx_ref",
     "group_points_ref", "gumbel_argmax_ref", "gumbel_perturbed_ref",

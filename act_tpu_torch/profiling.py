@@ -43,7 +43,7 @@ def kernel_events(fn: Callable[[], object], iters: int) -> List:
             and not getattr(e, "is_user_annotation", False) and SENTINEL not in e.name]
 
 
-def device_ms(fn: Callable[[], object], iters: int, tries: int = 2) -> Optional[float]:
+def device_ms(fn: Callable[[], object], iters: int, tries: int = 3) -> Optional[float]:
     """Summed duration of the device kernels a call runs, averaged over
     ``iters`` calls; None when none of ``tries`` windows holds each kernel
     name a multiple of ``iters`` times (a record was lost; with ``iters`` =

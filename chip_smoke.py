@@ -24,6 +24,15 @@ version at the shapes the path gives it:
   through the kernels and one through the plain versions, then
   ``run_autoencoder_steps`` for a few train steps and ``validate`` (the
   reconstruction metrics);
+- classification finetune: ``PointTransformer`` at ``finetune_modelnet.yaml``
+  (B=32 synthetic ModelNet clouds of 8192 points resampled by FPS to 1200
+  and a random 1024 of those, rotated, drop path 0.1, the mlp-3 head's
+  dropout, AdamW with CosLR, clip 10, bf16, seeded weights): the kernels at
+  the finetune shapes, one train-mode loss and backward through the kernels
+  and one through the plain versions, ``run_finetune_steps`` for a few
+  train steps, ``validate`` at B=64 and the vote (``validate_vote``,
+  ``test_vote_rounds``), the kernel path's validation logits and summed vote
+  probabilities bit-equal to the plain path's;
 
 and times the kernels, their plain versions, the matching library calls, the
 requests and the train steps.
@@ -83,6 +92,16 @@ DOWNSTREAM_KEYS = ("decoder.final_conv.6.weight", "decoder.mlp.0.weight",
 UPSTREAM_KEYS = ("visual_prompt_token", "codebook", "dgcnn_1.layer5.0.weight",
                  "encoder.first_conv.0.weight")
 METRIC_RTOL = 1e-4  # validation metrics, kernel path against plain path (phase 14)
+FT_WARM_STEPS, FT_TIMED_STEPS = 3, 10  # finetune steps (phase 17)
+FT_VAL_CLOUDS = 128  # test clouds of the finetune validation (phase 18)
+FT_VOTE_ROUNDS = 2
+# full-width finetune gradients, kernel path against plain path (phase 16):
+# phase 12's rule, SPREAD_FACTOR times the spread of two kernel-path runs
+# (bf16 products; cuBLAS and the attention's reductions need not repeat bit
+# for bit), never below GRAD_RTOL
+FT_GRAD_KEYS = ("cls_head_finetune.8.weight", "cls_head_finetune.0.weight",
+                "blocks.blocks.{last}.mlp.fc2.weight", "blocks.blocks.0.attn.qkv.weight",
+                "cls_pos", "pos_embed.0.weight", "encoder.first_conv.0.weight")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 GUMBEL_OPS = 24  # operations an element, counted in the note of csrc/gumbel.cu
@@ -101,6 +120,10 @@ SERVE_KERNELS = ("fps", "k_smallest", "gather")  # the kernels of the serving pa
 STAGE2_PER_STEP = {"fps": 1, "k_smallest": 3, "gather": 2, "gumbel_argmax": 1}
 STAGE1_PER_STEP = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn": 2, "chamfer_bwd": 2}
 VALIDATE_PER_CLOUD = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn_min": 1}
+# a finetune train step (and a vote): the resample's FPS, the index compose and
+# the cloud gather, then group_points' FPS, k-smallest and two gathers
+FINETUNE_PER_STEP = {"fps": 2, "k_smallest": 1, "gather": 4}
+FT_VALIDATE_PER_BATCH = {"fps": 2, "k_smallest": 1, "gather": 3}  # no index compose
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -744,6 +767,349 @@ def stage_one(dev, device_ms, kernel_events, measure):
     return rows, errs, launches, val_launches
 
 
+def finetune(dev, device_ms, kernel_events, measure):
+    """Phases 15-18: the kernels at the finetune shapes against their plain
+    versions, the full-width classifier's train-mode loss and backward
+    through the kernels and through the plain versions,
+    ``run_finetune_steps``, ``validate`` and the vote, and the kernel times.
+    Returns (timing rows by kernel, errors, launches of the
+    run_finetune_steps run)."""
+    import itertools
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.engine import serve
+    from act_tpu_torch.datasets.transforms import scale_and_translate
+    from act_tpu_torch.engine.runner_finetune import (VOTE_TIMES, _point_all, build_state,
+                                                      finetune_config, loaders, predict,
+                                                      run_finetune_steps, test_vote_rounds,
+                                                      train_transform, validate_vote,
+                                                      vote_generator, vote_logits)
+    from act_tpu_torch.engine.train_state import step_rngs
+    from act_tpu_torch.models.point_transformer import get_loss_acc
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.engine.train_state import finetune_step
+    from act_tpu_torch.ops import fps as fps_mod
+    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.ops.group import subset_draw
+    from act_tpu_torch.utils.meters import balanced_accuracy
+
+    cfg = finetune_config(CONFIG)
+    npoints, G, M = int(cfg.npoints), int(cfg.model.num_group), int(cfg.model.group_size)
+    n_fps = _point_all(npoints)
+    train_loader, val_loader = loaders(cfg, 0)
+    bs, vbs = train_loader.batch_size, val_loader.batch_size
+    _, _, (pts_np, labels_np) = next(iter(train_loader))
+    clouds = torch.from_numpy(pts_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    val = list(itertools.islice(val_loader, FT_VAL_CLOUDS // vbs))
+    vclouds = torch.from_numpy(val[0][2][0]).to(dev)
+    errs = {}
+
+    def fps_subsample_plain(xyz, nf, n_out, gen):
+        """``ops.fps_subsample`` through the plain versions: the same draws,
+        the picks composed by an integer torch.gather."""
+        sub = subset_draw(xyz.shape[0], min(nf, xyz.shape[1]), n_out, gen, xyz.device)
+        if nf >= xyz.shape[1]:
+            return ops.gather_points(xyz, sub)
+        picks = ops.furthest_point_sample_ref(xyz, nf)
+        return ops.gather_points(xyz, torch.gather(picks, 1, sub.long()))
+
+    def check_fps(p, S, tag, say=True):
+        k, r = ops.furthest_point_sample(p, S), ops.furthest_point_sample_ref(p, S)
+        n_sw = tie_swaps(k, r)
+        if n_sw < 0 or not torch.equal(k.sort(-1).values, r.sort(-1).values):
+            fail(f"fps {tag} {tuple(p.shape)}->{S}: kernel picks differ beyond tie swaps")
+        errs[f"fps finetune {tag} {tuple(p.shape)}->{S}"] = float(
+            (ops.gather_points(p, k) - ops.gather_points(p, r)).abs().max())
+        c = fps_mod.launch_geometry(p.shape[0], p.shape[1], fps_mod._sms(dev.index or 0),
+                                    fps_mod._max_clusters)
+        if say:
+            print(f"[check] fps {tag} {tuple(p.shape)}->{S}: equal up to {n_sw} adjacent tie "
+                  f"swaps (same set); geometry (cluster, threads, points a thread) = {c}",
+                  flush=True)
+        return r, n_sw
+
+    def check_compose(picks, sub, tag):
+        """The index compose of ``fps_subsample`` through the gather kernel,
+        bit-equal to an integer torch.gather; returns the composed picks."""
+        out = ops.gather_coords(picks.view(torch.float32)[:, :, None], sub)
+        final = out[:, :, 0].view(torch.int32).contiguous()
+        if not torch.equal(final, torch.gather(picks, 1, sub.long())):
+            fail(f"fps_subsample {tag} index compose: not bit-equal to an integer torch.gather")
+        errs[f"gather finetune {tag} index compose"] = 0.0
+        return final
+
+    def hold_equal(tag, k, p, swaps):
+        """The kernel path's outputs ``k`` (a row a cloud) against the plain
+        path's ``p``: bit-equal, or within LOGIT_ATOL where an FPS tie swap
+        was counted on the way. Each cloud's row must differ from the next
+        cloud's, so that the comparison sees what the kernels fed the model."""
+        k, p = torch.as_tensor(k).float().cpu(), torch.as_tensor(p).float().cpu()
+        diff = float((k - p).abs().max())
+        apart = (k[1:] - k[:-1]).abs().amax(-1)
+        print(f"[check] {tag} {tuple(k.shape)}: kernel path against plain path max |diff| "
+              f"{diff} (tolerance: bit-equal, or {LOGIT_ATOL} with FPS tie swaps; "
+              f"{swaps} counted); neighbouring clouds' rows differ by {float(apart.min())} "
+              f"to {float(apart.max())}", flush=True)
+        if not float(apart.min()) > 0:
+            fail(f"{tag}: two clouds give the same row, the comparison cannot see the kernels")
+        if not (torch.equal(k, p) or (swaps and diff <= LOGIT_ATOL)):
+            fail(f"{tag}: kernel path and plain path disagree")
+
+    # -- 15. the finetune kernels at their shapes against their plain versions
+    with torch.inference_mode():
+        picks, sw_train = check_fps(clouds, n_fps, "train resample")
+        sub = subset_draw(bs, n_fps, npoints, torch.Generator(device=dev).manual_seed(9), dev)
+        final = check_compose(picks, sub, "train")
+        resampled = ops.gather_coords(clouds, final)
+        whole = ops.fps_subsample_by(clouds, n_fps, sub)
+        if sw_train == 0 and not torch.equal(whole, resampled):
+            fail("fps_subsample: not the kernels' compose and gather")
+        vres, _ = check_fps(vclouds, npoints, "validation resample")
+        vpicks, _ = check_fps(vclouds, n_fps, "vote resample")
+        vsub = subset_draw(vbs, n_fps, npoints, torch.Generator(device=dev).manual_seed(10), dev)
+        vfinal = check_compose(vpicks, vsub, "vote")
+        print(f"[check] fps_subsample ({bs}, {N_IN}, 3)->{n_fps}->{npoints} and ({vbs}, {N_IN}, "
+              f"3)->{n_fps}->{npoints} (the vote): index compose, int32 bits as f32, "
+              f"bit-equal to an integer torch.gather (tolerance: exact)", flush=True)
+        vpts = ops.gather_points(vclouds, vres)
+        vc, _ = check_fps(vpts, G, "validation groups")
+        vd = ops.square_distance(ops.gather_points(vpts, vc), vpts).reshape(vbs * G, npoints)
+        (kv, ki), (rv, ri) = ops.k_smallest(vd, M), ops.k_smallest_ref(vd, M)
+        if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+            fail(f"k_smallest {tuple(vd.shape)} k={M}: differs from the plain version")
+        errs[f"k_smallest finetune {tuple(vd.shape)}"] = 0.0
+        print(f"[check] k_smallest {tuple(vd.shape)} k={M}: indices equal, values bit-equal",
+              flush=True)
+        tpts = resampled.contiguous()
+        tc = ops.furthest_point_sample_ref(tpts, G)
+        td = ops.square_distance(ops.gather_points(tpts, tc), tpts).reshape(bs * G, npoints)
+        t_nbr = ops.k_smallest_ref(td, M)[1].reshape(bs, G * M)
+        # (points, index, tag, launches a train step): a step's four, then a
+        # validation batch's three and a vote's two
+        ft_gathers = [(picks.view(torch.float32)[:, :, None], sub, "index compose", 1),
+                      (clouds, final, "resample", 1), (tpts, tc, "centers", 1),
+                      (tpts, t_nbr, "neighbourhoods", 1),
+                      (vclouds, vres, "validation resample", 0),
+                      (vpts, vc, "validation centers", 0),
+                      (vpts, ri.reshape(vbs, G * M), "validation neighbourhoods", 0),
+                      (vpicks.view(torch.float32)[:, :, None], vsub, "vote index compose", 0),
+                      (vclouds, vfinal, "vote resample", 0)]
+        for p, i, tag, _ in ft_gathers:
+            if not torch.equal(ops.gather_coords(p, i).view(torch.int32),
+                               ops.gather_points(p, i).view(torch.int32)):
+                fail(f"gather {tag} {tuple(p.shape)} by {tuple(i.shape)}: not bit-equal")
+            errs[f"gather finetune {tag}"] = 0.0
+        print("[check] gather: bit-equal (compared as int32 bits) at " + ", ".join(
+            f"{tag} {tuple(p.shape)} by {tuple(i.shape)}" for p, i, tag, _ in ft_gathers),
+            flush=True)
+
+    # kernel times at the shapes of a finetune step, a validation batch and a vote
+    with torch.inference_mode():
+        fps_rows = []
+        for p, S, n in ((clouds, n_fps, 1), (tpts, G, 1), (vclouds, npoints, 0),
+                        (vclouds, n_fps, 0)):
+            B_, N_ = p.shape[:2]
+            fps_rows.append(measure(
+                f"({B_}, {N_}, 3)->{S}", lambda p=p, S=S: ops.furthest_point_sample(p, S),
+                lambda p=p, S=S: ops.furthest_point_sample_ref(p, S), None, 20, 1,
+                bound_ms(p.numel() * 4 + B_ * S * 4, 10.0 * B_ * (S - 1) * N_), n))
+        rows = {
+            "fps": fps_rows,
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={M}", lambda d=d: ops.k_smallest(d, M),
+                lambda d=d: ops.k_smallest_ref(d, M),
+                lambda d=d: torch.topk(d, M, dim=-1, largest=False, sorted=True),
+                100, 20, bound_ms(d.numel() * 4 + d.shape[0] * M * 8, d.numel()), n)
+                for d, n in ((td, 1), (vd, 0))],
+            "gather": [measure(
+                f"{tag} {tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=i.long().reshape(p.shape[0], -1, 1).expand(
+                    -1, -1, p.shape[-1]).contiguous(): torch.gather(p, 1, li), 200, 200,
+                bound_ms(distinct_rows(i) * p.shape[-1] * 4 + i.numel() * 4
+                         + i.numel() * p.shape[-1] * 4), n)
+                for p, i, tag, n in ft_gathers],
+        }
+    print_times("finetune ", rows)
+
+    # -- 16. one full-width loss and backward through the kernels and through
+    # the plain versions, the same pinned draws and batch -----------------------
+    if sw_train:
+        fail(f"fps train resample: {sw_train} tie swaps change the kept points; "
+             "phase 16 needs a batch without them")
+    t0 = time.perf_counter()
+    st = build_state(cfg, len(train_loader), seed=0, device=dev)
+    model = st.model
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"[model] finetune {CONFIG}: {n_all} params, dtype bf16, drop path "
+          f"{cfg.model.drop_path_rate}, built in {time.perf_counter() - t0:.2f} s; "
+          f"synthetic ModelNet clouds {tuple(clouds.shape)}", flush=True)
+    transform = train_transform(npoints)
+    grad_keys = [k.format(last=int(cfg.model.depth) - 1) for k in FT_GRAD_KEYS]
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        rngs = step_rngs(0, 0, dev)
+        loss = get_loss_acc(model(transform(clouds, rngs["augment"]), rngs=rngs), labels)[0]
+        loss.backward()
+        return loss.item(), {k: model.get_parameter(k).grad.float() for k in grad_keys}
+    with torch.no_grad():  # the grouping of the transformed batch: no tie swap there either
+        moved = transform(clouds, step_rngs(0, 0, dev)["augment"])
+        check_fps(moved.contiguous(), G, "train groups")
+    _backend.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    check_launches("finetune loss and backward through the kernels", dict(_backend.LAUNCHES),
+                   FINETUNE_PER_STEP, 1)
+    _, again = loss_and_grads()
+    spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in grad_keys}
+    _backend.reset_launches()
+    with patched(ops, fps_subsample=fps_subsample_plain, group_points=ops.group_points_ref):
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    if any(_backend.LAUNCHES.values()):
+        fail(f"the plain-version finetune loss launched kernels: {_backend.LAUNCHES}")
+    rel = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()) for k in grad_keys}
+    limit = {k: max(GRAD_RTOL, SPREAD_FACTOR * spread[k]) for k in grad_keys}
+    print(f"[finetune] train-mode loss through the kernels {loss_k}, through the plain "
+          f"versions {loss_p}: |diff| {abs(loss_k - loss_p)} (tolerance {LOSS_ATOL}); "
+          f"gradients, relative L2 difference: {rel}; two kernel-path runs differ by "
+          f"{spread}; tolerance ({SPREAD_FACTOR} x that spread, at least {GRAD_RTOL}): "
+          f"{limit}", flush=True)
+    bad = [k for k in grad_keys if not rel[k] <= limit[k]]
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_ATOL and not bad):
+        fail(f"finetune loss and backward: kernel path and plain path disagree ({bad})")
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict({k: v.to(dev) for k, v in init.items()})
+
+    # -- 17. run_finetune_steps: the train steps of the main path --------------
+    steps = FT_WARM_STEPS + FT_TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_launches()
+    run = run_finetune_steps(CONFIG, steps, seed=0, device=dev, state=st)
+    launches = dict(_backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[finetune] run_finetune_steps losses: {run.losses}; accuracies {run.accs}",
+          flush=True)
+    print(f"[finetune] launches in {steps} steps: {launches}; a step: "
+          f"{ {k: v / steps for k, v in launches.items()} }", flush=True)
+    if not all(math.isfinite(x) for x in run.losses):
+        fail("run_finetune_steps: a loss is not finite")
+    check_launches("run_finetune_steps", launches, FINETUNE_PER_STEP, steps)
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    trained = [n for n, p in model.named_parameters() if p.requires_grad]
+    still = [n for n in trained if torch.equal(after[n], init[n])]
+    running = [k for k in after if "running" in k]
+    bn_still = [k for k in running if torch.equal(after[k], init[k])]
+    print(f"[finetune] trainable tensors moved: {len(trained) - len(still)} of {len(trained)}; "
+          f"BN running statistics moved: {len(running) - len(bn_still)} of {len(running)}",
+          flush=True)
+    if still or bn_still:
+        fail(f"run_finetune_steps: tensors did not move: {still + bn_still}")
+    med = statistics.median(run.step_ms[FT_WARM_STEPS:])
+    opt, schedule = st.optimizer, st.schedule
+
+    def step(i):
+        return finetune_step(model, opt, lambda s: 1e-6, clouds, labels, i,
+                             step_rngs(0, i, dev), transform, st.grad_norm_clip)
+    ev = kernel_events(lambda: step(steps), 3)
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rngs = step_rngs(0, 0, dev)
+    with torch.no_grad():
+        tpts = transform(clouds, gen).contiguous()
+        nbr, ctr = ops.group_points(tpts, G, M)
+
+    def fwd_bwd():
+        model.train()
+        get_loss_acc(model.forward_grouped(nbr, ctr, rngs), labels)[0].backward()
+    fwd_bwd()
+    parts = {"resample (fps_subsample + rotate_y)": device_ms(lambda: transform(clouds, gen), 3),
+             "group_points": device_ms(lambda: ops.group_points(tpts, G, M), 3),
+             "model forward + backward": device_ms(fwd_bwd, 3),
+             "AdamW (clip and step)": device_ms(lambda: opt.step(), 3),
+             "whole step": device_ms(lambda: step(steps + 1), 3)}
+    model.zero_grad(set_to_none=True)
+    # device busy from the whole step's window, which device_ms accepts only
+    # when every kernel name was recorded a whole number of times a step
+    busy = parts["whole step"]
+    dev_txt = (f"device busy {busy:.3f} ms a step ({len(ev) // 3} kernels), idle share "
+               f"{1 - busy / med:.3f}" if busy else "device busy not measured")
+    print(f"[time] finetune step B={bs}: median {med:.3f} ms, min {min(run.step_ms):.3f}, "
+          f"max {max(run.step_ms[FT_WARM_STEPS:]):.3f} over {FT_TIMED_STEPS} (after "
+          f"{FT_WARM_STEPS} warm-up); {bs / med * 1e3:.1f} clouds/s; {dev_txt}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print("[time] finetune step top kernels (ms a step): "
+          + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+    print("[time] finetune step parts (device ms): " + ", ".join(
+        f"{k} {v if v is None else round(v, 5)}" for k, v in parts.items()), flush=True)
+
+    # -- 18. validate at B=64 and the vote, kernel path against plain path ------
+    model.eval()
+    _backend.reset_launches()
+    t0 = time.perf_counter()
+    logits_k, labs = predict(model, val, npoints, dev)  # ends in a copy to the host
+    val_s = time.perf_counter() - t0
+    check_launches("validate", dict(_backend.LAUNCHES), FT_VALIDATE_PER_BATCH, len(val))
+    with patched(serve, furthest_point_sample=ops.furthest_point_sample_ref,
+                 gather_coords=ops.gather_points), patched(ops, group_points=ops.group_points_ref):
+        _backend.reset_launches()
+        logits_p, _ = predict(model, val, npoints, dev)
+        if any(_backend.LAUNCHES.values()):
+            fail(f"the plain-version validate launched kernels: {_backend.LAUNCHES}")
+    swaps = 0
+    for j, b in enumerate(val):  # the tie swaps of every FPS launch of the validation
+        r, n_sw = check_fps(torch.from_numpy(b[2][0]).to(dev), npoints, "validation", False)
+        swaps += n_sw + check_fps(ops.gather_points(torch.from_numpy(b[2][0]).to(dev), r), G,
+                                  "validation groups", False)[1]
+    hold_equal(f"validate logits ({len(val)} batches of {vbs})", logits_k, logits_p, swaps)
+    preds = logits_k.argmax(-1)
+    oa = float((preds == labs).mean()) * 100.0
+    macc = balanced_accuracy(labs, preds) * 100.0
+    print(f"[finetune] validate on {len(preds)} test clouds at B={vbs}: OA {oa:.4f}, mAcc "
+          f"{macc:.4f}; {len(preds) / val_s:.1f} clouds/s ({val_s * 1e3:.1f} ms host)",
+          flush=True)
+    if not (math.isfinite(oa) and math.isfinite(macc)):
+        fail("validate: metrics not finite")
+    with torch.inference_mode():
+        _backend.reset_launches()
+        probs_k = vote_logits(model, vclouds, npoints, vote_generator(0, 0, 0, dev))
+        check_launches("vote_logits", dict(_backend.LAUNCHES), FINETUNE_PER_STEP, VOTE_TIMES)
+        with patched(ops, fps_subsample=fps_subsample_plain, group_points=ops.group_points_ref):
+            _backend.reset_launches()
+            probs_p = vote_logits(model, vclouds, npoints, vote_generator(0, 0, 0, dev))
+            if any(_backend.LAUNCHES.values()):
+                fail(f"the plain-version vote launched kernels: {_backend.LAUNCHES}")
+        # the vote's draws replayed, to count the tie swaps of its FPS launches
+        gen = vote_generator(0, 0, 0, dev)
+        vswaps = check_fps(vclouds, n_fps, "vote resample", False)[1] * VOTE_TIMES
+        for _ in range(VOTE_TIMES):
+            moved = scale_and_translate(fps_subsample_plain(vclouds, n_fps, npoints, gen), gen)
+            vswaps += check_fps(moved.contiguous(), G, "vote groups", False)[1]
+    hold_equal(f"vote summed probabilities ({VOTE_TIMES} votes)", probs_k, probs_p, vswaps)
+    one = val[:1]
+    t0 = time.perf_counter()
+    vote_k = validate_vote(model, one, npoints, 0, device=dev)
+    vote_ms = (time.perf_counter() - t0) * 1e3
+    want = float((probs_k.argmax(-1).cpu().numpy() == one[0][2][1]).mean()) * 100.0
+    rounds = test_vote_rounds(model, val, npoints, 0, FT_VOTE_ROUNDS, device=dev)
+    print(f"[finetune] validate_vote on one batch of {vbs} ({VOTE_TIMES} votes): OA {vote_k} "
+          f"(the compared probabilities give {want}); {vote_ms:.1f} ms host a vote batch; "
+          f"test_vote_rounds ({FT_VOTE_ROUNDS} rounds on {len(preds)} clouds): "
+          f"{rounds.tolist()}", flush=True)
+    if vote_k != want or not all(math.isfinite(x) for x in rounds):
+        fail("vote: validate_vote is not the compared vote, or a round is not finite")
+
+    return rows, errs, launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1011,6 +1377,9 @@ def main() -> None:
     stage1, s1_errs, s1_launches, val_launches = stage_one(dev, device_ms, kernel_events,
                                                            measure)
     errs.update(s1_errs)
+    # -- 15-18. classification finetune, validation and the vote ------------------
+    ft_rows, ft_errs, ft_launches = finetune(dev, device_ms, kernel_events, measure)
+    errs.update(ft_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -1028,6 +1397,7 @@ def main() -> None:
             "source": f"act_tpu_torch/csrc/{_backend.KERNELS[kernel][0]}.cu",
             "replaces": replaces, "path": path, "launches": path_launches[kernel],
             "launches_per_step": per_step, "launches_serve_b32": launches[kernel],
+            "launches_finetune": ft_launches[kernel],
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -1041,7 +1411,8 @@ def main() -> None:
                             "bound_ms": r["bound"][0], "library_ms": r["library_ms"]}
                            for where, group in ((path, rows), ("serve", shapes.get(kernel, [])),
                                                 ("autoencoder", [] if by_kernel is stage1
-                                                 else stage1.get(kernel, [])))
+                                                 else stage1.get(kernel, [])),
+                                                ("finetune", ft_rows.get(kernel, [])))
                            for r in group],
         }
 

@@ -614,3 +614,84 @@ def test_small_autoencoder_steps_card_matches_cpu(cuda):
     metrics, per_cloud = validate(card.model, clouds)
     assert _backend.LAUNCHES["chamfer_nn_min"] == 2  # one a cloud for all three metrics
     assert all(np.isfinite(v) for row in per_cloud for v in row)
+
+
+@pytest.mark.parametrize("B,N,n_fps,n_out", [(32, 8192, 1200, 1024), (3, 777, 300, 256),
+                                             (64, 8192, 1200, 1024), (2, 256, 300, 100)])
+def test_fps_subsample_kernels_match_plain(cuda, B, N, n_fps, n_out):
+    """The finetune resample on the card: FPS picks equal to the plain
+    version's up to adjacent tie swaps; without a swap the kept points are
+    the plain composition's bit for bit (the index compose through the
+    gather kernel, then the cloud gather); n_fps >= N skips FPS."""
+    from act_tpu_torch.ops.group import subset_draw
+    pts = cloud(40 + B, B, N, 3, device=cuda)
+    sub = subset_draw(B, min(n_fps, N), n_out, torch.Generator(device=cuda).manual_seed(3), cuda)
+    _backend.reset_launches()
+    got = ops.fps_subsample_by(pts, n_fps, sub)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n_out, 3)
+    if n_fps >= N:
+        assert _backend.LAUNCHES["fps"] == 0 and _backend.LAUNCHES["gather"] == 1
+        assert torch.equal(got, ops.gather_points(pts, sub))
+        return
+    assert _backend.LAUNCHES["fps"] == 1 and _backend.LAUNCHES["gather"] == 2
+    picks = ops.furthest_point_sample_ref(pts, n_fps)
+    n_sw = tie_swaps(ops.furthest_point_sample(pts, n_fps), picks)
+    assert n_sw >= 0
+    if n_sw == 0:
+        assert torch.equal(got, ops.gather_points(pts, torch.gather(picks, 1, sub.long())))
+    drawn = ops.fps_subsample(pts, n_fps, n_out, torch.Generator(device=cuda).manual_seed(3))
+    assert torch.equal(drawn, got)
+
+
+@pytest.mark.parametrize("B,S", [(3, 9), (32, 1024), (64, 2048)])
+def test_index_compose_through_the_gather_kernel_is_bit_exact(cuda, B, S):
+    """int32 indices viewed as f32, gathered by the kernel (the element body,
+    and the tile body at 2^17 points), and viewed back: equal to an integer
+    torch.gather, including denormal bit patterns (indices below 2^23) and
+    indices above 2^23, 2^24 and up to 2^31 - 1."""
+    g = torch.Generator().manual_seed(B)
+    table = torch.randint(0, 2 ** 31 - 1, (B, 1500), generator=g, dtype=torch.int32)
+    table[:, :8] = torch.tensor([0, 1, 5, 8191, 2 ** 23 - 1, 2 ** 23 + 1, 2 ** 24 + 3,
+                                 2 ** 31 - 1], dtype=torch.int32)
+    table = table.to(cuda)
+    idx = torch.randint(0, 1500, (B, S), generator=g, dtype=torch.int32)
+    idx[:, :8] = torch.arange(8, dtype=torch.int32)
+    idx = idx.to(cuda)
+    out = ops.gather_coords(table.view(torch.float32)[:, :, None], idx)
+    assert torch.equal(out[:, :, 0].view(torch.int32), torch.gather(table, 1, idx.long()))
+
+
+def test_small_finetune_step_on_the_card(cuda):
+    """Three f32 finetune steps of a small classifier on the card: the
+    kernels' launches, finite losses, every trainable tensor and the BN
+    running statistics moved; then validate and one vote batch."""
+    from act_tpu_torch.datasets import DataLoader, build_dataset_from_cfg
+    from act_tpu_torch.engine.runner_finetune import (build_state, run_finetune_steps,
+                                                      validate, validate_vote)
+    node = {"_base_": dict(NAME="ModelNet", DATA_PATH="data/absent", N_POINTS=256,
+                           NUM_CATEGORY=40), "others": {"subset": "train"}}
+    cfg = ConfigDict(dict(
+        optimizer=dict(type="AdamW", kwargs=dict(lr=5e-4, weight_decay=0.05)),
+        scheduler=dict(type="CosLR", kwargs=dict(epochs=300, initial_epochs=10)),
+        grad_norm_clip=10, total_bs=4, npoints=128,
+        dataset=dict(train=node, val=dict(node, others=dict(subset="test"))),
+        model=dict(NAME="PointTransformer", embed_dim=32, depth=2, drop_path_rate=0.1,
+                   cls_dim=40, num_heads=4, group_size=8, num_group=16, encoder_dims=32,
+                   transfer_type="full")))
+    st = build_state(cfg, 128, seed=0, device=cuda)
+    before = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+    _backend.reset_launches()
+    run = run_finetune_steps(cfg, 3, device=cuda, state=st)
+    assert _backend.LAUNCHES == {**{k: 0 for k in _backend.KERNELS}, "fps": 6,
+                                 "k_smallest": 3, "gather": 12}
+    assert all(np.isfinite(run.losses))
+    after = st.model.state_dict()
+    for n, p in st.model.named_parameters():
+        assert torch.equal(after[n], before[n]) != p.requires_grad, n
+    assert all(not torch.equal(after[k], before[k]) for k in after if "running" in k)
+    ds = build_dataset_from_cfg(ConfigDict(dict(node, others=dict(subset="test"))))
+    batches = [b for _, b in zip(range(2), DataLoader(ds, 8))]
+    acc = validate(st.model, batches, 128, cuda)
+    assert np.isfinite(acc.acc) and np.isfinite(acc.macc)
+    assert np.isfinite(validate_vote(st.model, batches[:1], 128, device=cuda))

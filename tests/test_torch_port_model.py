@@ -295,7 +295,9 @@ def test_default_device_without_card_raises():
 
 
 def test_train_mode_refused():
+    """Training mode without the generators it draws from is refused (drop
+    path at 0.1 draws from 'droppath'); the finetune tests cover training."""
     model = load_model(ConfigDict(dict(npoints=NPOINTS, model=small_cfg())),
                        device="cpu").train()
-    with pytest.raises(RuntimeError, match="eval"):
+    with pytest.raises(ValueError, match="droppath"):
         model(torch.zeros(1, NPOINTS, 3))
