@@ -3,6 +3,8 @@
 The package imports ``torch`` and never JAX or ``act_tpu``; it mirrors
 ``act_tpu``'s module names. Its entry points run on the card unless the caller
 passes ``device="cpu"``, where every CUDA kernel takes its plain PyTorch
-version. Slice one serves the finetuned PointTransformer classifier
-(``engine/serve.py``, ``serve_http.py``).
+version. It serves the finetuned PointTransformer classifier
+(``engine/serve.py``, ``serve_http.py``) and trains Stage I, Stage II and the
+finetune (``engine/runner_*.py``; the CLIs ``main_autoencoder.py`` and
+``main.py``).
 """

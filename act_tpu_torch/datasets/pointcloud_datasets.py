@@ -1,9 +1,11 @@
-"""The classification datasets: ModelNet40, its few-shot splits and ScanObjectNN.
+"""The point-cloud datasets: ShapeNet-55, ModelNet40, its few-shot splits and
+ScanObjectNN.
 
-Counterpart of ``act_tpu/datasets/pointcloud_datasets.py:36-72, 178-322``
-(reference datasets/ModelNetDataset.py, ModelNetDatasetFewShot.py,
-ScanObjectNNDataset.py). Each class returns numpy samples
-``(taxonomy_id, model_id, (points, label))``. When the configured data is
+Counterpart of ``act_tpu/datasets/pointcloud_datasets.py:36-322`` (reference
+datasets/ShapeNet55Dataset.py, ModelNetDataset.py, ModelNetDatasetFewShot.py,
+ScanObjectNNDataset.py). ShapeNet returns ``(taxonomy_id, model_id, points)``,
+the classification classes ``(taxonomy_id, model_id, (points, label))``, all
+numpy. When the configured data is
 missing, a class serves the JAX package's deterministic synthetic clouds
 (``datasets/synthetic.py``): the same samples, labels and train-time point
 shuffles, bit for bit. ``h5py`` is imported only to read a real ScanObjectNN
@@ -17,8 +19,20 @@ import pickle
 import numpy as np
 
 from act_tpu_torch.datasets.build import DATASETS
+from act_tpu_torch.datasets.io import IO
+from act_tpu_torch.datasets.loader import default_collate
 from act_tpu_torch.datasets.synthetic import synthetic_cloud
 from act_tpu_torch.utils.misc import pc_normalize
+
+
+def shuffle_rows(rng: np.random.Generator, pts: np.ndarray) -> np.ndarray:
+    """``pts`` with its rows in the order that ``rng.shuffle(pts)`` leaves
+    them, from the same draws (the rng ends in the same state):
+    ``Generator.permutation(n)`` runs the same Fisher-Yates draws on an index
+    vector in compiled code, where ``shuffle`` of a 2-D array swaps its rows
+    one at a time through numpy indexing, which costs more than the rest of
+    an item at 8192 points."""
+    return pts[rng.permutation(len(pts))]
 
 
 def farthest_point_sample_np(point: np.ndarray, npoint: int) -> np.ndarray:
@@ -48,6 +62,90 @@ class _SyntheticMixin:
               f"clouds ({self.synthetic_len} samples)", flush=True)
         self.synthetic = True
         return True
+
+
+@DATASETS.register_module()
+class ShapeNet(_SyntheticMixin):
+    """ShapeNet-55 clouds from ``{DATA_PATH}/{subset}.txt`` (``whole`` puts
+    ``test.txt``'s lines first), each ``N_POINTS`` points read from
+    ``PC_PATH``, subsampled to ``npoints`` without replacement and
+    normalised into the unit sphere. Without ``PC_PATH`` it serves 512
+    synthetic clouds of ``N_POINTS`` points, taxonomy ``i % 55``."""
+    NUM_CLASSES = 55
+
+    def __init__(self, config):
+        self.data_root = config.DATA_PATH
+        self.pc_path = config.get("PC_PATH", "")
+        self.subset = config.subset
+        self.npoints = config.N_POINTS
+        self.sample_points_num = config.npoints
+        self.whole = bool(config.get("whole", False))
+        self.rng = np.random.default_rng(0)
+        if self._maybe_synthetic(self.pc_path, "ShapeNet-55"):
+            self.file_list = [{"taxonomy_id": f"{i % self.NUM_CLASSES:08d}",
+                               "model_id": f"synthetic_{i}", "file_path": None}
+                              for i in range(self.synthetic_len)]
+            return
+        with open(os.path.join(self.data_root, f"{self.subset}.txt")) as f:
+            lines = f.readlines()
+        if self.whole:
+            with open(os.path.join(self.data_root, "test.txt")) as f:
+                lines = f.readlines() + lines
+        self.file_list = []
+        for line in lines:
+            line = line.strip()
+            self.file_list.append({"taxonomy_id": line.split("-")[0],
+                                   "model_id": line.split("-")[1].split(".")[0],
+                                   "file_path": line})
+        print(f"[DATASET] ShapeNet-55: {len(self.file_list)} instances loaded", flush=True)
+
+    def random_sample(self, pc: np.ndarray, num: int) -> np.ndarray:
+        """``num`` points of ``pc`` drawn without replacement."""
+        return pc[self.rng.choice(pc.shape[0], num, replace=False)]
+
+    def __len__(self):
+        return len(self.file_list)
+
+    def __getitem__(self, idx):
+        sample = self.file_list[idx]
+        if self.synthetic:
+            pts, _ = synthetic_cloud(idx, self.npoints, self.NUM_CLASSES)
+        else:
+            pts = IO.get(os.path.join(self.pc_path, sample["file_path"])).astype(np.float32)
+        pts = pc_normalize(self.random_sample(pts, self.sample_points_num)).astype(np.float32)
+        return sample["taxonomy_id"], sample["model_id"], pts
+
+    def get_batch(self, idxs):
+        """The loader's batch of ``idxs``: what collating ``self[i]`` gives,
+        with the same draws in the same order, but the subsample and the
+        normalisation done once over the (B, N, 3) stack when every file has
+        the same point count (``pointcloud_datasets.py:132-176``)."""
+        if self.synthetic:
+            return default_collate([self[int(i)] for i in idxs])
+        samples = [self.file_list[int(i)] for i in idxs]
+        tax = [s["taxonomy_id"] for s in samples]
+        mid = [s["model_id"] for s in samples]
+        clouds = [IO.get(os.path.join(self.pc_path, s["file_path"])) for s in samples]
+        if len({c.shape for c in clouds}) > 1:
+            return tax, mid, np.stack([
+                pc_normalize(self.random_sample(c.astype(np.float32),
+                                                self.sample_points_num)).astype(np.float32)
+                for c in clouds])
+        stack = np.stack(clouds).astype(np.float32, copy=False)
+        B, N = stack.shape[:2]
+        sel = np.stack([self.rng.choice(N, self.sample_points_num, replace=False)
+                        for _ in range(B)])
+        pts = np.take_along_axis(stack, sel[..., None], axis=1)
+        pts = pts - pts.mean(axis=1, keepdims=True)
+        m = np.sqrt(np.einsum("bij,bij->bi", pts, pts).max(axis=1))
+        pts = pts / np.maximum(m, 1e-12)[:, None, None]
+        return tax, mid, pts.astype(np.float32, copy=False)
+
+
+@DATASETS.register_module()
+class ShapeNetImagePoint(ShapeNet):
+    """ShapeNet registered under a second name (the reference keeps an
+    identical second class)."""
 
 
 @DATASETS.register_module()
@@ -97,7 +195,7 @@ class ModelNet(_SyntheticMixin):
             label = int(self.list_of_labels[idx][0])
             pts[:, 0:3] = pc_normalize(pts[:, 0:3])
         if self.subset == "train":
-            self.rng.shuffle(pts)
+            pts = shuffle_rows(self.rng, pts)
         return "ModelNet", "sample", (pts.astype(np.float32), label)
 
 
@@ -159,7 +257,7 @@ class _ScanObjectNNBase(_SyntheticMixin):
         else:
             pts, label = self.points[idx].copy(), int(self.labels[idx])
         if self.subset == "train":
-            self.rng.shuffle(pts)
+            pts = shuffle_rows(self.rng, pts)
         return "ScanObjectNN", "sample", (pts.astype(np.float32), label)
 
 

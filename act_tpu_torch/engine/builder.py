@@ -17,7 +17,7 @@ freezing of ``act_tpu/engine/runner_autoencoder.py:130-143``:
   convention) for the epoch, what the JAX package's ``apply_bn_ratio``
   retargets its fixed-momentum update to;
 - ``dataset_builder`` makes the (dataset, loader) of a config node, shuffled
-  and without the last partial batch for ``subset: train``.
+  and without the last partial batch for ``subset: train``; workers for real data.
 """
 from __future__ import annotations
 
@@ -158,13 +158,21 @@ def set_bn_momentum(model: nn.Module, momentum: float) -> None:
             m.momentum = float(momentum)
 
 
-def dataset_builder(dataset_cfg, seed: int = 0):
+def dataset_builder(dataset_cfg, seed: int = 0, num_workers: int = 0):
     """A dataset config node -> (dataset, DataLoader) (``builder.py:191-220``):
     batch size ``others.bs``, shuffled by (seed, epoch) and without the last
-    partial batch for ``subset: train``; one process, no workers."""
+    partial batch for ``subset: train``. ``num_workers`` forked workers build
+    the batches of real data; synthetic data, and real data without workers,
+    is built in this process between steps, with no prefetch thread. The
+    datasets' items are many small numpy calls (the ShapeNet ``.npy`` reads,
+    the in-memory ModelNet pickles' normalise and shuffle), and a thread
+    running them holds the interpreter lock that the step's eager kernel
+    launches wait on (``python -m act_tpu_torch.loader_sweep``; PERF.md §6)."""
     dataset = build_dataset_from_cfg(dataset_cfg)
     node = dataset_cfg.others if "others" in dataset_cfg else dataset_cfg
     shuffle = node.subset == "train"
+    workers = 0 if getattr(dataset, "synthetic", False) else int(num_workers)
     loader = DataLoader(dataset, batch_size=int(node.bs), shuffle=shuffle,
-                        drop_last=shuffle, seed=seed)
+                        drop_last=shuffle, seed=seed, prefetch=2 if workers else 0,
+                        num_workers=workers)
     return dataset, loader

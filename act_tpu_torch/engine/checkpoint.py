@@ -1,16 +1,21 @@
-"""Finetune checkpoints: save, resume and the pretrained-weights merge.
+"""Checkpoints of the three trainers: save, resume, the start weights and the
+pretrained-weights merge.
 
-Counterpart of ``act_tpu/engine/checkpoint.py`` (``save_checkpoint``,
-``resume_state``, ``strip_student_prefix``, ``merge_pretrained``; reference
+Counterpart of ``act_tpu/engine/checkpoint.py:68-115, 145-236, 361-405``
+(``save_checkpoint``, ``resume_state``, ``load_params_into``,
+``strip_student_prefix``, ``merge_pretrained``; reference
 tools/builder.py:97-173, utils/checkpoint.py). A checkpoint is one ``torch.save`` file in the
 reference layout ``{base_model, optimizer, epoch, metrics, best_metrics}``
 (what ``engine/serve.py`` ``load_state_dict`` reads) plus the train step
-``step``, named ``ckpt-last.pth``, ``ckpt-best.pth``, ``ckpt-best_vote.pth``
-in the experiment directory. The save is synchronous.
+``step``, named ``ckpt-last.pth``, ``ckpt-best.pth``, ``ckpt-best_vote.pth``,
+``ckpt-epoch-NNN.pth`` in the experiment directory. Frozen weights stored in
+bf16 are saved and restored in bf16. The save is synchronous and prints its
+size and host seconds.
 """
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -29,11 +34,13 @@ def save_checkpoint(model: nn.Module, optimizer: torch.optim.Optimizer, step: in
     """Write ``{experiment_path}/{prefix}.pth``; returns its path."""
     os.makedirs(experiment_path, exist_ok=True)
     path = ckpt_path(experiment_path, prefix)
+    t0 = time.perf_counter()
     torch.save({"base_model": model.state_dict(), "optimizer": optimizer.state_dict(),
                 "step": int(step), "epoch": int(epoch), "metrics": dict(metrics or {}),
                 "best_metrics": dict(best_metrics or {})}, path + ".tmp")
     os.replace(path + ".tmp", path)
-    print(f"Saved checkpoint at {path}", flush=True)
+    print(f"Saved checkpoint at {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+          f"{time.perf_counter() - t0:.2f} s)", flush=True)
     return path
 
 
@@ -53,6 +60,16 @@ def resume_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     start_epoch = int(payload["epoch"]) + 1
     print(f"[RESUME] resumed at epoch {start_epoch}", flush=True)
     return start_epoch, int(payload["step"]), payload.get("best_metrics")
+
+
+def load_params_into(model: nn.Module, path: str) -> None:
+    """``--start_ckpts``: the weights of the checkpoint at ``path`` into
+    ``model``, strictly; the optimizer, step and epoch start fresh
+    (``checkpoint.py:207-212``)."""
+    payload = torch.load(path, map_location=next(model.parameters()).device,
+                         weights_only=True)
+    model.load_state_dict(payload["base_model"], strict=True)
+    print(f"[CKPT] loaded the weights of {path}", flush=True)
 
 
 def strip_student_prefix(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

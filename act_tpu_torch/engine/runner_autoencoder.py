@@ -1,37 +1,51 @@
-"""Stage-I entry point: train steps of the dVAE autoencoder and its
-reconstruction metrics.
+"""Stage-I entry points: train the dVAE autoencoder, validate it, test it.
 
-Counterpart of the model, optimizer, step and validation part of
-``act_tpu/engine/runner_autoencoder.py``: build the dVAE from the YAML with
-weights drawn from a seed (no teacher checkpoint is in the repository, so the
-teacher is random, as in the JAX runner without ``teacher_ckpt``), freeze the
-teacher backbone and store its blocks in bf16 (``freeze_visual_embed``),
-build AdamW with CosLR, and take train steps on the given batches or on the
-synthetic ShapeNet-55 clouds with the Gumbel temperature and the KLD weight
-on their cosine anneals. Checkpoints and resume, ``test_net``, the
-reconstruction dump, the per-taxonomy table and the dataset loaders are not
-ported yet.
+Counterpart of ``act_tpu/engine/runner_autoencoder.py`` (reference
+tools/runner_autoencoder.py): build the dVAE from the YAML with weights drawn
+from a seed, load the 2D teacher from ``model.teacher_ckpt`` when the file is
+there (a timm ViT ``.pth``; else the teacher stays random, with a warning,
+as in the JAX runner), freeze the teacher backbone and store its blocks in
+bf16 (``freeze_visual_embed``), build AdamW with CosLR, and train on the
+ShapeNet-55 loader with the Gumbel temperature and the KLD weight on their
+cosine anneals over the iteration count. Each epoch ends in a validation
+(the per-taxonomy table of F-Score, CDL1 and CDL2, its Overall row the mean
+of the category means), ckpt-best on ``consider_metric`` (CDL1, lower is
+better) and ckpt-last; ``resume`` continues from ckpt-last. ``validate_net``
+and ``test_net`` evaluate a checkpoint; ``test_net`` also writes the ground
+truth and the reconstruction of the first clouds as text files (the JAX
+runner's rendered ``.jpg`` files need matplotlib and are not written).
+``run_autoencoder_steps`` takes train steps on given batches or on the
+synthetic clouds, without loader or checkpoints.
 
   python -m act_tpu_torch.engine.runner_autoencoder \\
       --config cfgs/autoencoder/act_dvae_with_pretrained_transformer.yaml --steps 3
 
-The run is on the card unless ``--device cpu`` is given.
+The CLI of the whole runner is ``python -m act_tpu_torch.main_autoencoder``.
+Every entry point runs on the card unless ``--device cpu`` (``device="cpu"``)
+is given.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
+from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from act_tpu_torch.engine import builder
+from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine.serve import load_config
 from act_tpu_torch.engine.train_state import (autoencoder_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.utils.logger import print_log
+from act_tpu_torch.utils.meters import AverageMeter
 from act_tpu_torch.utils.metrics import Metrics
 from act_tpu_torch.utils.misc import cosine_anneal
 
@@ -81,10 +95,53 @@ def build_autoencoder_model(model_cfg, seed: int = 0) -> nn.Module:
     return model
 
 
-def prepare_model(cfg, seed: int, device) -> nn.Module:
-    """The config's dVAE from ``seed``, frozen and cast as the JAX runner
-    does it, on ``device``."""
+TEACHER_KEYS = (("blocks.", "visual_embed.0."), ("norm.", "visual_embed.1."))
+
+
+def load_teacher_weights(model: nn.Module, model_cfg, logger=None) -> int:
+    """The 2D teacher's blocks and final norm from the timm ViT ``.pth`` at
+    ``model_cfg.teacher_ckpt`` (``runner_autoencoder.py:52-83``): its
+    ``blocks.i.*`` go to ``visual_embed.0.i.*`` and its ``norm.*`` to
+    ``visual_embed.1.*``, by name and shape; the rest of a timm ViT (patch
+    embedding, cls token, head) has no place here. Without the file the
+    teacher stays random, with a warning. Returns the tensors loaded."""
+    if not model_cfg.get("visual_embed_type"):
+        return 0
+    path = model_cfg.get("teacher_ckpt")
+    if not path or not os.path.exists(str(path)):
+        print_log("[AUTOENCODER][WARNING] no teacher_ckpt provided or found: the frozen "
+                  f"'{model_cfg.get('visual_embed_type')}' teacher is RANDOMLY INITIALIZED "
+                  "(set model.teacher_ckpt to a local timm .pth to reproduce the reference)",
+                  logger=logger)
+        return 0
+    if not str(path).endswith(".pth"):
+        raise ValueError(f"teacher_ckpt {path}: the port reads a timm ViT .pth state dict")
+    payload = torch.load(str(path), map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict", "model_state_dict"):
+        if isinstance(payload, dict) and key in payload:
+            payload = payload[key]
+            break
+    state = model.state_dict()
+    n = 0
+    with torch.no_grad():
+        for k, v in payload.items():
+            k = k.replace("module.", "")
+            for src, dst in TEACHER_KEYS:
+                if k.startswith(src):
+                    name = dst + k[len(src):]
+                    if name in state and tuple(state[name].shape) == tuple(v.shape):
+                        state[name].copy_(v)
+                        n += 1
+    print_log(f"[AUTOENCODER] loaded {n} teacher tensors from {path}", logger=logger)
+    return n
+
+
+def prepare_model(cfg, seed: int, device, logger=None) -> nn.Module:
+    """The config's dVAE from ``seed``, its teacher from ``teacher_ckpt``
+    where there is one, frozen and cast as the JAX runner does it, on
+    ``device``."""
     model = build_autoencoder_model(cfg.model, seed)
+    load_teacher_weights(model, cfg.model, logger)
     if getattr(model, "has_teacher", False) and bool(cfg.model.get("freeze_visual_embed", False)):
         builder.freeze_teacher_backbone(model, bool(cfg.model.get("frozen_bf16", True)))
     return model.to(device)
@@ -119,27 +176,231 @@ def run_autoencoder_steps(config, steps: int, *, batches: Optional[Iterable] = N
                           model, optimizer, step_ms)
 
 
-def validate(model: nn.Module, clouds: Iterable, consider_metric: str = "CDL1"
+def _clouds_of(batch) -> Tuple[List[str], torch.Tensor]:
+    """A loader batch (taxonomies, model ids, (B, N, 3) clouds) or one bare
+    (N, 3) or (B, N, 3) cloud -> (a taxonomy a cloud, the clouds)."""
+    if isinstance(batch, (tuple, list)) and len(batch) == 3:
+        tax, _, data = batch
+        pts = data[0] if isinstance(data, (tuple, list)) else data
+        pts = torch.as_tensor(pts, dtype=torch.float32)
+        tax = [tax] if isinstance(tax, str) else list(tax)
+        return tax, pts.reshape(len(tax), -1, 3)
+    pts = torch.as_tensor(batch, dtype=torch.float32)
+    pts = pts.reshape(-1, pts.shape[-2], 3)
+    return ["-"] * pts.shape[0], pts
+
+
+def recon_forward(model: nn.Module, pts: torch.Tensor) -> torch.Tensor:
+    """The validation forward of one (1, N, 3) cloud: the reconstruction
+    with ``hard=True`` at temperature 1 and a 'gumbel' generator seeded 0
+    (the JAX runner's fixed ``PRNGKey(0)``, ``runner_autoencoder.py:293-304``);
+    returns the whole fine cloud (1, G*M, 3)."""
+    rngs = {"gumbel": torch.Generator(device=pts.device).manual_seed(0)}
+    return model(pts, 1.0, True, rngs=rngs)[1]
+
+
+def category_table(taxonomies: List[str], per_cloud: List[List[float]]
+                   ) -> Tuple[Dict[str, Tuple[int, List[float]]], List[float]]:
+    """{taxonomy: (clouds, mean of each metric)} in sorted order, and the
+    Overall row: the mean over the categories of their means
+    (``runner_autoencoder.py:327-336``)."""
+    groups = defaultdict(list)
+    for tax, row in zip(taxonomies, per_cloud):
+        groups[tax].append(row)
+    table = {tax: (len(rows), [float(np.mean(v)) for v in zip(*rows)])
+             for tax, rows in sorted(groups.items())}
+    overall = [float(np.mean(v)) for v in zip(*(m for _, m in table.values()))]
+    return table, overall
+
+
+def validate(model: nn.Module, batches: Iterable, consider_metric: str = "CDL1",
+             max_batches: Optional[int] = None, logger=None
              ) -> Tuple[Metrics, List[List[float]]]:
-    """Reconstruction metrics of ``model`` over ``clouds`` (each (N, 3) or
-    (1, N, 3)), one cloud a forward as the reference's batch size 1: the eval
-    recon forward with ``hard=True`` at temperature 1 and a 'gumbel'
-    generator seeded 0 for every cloud (the JAX runner's fixed
-    ``PRNGKey(0)``, ``runner_autoencoder.py:293-304``), then ``Metrics.get``
-    of the whole fine reconstruction against the cloud
-    (``runner_autoencoder.py:307-337``). Returns (the mean metrics, each
-    cloud's [F-Score, CDL1, CDL2])."""
+    """Reconstruction metrics of ``model`` (eval mode, no grad) over
+    ``batches``: loader batches (at B=1, as the reference validates) or
+    bare clouds, each cloud a forward (``recon_forward``) and ``Metrics.get``
+    of its whole fine reconstruction against it
+    (``runner_autoencoder.py:307-337``). Prints the per-taxonomy table.
+    Returns (the Overall metrics, the mean of the category means, with the
+    table as ``.table``; each cloud's [F-Score, CDL1, CDL2])."""
     model.eval()
     dev = next(model.parameters()).device
-    per_cloud = []
+    taxonomies, per_cloud = [], []
     with torch.no_grad():
-        for pts in clouds:
-            pts = torch.as_tensor(pts, dtype=torch.float32).to(dev).reshape(1, -1, 3)
-            rngs = {"gumbel": torch.Generator(device=dev).manual_seed(0)}
-            fine = model(pts, 1.0, True, rngs=rngs)[1]
-            per_cloud.append(Metrics.get(fine[0], pts[0]))
-    means = [sum(v) / len(per_cloud) for v in zip(*per_cloud)]
-    return Metrics(consider_metric, means), per_cloud
+        for i, batch in enumerate(batches):
+            if max_batches is not None and i >= max_batches:
+                break
+            tax, pts = _clouds_of(batch)
+            for t, cloud in zip(tax, pts.to(dev)):
+                fine = recon_forward(model, cloud[None])
+                per_cloud.append(Metrics.get(fine[0], cloud))
+                taxonomies.append(t)
+    table, overall = category_table(taxonomies, per_cloud)
+    print_log("============================ TEST RESULTS ============================",
+              logger=logger)
+    print_log("Taxonomy\t#Sample\t" + "\t".join(Metrics.names()), logger=logger)
+    for tax, (n, means) in table.items():
+        print_log(f"{tax}\t{n}\t" + "\t".join(f"{v:.4f}" for v in means), logger=logger)
+    print_log("Overall\t\t" + "\t".join(f"{v:.4f}" for v in overall), logger=logger)
+    metrics = Metrics(consider_metric, overall)
+    metrics.table = table
+    return metrics, per_cloud
+
+
+@dataclass
+class AutoencoderResult:
+    """What ``run_net`` returns: the final model and optimizer, the best
+    validation metrics, the train step and anneal iteration reached, the
+    temperature and KLD weight of each step taken and the mean losses
+    (x1000: recon, KLD) of each epoch run."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    best_metrics: Optional[Metrics]
+    step: int
+    n_itr: int
+    temps: List[float] = field(default_factory=list)
+    kld_weights: List[float] = field(default_factory=list)
+    epoch_losses: List[List[float]] = field(default_factory=list)
+
+
+def _loaders(cfg, seed: int, num_workers: int, subsets):
+    """The loaders of the named dataset nodes: train at ``total_bs``, the
+    others at 1 (``main_autoencoder.py:46-47``)."""
+    out = []
+    for name in subsets:
+        node = cfg.dataset[name]
+        node.others.bs = int(cfg.total_bs) if name == "train" else 1
+        out.append(builder.dataset_builder(node, seed, num_workers)[1])
+    return out
+
+
+def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
+            max_steps: Optional[int] = None, max_val: Optional[int] = None,
+            resume: bool = False, experiment_path: str = "experiments/autoencoder",
+            num_workers: int = 0, logger=None) -> AutoencoderResult:
+    """The Stage-I run (``runner_autoencoder.py:105-287``): ``epochs`` epochs
+    (default the config's ``max_epoch``; ``max_steps`` caps the batches of
+    an epoch) through the ShapeNet-55 loader, the anneals at iteration
+    ``n_itr`` (``start_epoch * len(train_loader)`` after a resume, one more
+    each step), the lr schedule at ``len(train_loader)`` steps an epoch;
+    then ``validate`` (``max_val`` clouds, default all), ckpt-best when the
+    metrics are better, and ckpt-last, in ``experiment_path``."""
+    cfg = load_config(config)
+    if epochs is not None:
+        cfg.max_epoch = int(epochs)
+    dev = resolve_device(device)
+    train_loader, val_loader = _loaders(cfg, seed, num_workers, ("train", "val"))
+    epoch_steps = max(len(train_loader), 1)
+    model = prepare_model(cfg, seed, dev, logger)
+    optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
+    bnm = builder.build_bnm_schedule(cfg)
+    clip = cfg.get("grad_norm_clip", None)
+    start_epoch, step, best = 0, 0, None
+    if resume:
+        start_epoch, step, best_d = ckpt_lib.resume_state(model, optimizer, experiment_path)
+        best = Metrics(cfg.consider_metric, best_d) if best_d else None
+    n_itr = start_epoch * epoch_steps
+    res = AutoencoderResult(model, optimizer, best, step, n_itr)
+    try:
+        for epoch in range(start_epoch, int(cfg.max_epoch)):
+            train_loader.set_epoch(epoch)
+            if bnm is not None:
+                builder.set_bn_momentum(model, bnm(epoch))
+            pending, t0 = [], time.time()
+            for idx, (_, _, data) in enumerate(train_loader):
+                pts = torch.as_tensor(data, dtype=torch.float32).to(dev)
+                temp, kldw = get_temp(cfg, res.n_itr), get_kld_weight(cfg, res.n_itr)
+                pending.append(autoencoder_step(model, optimizer, schedule, pts, res.step,
+                                                step_rngs(seed, res.step, dev), temp, kldw,
+                                                clip)[1:])
+                res.temps.append(temp)
+                res.kld_weights.append(kldw)
+                res.step += 1
+                res.n_itr += 1
+                if max_steps and idx + 1 >= max_steps:
+                    break
+            meters = AverageMeter(["Loss1", "Loss2"])
+            for recon, kld in pending:  # one host fetch an epoch, not one a step
+                meters.update([float(recon) * 1000, float(kld) * 1000])
+            res.epoch_losses.append([meters.avg(0), meters.avg(1)])
+            print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.1f}s "
+                      f"Losses(x1000)={[f'{v:.4f}' for v in res.epoch_losses[-1]]} "
+                      f"steps={len(pending)} n_itr={res.n_itr} lr={schedule(res.step):.6f}",
+                      logger=logger)
+            metrics, _ = validate(model, val_loader, cfg.consider_metric, max_val, logger)
+            if metrics.better_than(res.best_metrics):
+                res.best_metrics = metrics
+                ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch,
+                                         metrics.state_dict(), metrics.state_dict(),
+                                         "ckpt-best", experiment_path)
+            ckpt_lib.save_checkpoint(
+                model, optimizer, res.step, epoch, None,
+                res.best_metrics.state_dict() if res.best_metrics else None, "ckpt-last",
+                experiment_path)
+    finally:
+        train_loader.close()
+        val_loader.close()
+    return res
+
+
+def _eval_model(cfg, ckpts, seed: int, dev, logger=None) -> nn.Module:
+    """The config's dVAE on ``dev`` with the weights of ``ckpts`` (a ``.pth``
+    checkpoint), or drawn from ``seed`` without one."""
+    model = prepare_model(cfg, seed, dev, logger)
+    if ckpts:
+        ckpt_lib.load_params_into(model, ckpts)
+    return model
+
+
+def validate_net(config, *, ckpts=None, seed: int = 0, device="cuda",
+                 max_batches: Optional[int] = None, logger=None) -> Metrics:
+    """``--val``: the metrics of ``ckpts`` over the val split at B=1
+    (``runner_autoencoder.py:340-352``)."""
+    cfg = load_config(config)
+    dev = resolve_device(device)
+    (loader,) = _loaders(cfg, seed, 0, ("val",))
+    return validate(_eval_model(cfg, ckpts, seed, dev, logger), loader,
+                    cfg.consider_metric, max_batches, logger)[0]
+
+
+def test_net(config, *, ckpts=None, seed: int = 0, device="cuda",
+             experiment_path: str = "experiments/autoencoder",
+             max_batches: Optional[int] = None, max_dumps: int = 20, logger=None) -> Metrics:
+    """``--test``: the metrics of ``ckpts`` over the test split at B=1 and the
+    first ``max_dumps`` reconstructions written to ``experiment_path/vis``
+    (``runner_autoencoder.py:355-370``)."""
+    cfg = load_config(config)
+    dev = resolve_device(device)
+    (loader,) = _loaders(cfg, seed, 0, ("test",))
+    model = _eval_model(cfg, ckpts, seed, dev, logger)
+    metrics = validate(model, loader, cfg.consider_metric, max_batches, logger)[0]
+    dump_reconstructions(model, loader, os.path.join(experiment_path, "vis"), max_dumps, logger)
+    return metrics
+
+
+def dump_reconstructions(model: nn.Module, loader: Iterable, vis_dir: str,
+                         max_dumps: int = 20, logger=None) -> List[str]:
+    """Write the first cloud of each of the first ``max_dumps`` batches and
+    its reconstruction (``recon_forward``) as ``{tax}_{n:03d}_gt.txt`` and
+    ``_dense.txt`` at ``%.6f`` in ``vis_dir`` (``runner_autoencoder.py:373-406``,
+    without the rendered images). Returns the file prefixes."""
+    model.eval()
+    dev = next(model.parameters()).device
+    os.makedirs(vis_dir, exist_ok=True)
+    prefixes = []
+    with torch.no_grad():
+        for batch in loader:
+            if len(prefixes) >= max_dumps:
+                break
+            tax, pts = _clouds_of(batch)
+            gt = pts[:1].to(dev)
+            dense = recon_forward(model, gt)[0]
+            prefix = os.path.join(vis_dir, f"{tax[0]}_{len(prefixes):03d}")
+            np.savetxt(prefix + "_gt.txt", gt[0].cpu().numpy(), fmt="%.6f")
+            np.savetxt(prefix + "_dense.txt", dense.float().cpu().numpy(), fmt="%.6f")
+            prefixes.append(prefix)
+    print_log(f"[TEST] dumped {len(prefixes)} reconstructions to {vis_dir}", logger=logger)
+    return prefixes
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -44,6 +44,7 @@ from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_state_d
 from act_tpu_torch.engine.train_state import finetune_step, step_rngs
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter, balanced_accuracy
 
 VOTE_TIMES = 10
@@ -70,14 +71,15 @@ def finetune_config(config, way: int = -1, shot: int = -1, fold: int = -1):
     return cfg
 
 
-def loaders(cfg, seed: int = 0, subsets=("train", "val")):
+def loaders(cfg, seed: int = 0, subsets=("train", "val"), num_workers: int = 0):
     """The loaders of the named dataset nodes: train at ``total_bs``, val and
-    test at twice that (``runner_finetune.py:107-110, 395``)."""
+    test at twice that (``runner_finetune.py:107-110, 395``), with
+    ``num_workers`` forked workers for real data."""
     out = []
     for name in subsets:
         node = cfg.dataset[name]
         node.others.bs = int(cfg.total_bs) * (1 if name == "train" else 2)
-        out.append(builder.dataset_builder(node, seed)[1])
+        out.append(builder.dataset_builder(node, seed, num_workers)[1])
     return out
 
 
@@ -209,14 +211,15 @@ def predict(model: nn.Module, loader: Iterable, npoints: int, device="cuda"
     return np.concatenate(logits), np.concatenate(labels)
 
 
-def validate(model: nn.Module, loader: Iterable, npoints: int, device="cuda") -> AccMetric:
+def validate(model: nn.Module, loader: Iterable, npoints: int, device="cuda",
+             logger=None) -> AccMetric:
     """OA (%) over ``loader``, with the mAcc (%) as ``.macc``
     (``runner_finetune.py:312-321``)."""
     logits, labels = predict(model, loader, npoints, device)
     preds = logits.argmax(-1)
     metric = AccMetric(float((preds == labels).mean()) * 100.0,
                        balanced_accuracy(labels, preds) * 100.0)
-    print(f"[VALIDATION] OA = {metric.acc:.4f}  mAcc = {metric.macc:.4f}", flush=True)
+    print_log(f"[VALIDATION] OA = {metric.acc:.4f}  mAcc = {metric.macc:.4f}", logger)
     return metric
 
 
@@ -241,7 +244,8 @@ def vote_logits(model: nn.Module, pts: torch.Tensor, npoints: int,
 
 
 def validate_vote(model: nn.Module, loader: Iterable, npoints: int, seed: int = 0,
-                  times: int = VOTE_TIMES, vote_round: int = 0, device="cuda") -> float:
+                  times: int = VOTE_TIMES, vote_round: int = 0, device="cuda",
+                  logger=None) -> float:
     """OA (%) of the vote over ``loader`` on ``device`` (the model's)
     (reference validate_vote, runner_finetune.py:300-365), batch i's draws
     from ``vote_generator(seed, vote_round, i)``."""
@@ -256,16 +260,17 @@ def validate_vote(model: nn.Module, loader: Iterable, npoints: int, seed: int = 
             labels.append(label.cpu().numpy())
     preds, labels = np.concatenate(preds), np.concatenate(labels)
     acc = float((preds == labels).mean()) * 100.0 if len(preds) else 0.0
-    print(f"[VOTE] acc = {acc:.4f} ({times} votes)", flush=True)
+    print_log(f"[VOTE] acc = {acc:.4f} ({times} votes)", logger)
     return acc
 
 
 def test_vote_rounds(model: nn.Module, loader: Iterable, npoints: int, seed: int,
-                     rounds: int, times: int = VOTE_TIMES, device="cuda") -> np.ndarray:
+                     rounds: int, times: int = VOTE_TIMES, device="cuda",
+                     logger=None) -> np.ndarray:
     """Per-round vote OA (%) of the best-of-N test protocol (reference
     runner_finetune.py:425-432): round r is ``validate_vote`` at
     ``vote_round=r``. ``loader`` is iterated once a round."""
-    return np.array([validate_vote(model, loader, npoints, seed, times, r, device)
+    return np.array([validate_vote(model, loader, npoints, seed, times, r, device, logger)
                      for r in range(rounds)], dtype=np.float64)
 
 
@@ -283,78 +288,90 @@ class FinetuneResult:
 def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
             max_steps: Optional[int] = None, vote: bool = False, ckpts=None,
             resume: bool = False, experiment_path: str = "experiments/finetune",
-            way: int = -1, shot: int = -1, fold: int = -1) -> FinetuneResult:
+            way: int = -1, shot: int = -1, fold: int = -1, num_workers: int = 0,
+            logger=None) -> FinetuneResult:
     """The finetune run (``runner_finetune.py:95-295``): ``epochs`` epochs
     (default the config's ``max_epoch``; ``max_steps`` caps the batches of
     an epoch), each followed by a validation with ckpt-best, the vote
     behind its gate with ckpt-best_vote, and ckpt-last (the reference
     runner's cadence). ``ckpts`` starts from pretrained weights;
     ``resume`` continues from the ckpt-last of ``experiment_path``; ``way``,
-    ``shot``, ``fold`` pick a few-shot split (``finetune_config``)."""
+    ``shot``, ``fold`` pick a few-shot split (``finetune_config``);
+    ``num_workers`` forked workers load real data; the run's lines go to
+    ``logger`` (``utils/logger.print_log``)."""
     cfg = finetune_config(config, way, shot, fold)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
     dev = resolve_device(device)
-    train_loader, val_loader = loaders(cfg, seed)
-    st = build_state(cfg, max(len(train_loader), 1), seed, dev, None if resume else ckpts)
-    start_epoch, step, best = 0, 0, AccMetric(0.0)
-    if resume:
-        start_epoch, step, best_d = ckpt_lib.resume_state(st.model, st.optimizer,
-                                                          experiment_path)
-        if best_d:
-            best = AccMetric(best_d.get("acc", 0.0))
-    epoch_loss, epoch_acc = [], []
-    for epoch in range(start_epoch, int(cfg.max_epoch)):
-        train_loader.set_epoch(epoch)
-        if st.bnm is not None:
-            builder.set_bn_momentum(st.model, st.bnm(epoch))
-        meters, pending, t0 = AverageMeter(["loss", "acc"]), [], time.time()
-        for idx, batch in enumerate(train_loader):
-            pts, labels = _to_device(batch, dev)
-            pending.append(train_step(st, pts, labels, step, seed))
-            step += 1
-            if max_steps and idx + 1 >= max_steps:
-                break
-        for loss, acc in pending:  # one host fetch an epoch, not one a step
-            meters.update([float(loss), float(acc)])
-        epoch_loss.append(meters.avg(0))
-        epoch_acc.append(meters.avg(1))
-        print(f"[Epoch {epoch}] time={time.time() - t0:.1f}s loss={meters.avg(0):.4f} "
-              f"acc={meters.avg(1):.2f} lr={st.schedule(step):.6f}", flush=True)
-        acc = validate(st.model, val_loader, st.npoints, dev)
-        better = acc.better_than(best)
-        if better:
-            best = acc
-            ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, acc.state_dict(),
-                                     best.state_dict(), "ckpt-best", experiment_path)
-        if vote and (acc.acc > VOTE_ALWAYS or (better and acc.acc > VOTE_IF_BETTER)):
-            vote_acc = validate_vote(st.model, val_loader, st.npoints, seed, device=dev)
-            if vote_acc > best.acc:
-                ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch,
-                                         {"acc": vote_acc}, best.state_dict(),
-                                         "ckpt-best_vote", experiment_path)
-        ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, None,
-                                 best.state_dict(), "ckpt-last", experiment_path)
+    train_loader, val_loader = loaders(cfg, seed, num_workers=num_workers)
+    try:
+        st = build_state(cfg, max(len(train_loader), 1), seed, dev, None if resume else ckpts)
+        start_epoch, step, best = 0, 0, AccMetric(0.0)
+        if resume:
+            start_epoch, step, best_d = ckpt_lib.resume_state(st.model, st.optimizer,
+                                                              experiment_path)
+            if best_d:
+                best = AccMetric(best_d.get("acc", 0.0))
+        epoch_loss, epoch_acc = [], []
+        for epoch in range(start_epoch, int(cfg.max_epoch)):
+            train_loader.set_epoch(epoch)
+            if st.bnm is not None:
+                builder.set_bn_momentum(st.model, st.bnm(epoch))
+            meters, pending, t0 = AverageMeter(["loss", "acc"]), [], time.time()
+            for idx, batch in enumerate(train_loader):
+                pts, labels = _to_device(batch, dev)
+                pending.append(train_step(st, pts, labels, step, seed))
+                step += 1
+                if max_steps and idx + 1 >= max_steps:
+                    break
+            for loss, acc in pending:  # one host fetch an epoch, not one a step
+                meters.update([float(loss), float(acc)])
+            epoch_loss.append(meters.avg(0))
+            epoch_acc.append(meters.avg(1))
+            print_log(f"[Epoch {epoch}] time={time.time() - t0:.1f}s loss={meters.avg(0):.4f} "
+                      f"acc={meters.avg(1):.2f} lr={st.schedule(step):.6f}", logger)
+            acc = validate(st.model, val_loader, st.npoints, dev, logger)
+            better = acc.better_than(best)
+            if better:
+                best = acc
+                ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, acc.state_dict(),
+                                         best.state_dict(), "ckpt-best", experiment_path)
+            if vote and (acc.acc > VOTE_ALWAYS or (better and acc.acc > VOTE_IF_BETTER)):
+                vote_acc = validate_vote(st.model, val_loader, st.npoints, seed, device=dev,
+                                         logger=logger)
+                if vote_acc > best.acc:
+                    ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch,
+                                             {"acc": vote_acc}, best.state_dict(),
+                                             "ckpt-best_vote", experiment_path)
+            ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, None,
+                                     best.state_dict(), "ckpt-last", experiment_path)
+    finally:
+        train_loader.close()
+        val_loader.close()
     return FinetuneResult(st, best, epoch_loss, epoch_acc, step)
 
 
 def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = False,
-             rounds: int = 300, way: int = -1) -> AccMetric:
+             rounds: int = 300, way: int = -1, num_workers: int = 0,
+             logger=None) -> AccMetric:
     """Test OA of the weights in ``ckpts`` (``runner_finetune.py:387-423``);
     with ``vote`` also the best of ``rounds`` vote rounds as ``.vote``."""
     cfg = finetune_config(config, way)
     dev = resolve_device(device)
-    (test_loader,) = loaders(cfg, seed, ("test",))
-    st = build_state(cfg, 1, seed, dev, ckpts)
-    acc = validate(st.model, test_loader, st.npoints, dev)
-    print(f"[TEST] OA = {acc.acc:.4f}", flush=True)
-    if vote:
-        best = 0.0
-        for r, a in enumerate(test_vote_rounds(st.model, test_loader, st.npoints, seed,
-                                               rounds, device=dev)):
-            best = max(best, float(a))
-            print(f"[TEST_VOTE] round {r} acc={a:.4f} best={best:.4f}", flush=True)
-        acc.vote = best
+    (test_loader,) = loaders(cfg, seed, ("test",), num_workers)
+    try:
+        st = build_state(cfg, 1, seed, dev, ckpts)
+        acc = validate(st.model, test_loader, st.npoints, dev, logger)
+        print_log(f"[TEST] OA = {acc.acc:.4f}", logger)
+        if vote:
+            best = 0.0
+            for r, a in enumerate(test_vote_rounds(st.model, test_loader, st.npoints, seed,
+                                                   rounds, device=dev, logger=logger)):
+                best = max(best, float(a))
+                print_log(f"[TEST_VOTE] round {r} acc={a:.4f} best={best:.4f}", logger)
+            acc.vote = best
+    finally:
+        test_loader.close()
     return acc
 
 

@@ -1,33 +1,50 @@
-"""Stage-II pretraining entry point: a few train steps of ACT_PointDistillation.
+"""Stage-II pretraining entry points: train ACT_PointDistillation with the
+linear-SVM probe and checkpoints.
 
-Counterpart of the model, optimizer and step part of
-``act_tpu/engine/runner_pretrain.py:136-238``: build the model from the YAML,
-draw the weights from a seed (or load a state dict), freeze the dVAE tokenizer
-and store its matmul weights in bf16, build AdamW with CosLR, and take train
-steps on the given batches or on the synthetic ShapeNet-55 clouds. Checkpoint
-save and resume, the SVM probe, validation and the dataset loaders are not
-ported yet.
+Counterpart of ``act_tpu/engine/runner_pretrain.py`` (reference
+tools/runner_pretrain.py): build the model from the YAML, draw the weights
+from a seed, load the Stage-I dVAE from ``dvae_config.ckpt`` (a ``.pth``: the
+port's Stage-I checkpoint or a reference one) into the tokenizer, freeze the
+tokenizer and store its matmul weights in bf16, build AdamW with CosLR, and
+train on the ShapeNet-55 loader (or ModelNet, resampled by FPS first). Each
+epoch ends in the SVM probe on the student's features of the ModelNet40
+``extra_train`` and ``val`` splits, ckpt-best on its accuracy, ckpt-last,
+and from epoch 250 a ``ckpt-epoch-NNN`` every 25 epochs. ``resume``
+continues from ckpt-last; ``start_ckpts`` starts from a checkpoint's weights.
+``run_steps`` takes train steps on given batches or on the synthetic clouds,
+without loader or checkpoints. Not ported: ``ACT_PointBERT`` (it raises) and
+the TPU workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
 
   python -m act_tpu_torch.engine.runner_pretrain \\
       --config cfgs/pretrain/pretrain_act_distill.yaml --steps 3
 
-The run is on the card unless ``--device cpu`` is given.
+The CLI of the whole runner is ``python -m act_tpu_torch.main``. Every entry
+point runs on the card unless ``--device cpu`` (``device="cpu"``) is given.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 from dataclasses import dataclass, field
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from act_tpu_torch import ops
+from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.engine import builder
+from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine.serve import Checkpoint, load_config, load_state_dict
 from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.utils.logger import print_log
+from act_tpu_torch.utils.meters import AccMetric, AverageMeter
+from act_tpu_torch.utils.svm import LinearSVC
 
 TOKENIZER = "dvae_tokenizer"
 STAGE_I_KEYS = f"{TOKENIZER}.decoder."  # FoldingNet decoder, not built here
@@ -62,6 +79,15 @@ def build_pretrain_model(model_cfg, seed: int = 0,
     return model
 
 
+def freeze_tokenizer(model: nn.Module, cfg) -> nn.Module:
+    """The tokenizer frozen, its matmul weights stored in bf16 unless the
+    config sets ``model.frozen_bf16: false``; returns ``model``."""
+    builder.freeze(model, [TOKENIZER])
+    if bool(cfg.model.get("frozen_bf16", True)):
+        builder.cast_frozen_bf16(model, [TOKENIZER])
+    return model
+
+
 def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: int = 0,
               device="cuda", state_dict: Optional[Checkpoint] = None) -> PretrainRun:
     """Take ``steps`` Stage-II train steps of ``config`` (a YAML path or a
@@ -74,11 +100,7 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     the step's time."""
     cfg = load_config(config)
     dev = resolve_device(device)
-    model = build_pretrain_model(cfg.model, seed, state_dict)
-    builder.freeze(model, [TOKENIZER])
-    if bool(cfg.model.get("frozen_bf16", True)):
-        builder.cast_frozen_bf16(model, [TOKENIZER])
-    model = model.to(dev)
+    model = freeze_tokenizer(build_pretrain_model(cfg.model, seed, state_dict), cfg).to(dev)
     optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
     clip = cfg.get("grad_norm_clip", None)
     losses, step_ms = timed_steps(
@@ -86,6 +108,234 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
                                         step_rngs(seed, step, dev), grad_norm_clip=clip),
         steps, cfg, batches, dev)
     return PretrainRun([float(x) for x in losses], model, optimizer, step_ms)
+
+
+def load_dvae_ckpt(model: nn.Module, dvae_cfg, allow_random: bool = False,
+                   logger=None) -> int:
+    """The frozen Stage-I tokenizer from ``dvae_config.ckpt`` into
+    ``model.dvae_tokenizer`` (``runner_pretrain.py:46-104``; reference
+    build_tokenizer, models/act.py:1151-1160). Call it before
+    ``cast_frozen_bf16``: the tensors load into the f32 parameters.
+
+    The file is a ``.pth``: the port's Stage-I checkpoint (its ``base_model``
+    keys carry no prefix) or a reference one with ``base_model`` dVAE keys;
+    its ``decoder.*`` keys are dropped (Stage II's tokenizer has no decoder)
+    and every tokenizer key must be there. A set but absent path raises
+    ``FileNotFoundError`` unless ``allow_random``; an unset path warns; in
+    both cases the tokenizer stays random. Returns the tensors loaded."""
+    path = dvae_cfg.get("ckpt") if hasattr(dvae_cfg, "get") else None
+    if not path:
+        print_log("[PRETRAIN][WARNING] dvae_config.ckpt not set: the frozen tokenizer and "
+                  "teacher are RANDOMLY INITIALIZED", logger=logger)
+        return 0
+    if not os.path.exists(path):
+        if not allow_random:
+            raise FileNotFoundError(
+                f"dvae_config.ckpt = '{path}' does not exist. The reference loads the "
+                "Stage-I tokenizer strictly (models/act.py:1151-1160); pretraining against "
+                "a random tokenizer is meaningless. Fix the path, or pass "
+                "--allow_random_tokenizer to proceed anyway.")
+        print_log(f"[PRETRAIN][WARNING] dvae ckpt '{path}' not found: the frozen tokenizer "
+                  "and teacher are RANDOMLY INITIALIZED", logger=logger)
+        return 0
+    if os.path.isdir(path) or not str(path).endswith(".pth"):
+        raise ValueError(f"dvae_config.ckpt = '{path}': the port reads a .pth checkpoint "
+                         "(the port's Stage-I ckpt-best.pth or a reference .pth), not an "
+                         "orbax directory")
+    loaded = {k: v for k, v in load_state_dict(path).items() if not k.startswith("decoder.")}
+    tokenizer = getattr(model, TOKENIZER)
+    want = tokenizer.state_dict()
+    missing = sorted(set(want) - set(loaded))
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} tokenizer tensors: {missing}")
+    unexpected = sorted(set(loaded) - set(want))
+    tokenizer.load_state_dict({k: loaded[k] for k in want}, strict=True)
+    print_log(f"[PRETRAIN] loaded the frozen dVAE tokenizer from {path}: {len(want)} tensors"
+              + (f"; ignored {unexpected}" if unexpected else ""), logger=logger)
+    return len(want)
+
+
+def prepare_model(cfg, seed: int, device, allow_random_tokenizer: bool = False,
+                  logger=None) -> nn.Module:
+    """The config's model from ``seed`` with the Stage-I tokenizer of
+    ``dvae_config.ckpt`` (``load_dvae_ckpt``), the tokenizer frozen and its
+    matmul weights stored in bf16, on ``device``."""
+    model = build_pretrain_model(cfg.model, seed)
+    load_dvae_ckpt(model, cfg.model.dvae_config, allow_random_tokenizer, logger)
+    return freeze_tokenizer(model, cfg).to(device)
+
+
+def evaluate_svm(train_features, train_labels, test_features, test_labels,
+                 device=None, logger=None) -> Tuple[float, LinearSVC]:
+    """The linear probe (``runner_pretrain.py:37-43``, reference
+    evaluate_svm): ``LinearSVC`` fitted on the train features, the fraction
+    of test labels it predicts; on ``device`` (default the CPU). Returns
+    (accuracy in [0, 1], the fitted probe)."""
+    clf = LinearSVC().fit(train_features, train_labels, device=device)
+    pred = clf.predict(test_features)
+    acc = float(np.sum(np.asarray(test_labels).reshape(-1) == pred) / pred.shape[0])
+    print_log(f"[SVM] {len(clf.classes_)} classes, {len(pred)} test features: "
+              f"{clf.n_iter_} Newton iterations, relative gradient norm {clf.rel_grad_:.3e}",
+              logger=logger)
+    return acc, clf
+
+
+def probe_features(model: nn.Module, loader: Iterable, npoints: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The student's cls features of every cloud of ``loader`` (the JAX
+    runner's ``feat_step``, ``runner_pretrain.py:272-282``): each batch
+    resampled by FPS + gather to ``npoints`` when it has another point
+    count, then ``forward_eval`` in eval mode without grad; the model's
+    mode is restored afterwards. Returns (f32 features (n, cls_dim), labels
+    (n,))."""
+    was_training = model.training
+    dev = next(model.parameters()).device
+    model.eval()
+    feats, labels = [], []
+    try:
+        with torch.no_grad():
+            for _, _, (pts, label) in loader:
+                pts = torch.as_tensor(pts, dtype=torch.float32).to(dev)
+                if pts.shape[1] != npoints:
+                    pts = ops.gather_coords(pts, ops.furthest_point_sample(pts, npoints))
+                feats.append(model(pts, noaug=True).float().cpu().numpy())
+                labels.append(np.asarray(label).reshape(-1))
+    finally:
+        model.train(was_training)
+    return np.concatenate(feats), np.concatenate(labels)
+
+
+def validate(model: nn.Module, extra_train_loader: Iterable, test_loader: Iterable,
+             npoints: int, epoch: int = -1, logger=None) -> AccMetric:
+    """The SVM probe on the student's features (``runner_pretrain.py:421-444``):
+    accuracy (%), with the probe's Newton iterations and final relative
+    gradient norm as ``.svm_iters`` and ``.svm_rel_grad``."""
+    dev = next(model.parameters()).device
+    train_f, train_l = probe_features(model, extra_train_loader, npoints)
+    test_f, test_l = probe_features(model, test_loader, npoints)
+    acc, clf = evaluate_svm(train_f, train_l, test_f, test_l, dev, logger)
+    metric = AccMetric(acc * 100.0)
+    metric.svm_iters, metric.svm_rel_grad = clf.n_iter_, clf.rel_grad_
+    print_log(f"[VALIDATION] epoch {epoch} linear-probe acc = {metric.acc:.4f}", logger=logger)
+    return metric
+
+
+def pretrain_transform(dataset, npoints: int) -> Callable:
+    """The train augment of the dataset (``runner_pretrain.py:220-231``):
+    ShapeNet clouds come subsampled and are scaled and shifted; ModelNet
+    clouds are first resampled by FPS + gather to ``npoints``."""
+    if type(dataset).__name__ != "ModelNet":
+        return scale_and_translate
+
+    def transform(pts: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        return scale_and_translate(
+            ops.gather_coords(pts, ops.furthest_point_sample(pts, npoints)), gen)
+    return transform
+
+
+def is_snapshot_epoch(epoch: int) -> bool:
+    """Epochs that keep a ``ckpt-epoch-NNN`` (``runner_pretrain.py:410-413``)."""
+    return epoch % 25 == 0 and epoch >= 250
+
+
+@dataclass
+class PretrainResult:
+    """What ``run_net`` returns: the final model and optimizer, the best
+    probe accuracy, the train step reached, each epoch's mean loss and each
+    probe's accuracy."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    best_metrics: AccMetric
+    step: int
+    epoch_loss: List[float] = field(default_factory=list)
+    probes: List[AccMetric] = field(default_factory=list)
+
+
+def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
+            max_steps: Optional[int] = None, resume: bool = False,
+            start_ckpts: Optional[str] = None, experiment_path: str = "experiments/pretrain",
+            allow_random_tokenizer: bool = False, num_workers: int = 0,
+            logger=None) -> PretrainResult:
+    """The Stage-II run (``runner_pretrain.py:136-418``): ``epochs`` epochs
+    (default the config's ``max_epoch``; ``max_steps`` caps the batches of
+    an epoch) of the train split at ``total_bs``, the lr schedule at
+    ``len(train_loader)`` steps an epoch, step ``i``'s draws from
+    ``step_rngs(seed, i)``; after each epoch the SVM probe over the
+    ``extra_train`` and ``val`` splits at twice ``total_bs`` with ckpt-best
+    on its accuracy, ckpt-last, and ``ckpt-epoch-NNN`` every 25 epochs from
+    epoch 250, in ``experiment_path``."""
+    cfg = load_config(config)
+    if epochs is not None:
+        cfg.max_epoch = int(epochs)
+    dev = resolve_device(device)
+    cfg.dataset.train.others.bs = int(cfg.total_bs)
+    train_set, train_loader = builder.dataset_builder(cfg.dataset.train, seed, num_workers)
+    probe = "val" in cfg.dataset and "extra_train" in cfg.dataset
+    if probe:
+        for name in ("val", "extra_train"):
+            cfg.dataset[name].others.bs = 2 * int(cfg.total_bs)
+        val_loader = builder.dataset_builder(cfg.dataset.val, seed, num_workers)[1]
+        extra_loader = builder.dataset_builder(cfg.dataset.extra_train, seed, num_workers)[1]
+        val_npoints = int(cfg.dataset.val.others.npoints)
+    npoints = int(cfg.dataset.train.others.npoints)
+    model = prepare_model(cfg, seed, dev, allow_random_tokenizer, logger)
+    epoch_steps = max(len(train_loader), 1)
+    optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
+    bnm = builder.build_bnm_schedule(cfg)
+    clip = cfg.get("grad_norm_clip", None)
+    start_epoch, step, best = 0, 0, AccMetric(0.0)
+    if resume:
+        start_epoch, step, best_d = ckpt_lib.resume_state(model, optimizer, experiment_path)
+        if best_d:
+            best = AccMetric(best_d.get("acc", 0.0))
+    elif start_ckpts:
+        ckpt_lib.load_params_into(model, start_ckpts)
+    transform = pretrain_transform(train_set, npoints)
+    res = PretrainResult(model, optimizer, best, step)
+    print_log(f"[PRETRAIN] {cfg.model.NAME}: {epoch_steps} steps/epoch, "
+              f"{int(cfg.max_epoch)} epochs", logger=logger)
+    try:
+        for epoch in range(start_epoch, int(cfg.max_epoch)):
+            train_loader.set_epoch(epoch)
+            if bnm is not None:
+                builder.set_bn_momentum(model, bnm(epoch))
+            pending, t0 = [], time.time()
+            for idx, (_, _, data) in enumerate(train_loader):
+                pts = torch.as_tensor(data[0] if isinstance(data, (tuple, list)) else data,
+                                      dtype=torch.float32).to(dev)
+                pending.append(pretrain_step(model, optimizer, schedule, pts, res.step,
+                                             step_rngs(seed, res.step, dev), transform, clip))
+                res.step += 1
+                if max_steps and idx + 1 >= max_steps:
+                    break
+            meters = AverageMeter(["Loss"])
+            for loss in pending:  # one host fetch an epoch, not one a step
+                meters.update([float(loss)])
+            res.epoch_loss.append(meters.avg(0))
+            print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.3f}s "
+                      f"Loss={meters.avg(0):.4f} steps={len(pending)} "
+                      f"lr={schedule(res.step):.6f}", logger=logger)
+            if probe:
+                metric = validate(model, extra_loader, val_loader, val_npoints, epoch, logger)
+                res.probes.append(metric)
+                if metric.better_than(res.best_metrics):
+                    res.best_metrics = metric
+                    ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch,
+                                             metric.state_dict(), metric.state_dict(),
+                                             "ckpt-best", experiment_path)
+            ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch, None,
+                                     res.best_metrics.state_dict(), "ckpt-last",
+                                     experiment_path)
+            if is_snapshot_epoch(epoch):
+                ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch, None,
+                                         res.best_metrics.state_dict(),
+                                         f"ckpt-epoch-{epoch:03d}", experiment_path)
+    finally:
+        train_loader.close()
+        if probe:
+            val_loader.close()
+            extra_loader.close()
+    return res
 
 
 def main(argv: Optional[List[str]] = None) -> None:

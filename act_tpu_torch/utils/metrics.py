@@ -20,6 +20,9 @@ def _batched(t: torch.Tensor) -> torch.Tensor:
 
 
 class Metrics:
+    # a validation's per-taxonomy breakdown: {taxonomy: (clouds, [F-Score,
+    # CDL1, CDL2] means)}, set by ``runner_autoencoder.validate``
+    table = None
     ITEMS = [
         {"name": "F-Score", "is_greater_better": True, "init_value": 0.0},
         {"name": "CDL1", "is_greater_better": False, "init_value": 32767.0},

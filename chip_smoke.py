@@ -33,9 +33,19 @@ version at the shapes the path gives it:
   train steps, ``validate`` at B=64 and the vote (``validate_vote``,
   ``test_vote_rounds``), the kernel path's validation logits and summed vote
   probabilities bit-equal to the plain path's;
+- the user's pipeline through the trainers' entry points: Stage I
+  (``runner_autoencoder.run_net`` through the ShapeNet-55 loader, the
+  per-taxonomy validation, ckpt-best and ckpt-last, a resume, ``test_net``
+  with its dumps), then Stage II (``runner_pretrain.run_net`` with the
+  Stage-I ckpt-best as its frozen tokenizer, bit-equal in bf16 before and
+  after the steps, the SVM probe, its checkpoints), the probe's features
+  through the kernels against the plain path, one finetune step from the
+  Stage-II checkpoint, and the loader's clouds/s; checkpoints and data under
+  a temporary directory, deleted afterwards;
 
-and times the kernels, their plain versions, the matching library calls, the
-requests and the train steps.
+and times the kernels (the probe's and the Stage-I validation's launch shapes
+too), their plain versions, the matching library calls, the requests and the
+train steps.
 
 Every phase that fails makes the process exit non-zero. Without a card, or
 without the port beside it, the script exits non-zero and prints no result.
@@ -124,6 +134,20 @@ VALIDATE_PER_CLOUD = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn_min": 
 # the cloud gather, then group_points' FPS, k-smallest and two gathers
 FINETUNE_PER_STEP = {"fps": 2, "k_smallest": 1, "gather": 4}
 FT_VALIDATE_PER_BATCH = {"fps": 2, "k_smallest": 1, "gather": 3}  # no index compose
+# the Stage-I -> Stage-II -> finetune chain (phases 19-24): the SVM probe's
+# batch (2 x total_bs of pretrain_act_distill.yaml) and its launches a batch
+# (the FPS resample and its gather, then group_points), the capped runs
+PROBE_BATCH, PROBE_CLASSES = 256, 40
+PROBE_PER_BATCH = {"fps": 2, "k_smallest": 1, "gather": 3}
+RECON_PER_CLOUD = {"fps": 1, "k_smallest": 3, "gather": 2}  # a dumped reconstruction
+S1_RUN_STEPS, S1_RUN_VAL, S1_RESUME_VAL, S1_TEST_CLOUDS = 4, 16, 4, 4
+S2_RUN_STEPS = 3
+LOADER_CLOUDS, LOADER_BATCH, LOADER_WORKERS = 256, 32, 8  # the .npy tree of phase 24
+# probe features through the kernels against the plain path (phase 22): equal
+# bit for bit when no FPS launch of the batch swapped a tie (the same inputs
+# through the same bf16 products); a swap reorders the groups, and bf16 sums
+# in another order stay within FEAT_ATOL
+FEAT_ATOL = 0.05
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -757,7 +781,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
                   f"pack) = {chamfer_mod.launch_geometry(x.shape[0], x.shape[1], y.shape[1], sms)}",
                   flush=True)
     # one validation cloud on the path that chamfer_nn_min serves
-    cloud_ms = device_ms(lambda: validate(run.model, val[:1]), 5)
+    cloud_ms = device_ms(lambda: validate(run.model, val[:1], logger="silent"), 5)
     nn_min_ms = rows["chamfer_nn_min"][0]["ms"]
     share = "not measured" if cloud_ms is None else f"{nn_min_ms / cloud_ms:.4f}"
     print(f"[time] validate per cloud: device "
@@ -1110,6 +1134,343 @@ def finetune(dev, device_ms, kernel_events, measure):
     return rows, errs, launches
 
 
+def chain_shapes(dev, measure):
+    """Phase 19: the launch shapes that the Stage-I and Stage-II trainers add,
+    each against its plain version and timed: the SVM probe's resample of a
+    batch of 256 ModelNet clouds, FPS (256, 8192)->1024 and its gather, then
+    its grouping (FPS (256, 1024)->64, k-smallest (16384, 1024) k=32, the
+    gathers by (256, 64) and (256, 2048)); and the Gumbel kernel at one
+    cloud's tokenizer logits, (64, 8192) bf16. Returns (timing rows
+    by kernel, errors)."""
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets import build_dataset_from_cfg, synthetic_cloud
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    cfg = load_config(PRETRAIN_CONFIG)
+    npts = int(cfg.dataset.val.others.npoints)
+    dc = cfg.model.dvae_config
+    G, M, V = int(dc.num_group), int(dc.group_size), int(dc.num_tokens)
+    Bp = PROBE_BATCH
+    clouds = torch.from_numpy(np.stack([synthetic_cloud(i, N_IN, PROBE_CLASSES)[0]
+                                        for i in range(Bp)])).to(dev)
+    errs = {}
+    with torch.inference_mode():
+        def check_fps(p, S):
+            k, r = ops.furthest_point_sample(p, S), ops.furthest_point_sample_ref(p, S)
+            n_sw = tie_swaps(k, r)
+            if n_sw < 0 or not torch.equal(k.sort(-1).values, r.sort(-1).values):
+                fail(f"fps probe {tuple(p.shape)}->{S}: kernel picks differ beyond tie swaps")
+            errs[f"fps probe {tuple(p.shape)}->{S}"] = float(
+                (ops.gather_points(p, k) - ops.gather_points(p, r)).abs().max())
+            print(f"[check] fps probe {tuple(p.shape)}->{S}: equal up to {n_sw} adjacent tie "
+                  "swaps (same set)", flush=True)
+            return r
+        rs = check_fps(clouds, npts)
+        pts = ops.gather_points(clouds, rs)
+        rc = check_fps(pts, G)
+        d = ops.square_distance(ops.gather_points(pts, rc), pts).reshape(Bp * G, npts)
+        (kv, ki), (rv, ri) = ops.k_smallest(d, M), ops.k_smallest_ref(d, M)
+        if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+            fail(f"k_smallest probe {tuple(d.shape)} k={M}: differs from the plain version")
+        errs[f"k_smallest probe {tuple(d.shape)}"] = 0.0
+        print(f"[check] k_smallest probe {tuple(d.shape)} k={M}: indices equal, values "
+              "bit-equal", flush=True)
+        gathers = [(clouds, rs), (pts, rc), (pts, ri.reshape(Bp, G * M))]
+        for p, i in gathers:
+            if not torch.equal(ops.gather_coords(p, i), ops.gather_points(p, i)):
+                fail(f"gather probe {tuple(p.shape)} by {tuple(i.shape)}: not bit-equal")
+            errs[f"gather probe {tuple(i.shape)}"] = 0.0
+        print("[check] gather probe: bit-equal at " + ", ".join(
+            f"{tuple(p.shape)} by {tuple(i.shape)}" for p, i in gathers), flush=True)
+        g = torch.Generator(device=dev).manual_seed(19)
+        logits = torch.randn(G, V, generator=g, device=dev).to(torch.bfloat16)
+        seeds = [torch.tensor(w, dtype=torch.int32, device=dev) for w in ([0, 0], [7, -3])]
+        for seed in seeds:
+            if not torch.equal(ops.gumbel_argmax(logits, seed), ops.gumbel_argmax_ref(logits, seed)):
+                fail(f"gumbel_argmax ({G}, {V}) bf16 seed {seed.tolist()}: ids differ")
+        errs[f"gumbel_argmax one cloud ({G}, {V})"] = 0.0
+        print(f"[check] gumbel_argmax ({G}, {V}) bf16 (one cloud's tokenizer logits), "
+              f"seeds {[s.tolist() for s in seeds]}: ids equal (tolerance: exact); the grid's "
+              "small regime (a block for every 8 rows, not the persistent grid of the Stage-II "
+              "launch), which the tokenizer of one cloud (forward_tokenizer_features at B=1) "
+              "launches; the trainers do not: Stage-I validation takes its hard pick as the "
+              "argmax of the soft-Gumbel one-hot (the JAX dVAE's __call__)", flush=True)
+        rows = {
+            "fps": [measure(
+                f"({p.shape[0]}, {p.shape[1]}, 3)->{S} (probe)",
+                lambda p=p, S=S: ops.furthest_point_sample(p, S),
+                lambda p=p, S=S: ops.furthest_point_sample_ref(p, S), None, 10, 1,
+                bound_ms(p.numel() * 4 + p.shape[0] * S * 4,
+                         10.0 * p.shape[0] * (S - 1) * p.shape[1]))
+                for p, S in ((clouds, npts), (pts.contiguous(), G))],
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={M} (probe)", lambda: ops.k_smallest(d, M),
+                lambda: ops.k_smallest_ref(d, M),
+                lambda: torch.topk(d, M, dim=-1, largest=False, sorted=True), 50, 5,
+                bound_ms(d.numel() * 4 + d.shape[0] * M * 8, d.numel()))],
+            "gather": [measure(
+                f"{tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read (probe)",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=i.long().reshape(Bp, -1, 1).expand(-1, -1, 3).contiguous():
+                torch.gather(p, 1, li), 100, 100,
+                bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12))
+                for p, i in ((q.contiguous(), j.contiguous()) for q, j in gathers)],
+            "gumbel_argmax": [measure(
+                f"({G}, {V}) bf16 (one cloud's tokenizer)",
+                lambda: ops.gumbel_argmax(logits, seeds[0]),
+                lambda: ops.gumbel_argmax_ref(logits, seeds[0]), None, 100, 10,
+                bound_ms(logits.numel() * 2 + G * 4, GUMBEL_OPS * logits.numel()), 0)],
+        }
+    print_times("chain ", rows)
+    return rows, errs
+
+
+def chain(dev):
+    """Phases 20-24: the user's pipeline through the trainers' entry points
+    at full width, every checkpoint under a temporary directory deleted
+    afterwards. 20: Stage I, ``runner_autoencoder.run_net`` for one epoch of
+    at most 4 steps through the ShapeNet-55 loader, validation on 16 test
+    clouds, ckpt-best and ckpt-last; its resume for one more epoch; then
+    ``test_net`` of ckpt-best with its dumps. 21: Stage II,
+    ``runner_pretrain.run_net`` with ``dvae_config.ckpt`` the Stage-I
+    ckpt-best, 3 steps, the SVM probe on the ModelNet40 ``extra_train`` and
+    ``val`` splits, ckpt-best and ckpt-last; the frozen tokenizer the
+    Stage-I weights in bf16 before and after. 22: the probe's features
+    through the kernels against the plain path. 23: one finetune step from
+    the Stage-II checkpoint. 24: the clouds/s of the trainers' loaders
+    (``builder.dataset_builder``). Returns (launches of each run, errors)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets import build_dataset_from_cfg, synthetic_cloud
+    from act_tpu_torch.engine import builder
+    from act_tpu_torch.engine import checkpoint as ckpt_lib
+    from act_tpu_torch.engine import runner_autoencoder, runner_finetune, runner_pretrain
+    from act_tpu_torch.engine.serve import load_config, load_state_dict
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.utils.config import ConfigDict
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    errs, runs = {}, {}
+
+    def counted(tag, fn):
+        _backend.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[tag] = dict(_backend.LAUNCHES)
+        print(f"[chain] {tag}: {time.perf_counter() - t0:.2f} s; launches {runs[tag]}",
+              flush=True)
+        return out
+
+    def expect(tag, *parts):
+        want = {}
+        for per, units in parts:
+            for k, v in per.items():
+                want[k] = want.get(k, 0) + v * units
+        check_launches(tag, runs[tag], want, 1)
+
+    def tokenizer_equals_stage_one(model, source, when):
+        tok = {k[len(runner_pretrain.TOKENIZER) + 1:]: v for k, v in model.state_dict().items()
+               if k.startswith(runner_pretrain.TOKENIZER + ".") and "running" not in k
+               and "num_batches" not in k}
+        same = all(torch.equal(v, source[k].to(v.device, v.dtype)) for k, v in tok.items())
+        n16 = sum(v.dtype == torch.bfloat16 for v in tok.values())
+        print(f"[chain] Stage-II tokenizer {when} the steps: {len(tok)} tensors ({n16} bf16) "
+              f"bit-equal to the Stage-I ckpt-best's cast to their dtype: {same}", flush=True)
+        if not same:
+            fail(f"Stage II: the frozen tokenizer differs from the Stage-I weights {when}")
+
+    try:
+        # -- 20. Stage I: run_net, resume, test_net ----------------------------
+        t_phase = time.perf_counter()
+        s1 = os.path.join(tmp, "stage1")
+        acfg = load_config(AUTOENCODER_CONFIG)
+        res1 = counted("Stage-I run_net", lambda: runner_autoencoder.run_net(
+            AUTOENCODER_CONFIG, device=dev, epochs=1, max_steps=S1_RUN_STEPS,
+            max_val=S1_RUN_VAL, experiment_path=s1))
+        expect("Stage-I run_net", (STAGE1_PER_STEP, S1_RUN_STEPS),
+               (VALIDATE_PER_CLOUD, S1_RUN_VAL))
+        vals = list(res1.best_metrics.state_dict().values())
+        table = res1.best_metrics.table
+        print(f"[chain] Stage I: {res1.step} steps, anneal iteration {res1.n_itr}, losses "
+              f"(x1000) {res1.epoch_losses}, best {res1.best_metrics.state_dict()} over "
+              f"{sum(n for n, _ in table.values())} clouds in {len(table)} categories", flush=True)
+        if not (res1.step == res1.n_itr == S1_RUN_STEPS and all(map(math.isfinite, vals))
+                and all(math.isfinite(x) for x in res1.epoch_losses[0])):
+            fail("Stage-I run_net: steps, anneal iteration or metrics wrong")
+        for name in ("ckpt-best", "ckpt-last"):
+            if not os.path.exists(ckpt_lib.ckpt_path(s1, name)):
+                fail(f"Stage-I run_net: no {name}")
+        epoch_steps = 512 // int(acfg.total_bs)  # the synthetic ShapeNet-55 at B=64
+        res1b = counted("Stage-I resume", lambda: runner_autoencoder.run_net(
+            AUTOENCODER_CONFIG, device=dev, epochs=2, max_steps=S1_RUN_STEPS,
+            max_val=S1_RESUME_VAL, resume=True, experiment_path=s1))
+        expect("Stage-I resume", (STAGE1_PER_STEP, S1_RUN_STEPS),
+               (VALIDATE_PER_CLOUD, S1_RESUME_VAL))
+        last = torch.load(ckpt_lib.ckpt_path(s1, "ckpt-last"), map_location="cpu",
+                          weights_only=True)
+        want_temp = runner_autoencoder.get_temp(acfg, epoch_steps)
+        print(f"[chain] Stage-I resume: epoch {last['epoch']}, step {res1b.step}, anneal "
+              f"iteration {res1b.n_itr} (epoch 1 starts at {epoch_steps} = 1 x "
+              f"len(train_loader)), temperature {res1b.temps[0]} (get_temp {want_temp})",
+              flush=True)
+        if not (last["epoch"] == 1 and res1b.step == last["step"] == 2 * S1_RUN_STEPS
+                and res1b.n_itr == epoch_steps + S1_RUN_STEPS and res1b.temps[0] == want_temp):
+            fail("Stage-I resume: epoch, step or anneal iteration did not continue")
+        best1 = ckpt_lib.ckpt_path(s1, "ckpt-best")
+        m_test = counted("Stage-I test_net", lambda: runner_autoencoder.test_net(
+            AUTOENCODER_CONFIG, ckpts=best1, device=dev, experiment_path=s1,
+            max_batches=S1_TEST_CLOUDS, max_dumps=S1_TEST_CLOUDS))
+        expect("Stage-I test_net", (VALIDATE_PER_CLOUD, S1_TEST_CLOUDS),
+               (RECON_PER_CLOUD, S1_TEST_CLOUDS))
+        vis = sorted(os.listdir(os.path.join(s1, "vis")))
+        dense = np.loadtxt(os.path.join(s1, "vis", vis[0]))
+        G1, M1 = int(acfg.model.num_group), int(acfg.model.group_size)
+        print(f"[chain] Stage-I test_net: {m_test.state_dict()}; dumps {vis}; {vis[0]} "
+              f"{dense.shape}; phase 20 {time.perf_counter() - t_phase:.1f} s", flush=True)
+        if not (len(vis) == 2 * S1_TEST_CLOUDS and dense.shape == (G1 * M1, 3)
+                and np.isfinite(dense).all()):
+            fail("Stage-I test_net: dumps missing or malformed")
+
+        # -- 21. Stage II on the Stage-I tokenizer ----------------------------
+        t_phase = time.perf_counter()
+        s2 = os.path.join(tmp, "stage2")
+        pcfg = load_config(PRETRAIN_CONFIG)
+        pcfg.model.dvae_config.ckpt = best1
+        source = load_state_dict(best1)
+        before = runner_pretrain.prepare_model(pcfg, 0, dev)
+        tokenizer_equals_stage_one(before, source, "before")
+        res2 = counted("Stage-II run_net", lambda: runner_pretrain.run_net(
+            pcfg, device=dev, epochs=1, max_steps=S2_RUN_STEPS, experiment_path=s2))
+        n_probe = sum(-(-len(build_dataset_from_cfg(pcfg.dataset[n])) // PROBE_BATCH)
+                      for n in ("extra_train", "val"))
+        expect("Stage-II run_net", (STAGE2_PER_STEP, S2_RUN_STEPS), (PROBE_PER_BATCH, n_probe))
+        tokenizer_equals_stage_one(res2.model, source, "after")
+        moved = not torch.equal(before.state_dict()["proj_head.weight"],
+                                res2.model.state_dict()["proj_head.weight"])
+        probe = res2.probes[0]
+        print(f"[chain] Stage II: {res2.step} steps, loss {res2.epoch_loss}, student moved "
+              f"{moved}; SVM probe accuracy {probe.acc:.4f} % ({n_probe} batches of "
+              f"{PROBE_BATCH}), {probe.svm_iters} Newton iterations, relative gradient norm "
+              f"{probe.svm_rel_grad:.3e} (tolerance 1e-6); phase 21 "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        if not (moved and all(map(math.isfinite, res2.epoch_loss)) and math.isfinite(probe.acc)
+                and probe.svm_rel_grad <= 1e-6):
+            fail("Stage-II run_net: student, loss or probe wrong")
+        for name in ("ckpt-best", "ckpt-last"):
+            if not os.path.exists(ckpt_lib.ckpt_path(s2, name)):
+                fail(f"Stage-II run_net: no {name}")
+        del before
+
+        # -- 22. probe features through the kernels and through the plain path
+        labels = np.arange(PROBE_BATCH) % PROBE_CLASSES
+        pclouds = np.stack([synthetic_cloud(i, N_IN, PROBE_CLASSES)[0]
+                            for i in range(PROBE_BATCH)])
+        batch = [(None, None, (pclouds, labels))]
+        vnp = int(pcfg.dataset.val.others.npoints)
+        G2 = int(pcfg.model.dvae_config.num_group)
+        feats_k = counted("probe features", lambda: runner_pretrain.probe_features(
+            res2.model, batch, vnp)[0])
+        expect("probe features", (PROBE_PER_BATCH, 1))
+        with patched(ops, furthest_point_sample=ops.furthest_point_sample_ref,
+                     gather_coords=ops.gather_points, group_points=ops.group_points_ref):
+            feats_p = counted("probe features, plain", lambda: runner_pretrain.probe_features(
+                res2.model, batch, vnp)[0])
+        if any(runs["probe features, plain"].values()):
+            fail("the plain-version probe features launched kernels")
+        with torch.inference_mode():
+            pc = torch.from_numpy(pclouds).to(dev)
+            k, r = ops.furthest_point_sample(pc, vnp), ops.furthest_point_sample_ref(pc, vnp)
+            swaps = tie_swaps(k, r)
+            q = ops.gather_points(pc, r)
+            swaps += tie_swaps(ops.furthest_point_sample(q, G2),
+                               ops.furthest_point_sample_ref(q, G2))
+        diff = float(np.abs(feats_k - feats_p).max())
+        apart = float(np.abs(feats_k[1:] - feats_k[:-1]).max(axis=1).min())
+        errs["probe features"] = diff
+        tol = 0.0 if swaps == 0 else FEAT_ATOL
+        print(f"[chain] probe features {feats_k.shape} through the kernels against the plain "
+              f"path: max |diff| {diff} (tolerance {tol}: {swaps} FPS tie swaps); neighbouring "
+              f"clouds' rows at least {apart} apart", flush=True)
+        if not (np.isfinite(feats_k).all() and diff <= tol and apart > 0):
+            fail("probe features: kernel path and plain path disagree")
+
+        # -- 23. one finetune step from the Stage-II checkpoint ------------------
+        t_phase = time.perf_counter()
+        best2 = ckpt_lib.ckpt_path(s2, "ckpt-best")
+        fcfg = runner_finetune.finetune_config(CONFIG)
+        st = runner_finetune.build_state(fcfg, 1, 0, dev, ckpts=best2)
+        saved = load_state_dict(best2)
+        student = [k for k in saved if k.startswith("ACT_encoder.")
+                   and not k.startswith("ACT_encoder.cls_head.")]  # its pretraining head
+        lifted = ckpt_lib.strip_student_prefix(saved)
+        state = st.model.state_dict()
+        merged = [n for n, v in lifted.items()
+                  if n in state and tuple(v.shape) == tuple(state[n].shape)]
+        same = all(torch.equal(state[n].cpu(), lifted[n].to(state[n].dtype)) for n in merged)
+        run = counted("finetune step from Stage II", lambda: runner_finetune.run_finetune_steps(
+            CONFIG, 1, device=dev, state=st))
+        expect("finetune step from Stage II", (FINETUNE_PER_STEP, 1))
+        print(f"[chain] finetune from {os.path.basename(best2)}: {len(merged)} tensors merged "
+              f"of the student's {len(student)} (prefix lifted), equal to the checkpoint's before "
+              f"the step: {same}; one "
+              f"step, loss {run.losses[0]:.6f}; phase 23 {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        if not (same and len(merged) == len(student) and math.isfinite(run.losses[0])):
+            fail("finetune from the Stage-II checkpoint: merge or step wrong")
+        del st, run, res1, res1b, res2
+
+        # -- 24. the loader: clouds/s -------------------------------------------
+        rng = np.random.default_rng(0)
+        data, pcdir = os.path.join(tmp, "ShapeNet-55"), os.path.join(tmp, "shapenet_pc")
+        os.makedirs(data)
+        os.makedirs(pcdir)
+        names = [f"{i % 55:08d}-m{i:04d}.npy" for i in range(LOADER_CLOUDS)]
+        for n in names:
+            np.save(os.path.join(pcdir, n), rng.normal(size=(N_IN, 3)).astype(np.float32))
+        with open(os.path.join(data, "train.txt"), "w") as f:
+            f.write("".join(n + "\n" for n in names))
+        npts = int(pcfg.dataset.train.others.npoints)
+        node = ConfigDict({"_base_": dict(NAME="ShapeNet", N_POINTS=N_IN, DATA_PATH=data,
+                                          PC_PATH=pcdir),
+                           "others": dict(subset="train", npoints=npts, bs=LOADER_BATCH)})
+        rates = {}
+        for workers in (0, LOADER_WORKERS):
+            loader = builder.dataset_builder(node, 0, workers)[1]
+            try:
+                list(loader)  # warm: the file cache, the pool
+                t0, n = time.perf_counter(), 0
+                for epoch in (1, 2):
+                    loader.set_epoch(epoch)
+                    n += sum(len(b[2]) for b in loader)
+                rates[f".npy, {workers} workers"] = n / (time.perf_counter() - t0)
+            finally:
+                loader.close()
+        synth = builder.dataset_builder(ConfigDict(
+            {"_base_": dict(NAME="ShapeNet", N_POINTS=N_IN, DATA_PATH="data/absent",
+                            PC_PATH="data/absent"),
+             "others": dict(subset="train", npoints=npts, whole=True,
+                            bs=int(pcfg.total_bs))}), 0, LOADER_WORKERS)[1]
+        t0 = time.perf_counter()
+        n = sum(len(b[2]) for _, b in zip(range(2), synth))
+        rates["synthetic, in process"] = n / (time.perf_counter() - t0)
+        print(f"[time] loader ({N_IN}-point clouds to {npts}, batches of {LOADER_BATCH}; "
+              "at 0 workers built in process, with no prefetch thread; "
+              f"{LOADER_CLOUDS} .npy clouds, two epochs after a warm one; synthetic: 2 "
+              f"batches of {int(pcfg.total_bs)}): " + ", ".join(
+                  f"{k} {v:.1f} clouds/s" for k, v in rates.items()), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs, errs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1370,6 +1731,11 @@ def main() -> None:
         f"{k} {dv if dv is None else round(dv, 5)}, {c:.5f}" for k, (dv, c) in stage_ms.items()),
         flush=True)
 
+    # -- 19. the trainers' new launch shapes, timed while the profiler's windows
+    # are still whole (late windows of a process have come back incomplete)
+    chain_rows, c_errs = chain_shapes(dev, measure)
+    errs.update(c_errs)
+
     # -- 6-10. Stage-II pretraining ----------------------------------------------
     stage2, s2_errs, s2_launches = stage_two(dev, device_ms, kernel_events, measure)
     errs.update(s2_errs)
@@ -1380,6 +1746,9 @@ def main() -> None:
     # -- 15-18. classification finetune, validation and the vote ------------------
     ft_rows, ft_errs, ft_launches = finetune(dev, device_ms, kernel_events, measure)
     errs.update(ft_errs)
+    # -- 20-24. the Stage-I -> Stage-II -> finetune chain and the loader ---------
+    chain_runs, chain_errs = chain(dev)
+    errs.update(chain_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -1398,6 +1767,7 @@ def main() -> None:
             "replaces": replaces, "path": path, "launches": path_launches[kernel],
             "launches_per_step": per_step, "launches_serve_b32": launches[kernel],
             "launches_finetune": ft_launches[kernel],
+            "launches_chain": {tag: n[kernel] for tag, n in chain_runs.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -1412,7 +1782,8 @@ def main() -> None:
                            for where, group in ((path, rows), ("serve", shapes.get(kernel, [])),
                                                 ("autoencoder", [] if by_kernel is stage1
                                                  else stage1.get(kernel, [])),
-                                                ("finetune", ft_rows.get(kernel, [])))
+                                                ("finetune", ft_rows.get(kernel, [])),
+                                                ("chain", chain_rows.get(kernel, [])))
                            for r in group],
         }
 

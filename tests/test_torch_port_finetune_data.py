@@ -34,7 +34,7 @@ from act_tpu.utils.meters import AverageMeter as JAverageMeter
 
 from act_tpu_torch import ops
 from act_tpu_torch.datasets import DATASETS, DataLoader, build_dataset_from_cfg
-from act_tpu_torch.datasets.pointcloud_datasets import farthest_point_sample_np
+from act_tpu_torch.datasets.pointcloud_datasets import farthest_point_sample_np, shuffle_rows
 from act_tpu_torch.engine import weights
 from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine import runner_finetune as runner
@@ -88,6 +88,17 @@ def test_synthetic_datasets_match_jax(name, subset):
         (wt, wm, (wp, wl)), (gt, gm, (gp, gl)) = want[i], got[i]
         assert (gt, gm, gl) == (wt, wm, wl) and isinstance(gl, int)
         assert gp.dtype == np.float32 and np.array_equal(gp, wp), (i, gt)
+
+
+@pytest.mark.parametrize("shape", [(8192, 3), (8192, 6), (2048, 3), (2, 3), (1, 6)])
+def test_shuffle_rows_is_generator_shuffle(shape):
+    """The datasets' row shuffle leaves the rows where ``Generator.shuffle``
+    does and the generator in the same state."""
+    pts = np.random.default_rng(1).normal(size=shape).astype(np.float32)
+    want, r1, r2 = pts.copy(), np.random.default_rng(5), np.random.default_rng(5)
+    r1.shuffle(want)
+    got = shuffle_rows(r2, pts)
+    assert np.array_equal(got, want) and np.array_equal(r1.random(4), r2.random(4))
 
 
 def test_loader_order_and_length():

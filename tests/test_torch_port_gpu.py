@@ -695,3 +695,73 @@ def test_small_finetune_step_on_the_card(cuda):
     acc = validate(st.model, batches, 128, cuda)
     assert np.isfinite(acc.acc) and np.isfinite(acc.macc)
     assert np.isfinite(validate_vote(st.model, batches[:1], 128, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the Stage-I / Stage-II trainers' new launch shapes and the loader's workers
+# ---------------------------------------------------------------------------
+
+def test_probe_resample_launch_shapes_match_plain(cuda):
+    """The SVM probe's resample at B=256: FPS (256, 8192)->1024 equal up to
+    tie swaps with the same set, the gather of the picks bit-equal, then the
+    grouping's FPS (256, 1024)->64 and its gathers by (256, 64) and by
+    (256, 2048) bit-equal."""
+    clouds = cloud(11, 256, 8192, 3, device=cuda)
+    k, r = ops.furthest_point_sample(clouds, 1024), ops.furthest_point_sample_ref(clouds, 1024)
+    assert tie_swaps(k, r) >= 0 and torch.equal(k.sort(-1).values, r.sort(-1).values)
+    pts = ops.gather_coords(clouds, r)
+    assert torch.equal(pts, ops.gather_points(clouds, r))
+    kc, rc = ops.furthest_point_sample(pts, 64), ops.furthest_point_sample_ref(pts, 64)
+    assert tie_swaps(kc, rc) >= 0 and torch.equal(kc.sort(-1).values, rc.sort(-1).values)
+    nbr = ops.k_smallest_ref(ops.square_distance(ops.gather_points(pts, rc), pts)
+                             .reshape(256 * 64, 1024), 32)[1].reshape(256, 64 * 32)
+    for idx in (rc, nbr):
+        assert torch.equal(ops.gather_coords(pts, idx), ops.gather_points(pts, idx))
+
+
+def test_probe_k_smallest_shape_matches_plain(cuda):
+    """k-smallest (16384, 1024) k=32, the probe's group kNN at B=256:
+    indices exact, values bit-equal."""
+    d = cloud(12, 16384, 1024, device=cuda).abs()
+    (kv, ki), (rv, ri) = ops.k_smallest(d, 32), ops.k_smallest_ref(d, 32)
+    assert torch.equal(ki, ri) and torch.equal(kv, rv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gumbel_kernel_at_one_validation_cloud(cuda, dtype):
+    """The Gumbel kernel at one Stage-I validation cloud's logits, (64, 8192):
+    ids equal the plain version's."""
+    logits = cloud(13, 64, 8192, device=cuda).to(dtype)
+    for words in ([0, 0], [7, -3]):
+        seed = torch.tensor(words, dtype=torch.int32, device=cuda)
+        assert torch.equal(ops.gumbel_argmax(logits, seed), ops.gumbel_argmax_ref(logits, seed))
+
+
+def test_worker_pool_after_cuda_init(cuda, tmp_path):
+    """Forked loader workers after the card is in use: they run numpy only
+    and return the batches of one process, each cloud the same points."""
+    from act_tpu_torch.datasets import DataLoader, build_dataset_from_cfg
+    torch.ones(4, device=cuda).sum().item()  # the CUDA context exists before the fork
+    rng = np.random.default_rng(0)
+    data, pc = tmp_path / "ShapeNet-55", tmp_path / "shapenet_pc"
+    data.mkdir()
+    pc.mkdir()
+    names = [f"0269115{i % 3}-m{i:03d}.npy" for i in range(12)]
+    for n in names:
+        np.save(pc / n, rng.normal(size=(256, 3)).astype(np.float32))
+    (data / "train.txt").write_text("".join(n + "\n" for n in names))
+    node = ConfigDict({"_base_": dict(NAME="ShapeNet", N_POINTS=256, DATA_PATH=str(data),
+                                      PC_PATH=str(pc)),
+                       "others": dict(subset="train", npoints=256)})
+    one = list(DataLoader(build_dataset_from_cfg(node), 4, shuffle=True, seed=2))
+    pool = DataLoader(build_dataset_from_cfg(node), 4, shuffle=True, seed=2, num_workers=2)
+    try:
+        got = list(pool)
+    finally:
+        pool.close()
+    assert len(got) == len(one) == 3
+    for (gt, _, gp), (wt, _, wp) in zip(got, one):
+        assert list(gt) == list(wt)
+        for a, b in zip(gp, wp):
+            np.testing.assert_allclose(a[np.lexsort(a.T)], b[np.lexsort(b.T)], atol=1e-6)
+    assert torch.cuda.is_available() and torch.ones(2, device=cuda).sum().item() == 2.0
