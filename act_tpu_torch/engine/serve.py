@@ -1,8 +1,10 @@
-"""The serving forward: build a classifier from its YAML and run it.
+"""The serving forwards: a classifier built from its YAML, and the part and
+semantic segmentation models.
 
-Counterpart of ``act_tpu/engine/export.py:36-71``. Where the JAX package
-exports a jitted artifact, the port serves the eager module directly: FPS
-resample of the request cloud to ``npoints``, then ``PointTransformer``.
+Counterpart of ``act_tpu/engine/export.py:36-71, 189-247``. Where the JAX
+package exports a jitted artifact, the port serves the eager module directly:
+the classifier takes an FPS resample of the request cloud to ``npoints``, the
+segmentation models take clouds of exactly ``npoint`` points.
 """
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ from typing import Callable, Mapping, Optional, Union
 
 import torch
 
+from act_tpu_torch.engine.weights import seg_reference_keys
 from act_tpu_torch.models import MODELS
+from act_tpu_torch.models.segmentation import NUM_SHAPE_CATEGORIES
 from act_tpu_torch.ops import furthest_point_sample, gather_coords, resolve_device
 from act_tpu_torch.utils.config import ConfigDict, as_cfg, cfg_from_yaml_file
 
@@ -61,24 +65,57 @@ def load_model(config, ckpt_path: Optional[Checkpoint] = None, seed: int = 0,
 
 
 def build_infer_fn(model: torch.nn.Module, npoints: int, with_fps: bool = True
-                   ) -> Callable[[object], torch.Tensor]:
-    """The serving forward: (B, N_in, 3) points -> (B, cls_dim) f32 logits on
-    the model's device.
+                   ) -> Callable[..., torch.Tensor]:
+    """The serving forward: (B, N_in, 3) points -> the model's f32 output on
+    its device ((B, cls_dim) logits, or (B, npoints, C) log-probs of a
+    segmentation model), under ``torch.inference_mode()``.
 
     ``with_fps`` prepends the reference eval protocol's FPS resample to
     ``npoints`` (runner_finetune.infer_step); with it off the input must
-    already be (B, npoints, 3)."""
+    already be (B, npoints, 3), as in the segmentation artifact
+    (``export.py:241-247``). A part-segmentation model (``with_label``) also
+    takes the (B, 16) object-category one-hot."""
     device = next(model.parameters()).device
+    with_label = getattr(model, "with_label", False)
 
-    def infer(pts) -> torch.Tensor:
+    def infer(pts, cls_label=None) -> torch.Tensor:
         pts = torch.as_tensor(pts, dtype=torch.float32).to(device).contiguous()
         if pts.dim() != 3 or pts.shape[-1] != 3:
             raise ValueError(f"points must be (B, N, 3), got {tuple(pts.shape)}")
         if not with_fps and pts.shape[1] != npoints:
             raise ValueError(f"without FPS the input must have npoints={npoints} "
                              f"points, got {pts.shape[1]}")
+        inputs = (pts,)
+        if with_label:
+            lab = torch.as_tensor(cls_label, dtype=torch.float32).to(device)
+            if tuple(lab.shape) != (pts.shape[0], NUM_SHAPE_CATEGORIES):
+                raise ValueError(f"cls_label must be (B, {NUM_SHAPE_CATEGORIES}) one-hot, "
+                                 f"got {tuple(lab.shape)}")
+            inputs = (pts, lab)
         with torch.inference_mode():
             if with_fps:
-                pts = gather_coords(pts, furthest_point_sample(pts, npoints))
-            return model(pts)
+                inputs = (gather_coords(pts, furthest_point_sample(pts, npoints)),) + inputs[1:]
+            return model(*inputs)
     return infer
+
+
+SEG_TASKS = {"partseg": ("PartSegTransformer", 50), "semseg": ("SemSegTransformer", 13)}
+
+
+def seg_config(task: str, num_group: int = 128, dtype: str = "bf16") -> ConfigDict:
+    """The model config of a segmentation ``task`` ('partseg' or 'semseg') as
+    the JAX runners and ``export_segmentation`` build it: 50 or 13 classes,
+    ``num_group`` groups of 32 points, compute ``dtype``."""
+    if task not in SEG_TASKS:
+        raise ValueError(f"task must be partseg|semseg, got {task!r}")
+    name, cls_dim = SEG_TASKS[task]
+    return ConfigDict(dict(NAME=name, cls_dim=cls_dim, num_group=int(num_group),
+                           group_size=32, dtype=dtype))
+
+
+def load_seg_model(task: str, ckpt_path: Optional[Checkpoint] = None, num_group: int = 128,
+                   dtype: str = "bf16", seed: int = 0, device="cuda") -> torch.nn.Module:
+    """``load_model`` of the segmentation model of ``task``; a checkpoint may
+    carry the reference's ``_cls`` head keys or the released ones."""
+    ckpt = None if ckpt_path is None else seg_reference_keys(load_state_dict(ckpt_path))
+    return load_model({"model": seg_config(task, num_group, dtype)}, ckpt, seed, device)

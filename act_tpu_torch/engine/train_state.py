@@ -1,8 +1,10 @@
-"""The Stage-II pretrain, the Stage-I autoencoder and the finetune train steps.
+"""The Stage-II pretrain, the Stage-I autoencoder, the finetune and the
+segmentation train steps.
 
 Counterpart of ``act_tpu/engine/train_state.py:54-59, 107-170, 209-283``
 (``step_rngs``, ``make_pretrain_step``, ``make_autoencoder_step``,
-``make_finetune_step``): loss in
+``make_finetune_step``) and of the train steps of
+``act_tpu/engine/runner_segmentation.py:209-225, 340-356``: loss in
 training mode (BatchNorm running statistics update as well, frozen ones
 included), backward, then AdamW at the scheduled lr. Every random draw of a
 step comes from one generator per named stream, seeded from (seed, step,
@@ -20,6 +22,7 @@ from torch import nn
 from act_tpu_torch.datasets.synthetic import SYNTHETIC_LEN, synthetic_batch
 from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.models.point_transformer import get_loss_acc
+from act_tpu_torch.models.segmentation import nll_seg_loss
 
 STREAMS = ("gumbel", "mask", "dropout", "droppath", "augment")
 
@@ -117,6 +120,26 @@ def finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     loss.backward()
     _update(optimizer, schedule(step), grad_norm_clip)
     return loss.detach(), acc.detach()
+
+
+def seg_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+             schedule: Callable[[int], float], pts: torch.Tensor, target: torch.Tensor,
+             step: int, rngs: Dict[str, torch.Generator],
+             cls_label_one_hot: Optional[torch.Tensor] = None,
+             weight: Optional[torch.Tensor] = None, grad_norm_clip: float = 10.0
+             ) -> torch.Tensor:
+    """One segmentation train step on the (B, N, 3) batch ``pts`` and its
+    (B, N) labels: the train-mode forward (with the (B, 16) one-hot for part
+    segmentation), the NLL (class-weighted with ``weight``), backward, the
+    clip, AdamW at the scheduled lr. Returns the loss, detached, still on the
+    device."""
+    model.train()
+    optimizer.zero_grad(set_to_none=False)
+    inputs = (pts,) if cls_label_one_hot is None else (pts, cls_label_one_hot)
+    loss = nll_seg_loss(model(*inputs, rngs=rngs), target, weight)
+    loss.backward()
+    _update(optimizer, schedule(step), grad_norm_clip)
+    return loss.detach()
 
 
 def _update(optimizer: torch.optim.Optimizer, lr: float,

@@ -258,3 +258,47 @@ def distillation_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
     if "cls_pos" in params:
         sd["cls_pos"] = _t(params["cls_pos"])
     return sd
+
+
+def seg_state_dict(params: Mapping, batch_stats: Mapping, with_label: bool) -> StateDict:
+    """A JAX ``PartSegTransformer`` (``with_label``) or ``SemSegTransformer``'s
+    (params, batch_stats) -> the port's state dict, the inverse of
+    ``torch_convert.seg_rules`` (``torch_convert.py:444-494``); unrolled or
+    scanned stacks."""
+    bb, hd = params["backbone"], params["head"]
+    bbs, hds = batch_stats["backbone"], batch_stats["head"]
+    sd = encoder_state(bb["encoder"], bbs["encoder"], "encoder")
+    sd.update(pos_embed_state(bb["pos_embed"], "pos_embed"))
+    sd.update(blocks_state(bb["blocks"], "blocks.blocks"))
+    sd.update(norm_state(bb["norm"], "norm"))
+    prop, prop_s = hd["propagation_0"], hds["propagation_0"]
+    for i in (0, 1):
+        sd.update(dense_state(prop[f"conv{i}"], f"propagation_0.mlp_convs.{i}", conv=True))
+        sd.update(bn_state(prop[f"bn{i}"], prop_s[f"bn{i}"], f"propagation_0.mlp_bns.{i}"))
+    for j in (1, 2, 3):
+        sd.update(dense_state(hd[f"convs{j}"], f"convs{j}", conv=True))
+    for j in (1, 2):
+        sd.update(bn_state(hd[f"bns{j}"], hds[f"bns{j}"], f"bns{j}"))
+    if with_label:
+        sd.update(dense_state(hd["label_conv"], "label_conv.0", conv=True))
+        sd.update(bn_state(hd["label_bn"], hds["label_bn"], "label_conv.1"))
+    return sd
+
+
+SEG_HEAD_KEYS = ("propagation_0", "convs1", "convs2", "convs3", "bns1", "bns2", "label_conv")
+
+
+def seg_reference_keys(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """A segmentation state dict with the reference's ``_cls`` head keys
+    (``propagation_0_cls.*``, ``convs1_cls.*``, ``label_conv_cls.*``, the
+    layout of the current reference code) renamed to the released
+    checkpoints' keys that the port uses, as the reference's
+    ``load_model_from_ckpt_withrename`` maps between them
+    (semantic_segmentation/models/pt.py:280-300). Other keys pass through."""
+    out = {}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        if head.endswith("_cls") and head[:-4] in SEG_HEAD_KEYS:
+            k = f"{head[:-4]}.{rest}"
+        out[k] = v
+    return out

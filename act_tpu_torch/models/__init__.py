@@ -3,8 +3,9 @@ from act_tpu_torch.models.act import ACT_PointDistillation, VisableOnlyMaskTrans
 from act_tpu_torch.models.build import MODELS
 from act_tpu_torch.models.dvae import ACTPromptedDiscreteVAEwithVIT, DiscreteVAE
 from act_tpu_torch.models.point_transformer import Mlp3Head, PointTransformer
+from act_tpu_torch.models.segmentation import PartSegTransformer, SemSegTransformer
 from act_tpu_torch.models.teacher import PromptedTeacher
 
 __all__ = ["MODELS", "ACT_PointDistillation", "ACTPromptedDiscreteVAEwithVIT",
-           "DiscreteVAE", "Mlp3Head", "PointTransformer", "PromptedTeacher",
-           "VisableOnlyMaskTransformer"]
+           "DiscreteVAE", "Mlp3Head", "PartSegTransformer", "PointTransformer",
+           "PromptedTeacher", "SemSegTransformer", "VisableOnlyMaskTransformer"]

@@ -6,12 +6,13 @@ from act_tpu_torch.ops.fps import furthest_point_sample
 from act_tpu_torch.ops.gather import gather_coords
 from act_tpu_torch.ops.group import (fps_subsample, fps_subsample_by, graph_feature_idx,
                                      group_points, knn)
+from act_tpu_torch.ops.interpolate import three_nn_interpolate
 from act_tpu_torch.ops.reference import (chamfer_bwd_ref, chamfer_min_ref, chamfer_ref,
                                          furthest_point_sample_ref,
                                          gather_points, graph_feature_idx_ref,
                                          group_points_ref, gumbel_argmax_ref,
                                          gumbel_perturbed_ref, k_smallest_ref,
-                                         knn_ref, square_distance)
+                                         knn_ref, square_distance, three_nn_interpolate_ref)
 from act_tpu_torch.ops.sampling import draw_seed, gumbel_argmax
 from act_tpu_torch.ops.topk import k_smallest
 
@@ -24,5 +25,5 @@ __all__ = [
     "furthest_point_sample_ref", "gather_points", "graph_feature_idx_ref",
     "group_points_ref", "gumbel_argmax_ref", "gumbel_perturbed_ref",
     "k_smallest_ref", "knn_ref", "square_distance", "draw_seed",
-    "gumbel_argmax", "k_smallest",
+    "gumbel_argmax", "k_smallest", "three_nn_interpolate", "three_nn_interpolate_ref",
 ]

@@ -79,6 +79,39 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, 1, flat).reshape(*idx.shape, C)
 
 
+def nn_blend(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor, known_feats: torch.Tensor,
+             idx: torch.Tensor) -> torch.Tensor:
+    """The inverse-distance blend of the known features at the neighbour
+    indices ``idx`` (B, N, k): weights ``1 / (d + 1e-8)`` normalised over k,
+    d the squared distances recomputed from ``idx`` in the difference form
+    ``sum((x - y)**2)`` (as ``act_tpu/ops/interpolate.py:42-50``), so that
+    autograd reaches both coordinate arguments and a query on a center gets
+    an exact 0; the sum of the k gathered feature rows runs in f32 and comes
+    out in ``known_feats``' dtype. (B, N, 3), (B, S, 3), (B, S, C) -> (B, N, C)."""
+    B, N, k = idx.shape
+    S, C = known_feats.shape[1:]
+    d = ((unknown_xyz[:, :, None, :] - gather_points(known_xyz, idx)) ** 2).sum(-1)
+    w = 1.0 / (d + 1e-8)
+    w = w / w.sum(-1, keepdim=True)  # (B, N, k) f32
+    rows = (idx.long() + S * torch.arange(B, device=idx.device)[:, None, None]).reshape(B * N, k)
+    table = known_feats.reshape(B * S, C)
+    out = None
+    for j in range(k):  # one gathered (B*N, C) feature row set at a time
+        term = table.index_select(0, rows[:, j]).float() * w.reshape(B * N, k)[:, j, None]
+        out = term if out is None else out + term
+    return out.reshape(B, N, C).to(known_feats.dtype)
+
+
+def three_nn_interpolate_ref(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                             known_feats: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """``ops.three_nn_interpolate`` from the plain versions alone
+    (``act_tpu/ops/reference.py:126``): the k nearest known points from
+    ``knn_ref``, then ``nn_blend``. unknown_xyz (B, N, 3), known_xyz (B, S, 3),
+    known_feats (B, S, C) -> (B, N, C)."""
+    _, idx = knn_ref(known_xyz.detach(), unknown_xyz.detach(), k)
+    return nn_blend(unknown_xyz, known_xyz, known_feats, idx)
+
+
 def group_points_ref(xyz: torch.Tensor, num_group: int, group_size: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ops.group_points`` from the plain versions alone: FPS centers, kNN,

@@ -1,19 +1,24 @@
-"""Minimal HTTP inference server for the port's classifier.
+"""Minimal HTTP inference server for the port's classifier and segmentation models.
 
 Stdlib only (http.server), the same contract as ``tools/serve_http.py`` for
-the classifier kind, but run from a config and an optional reference
-checkpoint instead of an exported artifact:
+the classifier and segmentation kinds, but run from a config (or a task) and
+an optional reference checkpoint instead of an exported artifact:
 
   python -m act_tpu_torch.serve_http \
       --config cfgs/finetune_classification/full/finetune_modelnet.yaml \
       [--ckpts model.pth] [--device cuda] --port 8080
+  python -m act_tpu_torch.serve_http --task partseg|semseg [--npoint 2048] \
+      [--num_group 128] [--ckpts model.pth] [--device cuda] --port 8080
 
   POST /predict   {"points": [[[x,y,z], ...], ...]}   # (B, N, 3)
-      -> {"logits": [...], "argmax": [...]}
+      -> classifier:   {"logits": [...], "argmax": [...]}
+         segmentation: {"labels": [...]}                # (B, N) per-point classes
+             (+ "log_probs" with "return_log_probs": true; part segmentation
+              also requires "cls_label": (B,) ids or a (B, 16) one-hot)
   GET  /healthz   -> {"ok": true, ...meta}
 
-Malformed requests (wrong shape, non-finite coordinates) get 400; dispatch
-to the model is serialized by a lock.
+Malformed requests (wrong shape, non-finite coordinates, a category id
+outside [0, 16)) get 400; dispatch to the model is serialized by a lock.
 """
 from __future__ import annotations
 
@@ -26,6 +31,24 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
 import numpy as np
+
+
+def cls_label_one_hot(label, batch: int, n_cat: int) -> np.ndarray:
+    """A request's ``cls_label``, (B,) category ids or a (B, n_cat) one-hot,
+    as a (B, n_cat) f32 one-hot; ids outside [0, n_cat) and other shapes
+    raise ValueError (``tools/serve_http.py:61-82``)."""
+    lab = np.asarray(label)
+    if lab.ndim == 1:  # category ids -> one-hot
+        ids = lab.astype(np.int64)
+        if ((ids < 0) | (ids >= n_cat)).any():
+            # negatives would silently wrap through fancy indexing
+            raise ValueError(f"cls_label ids must be in [0, {n_cat}), "
+                             f"got {ids.min()}..{ids.max()}")
+        lab = np.eye(n_cat, dtype=np.float32)[ids]
+    if lab.shape != (batch, n_cat):
+        raise ValueError(f"cls_label must be (B,) ids or (B, {n_cat}) one-hot, "
+                         f"got {lab.shape}")
+    return lab.astype(np.float32)
 
 
 def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
@@ -56,8 +79,12 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
                     raise ValueError(f"points must be (B, N, 3), got {pts.shape}")
                 if not np.isfinite(pts).all():
                     raise ValueError("points must be finite (no NaN or inf)")
+                extra = ()
+                if meta.get("num_categories"):  # part segmentation
+                    extra = (cls_label_one_hot(req["cls_label"], pts.shape[0],
+                                               int(meta["num_categories"])),)
                 with lock:  # one model, serialized dispatch
-                    out = fn(pts).float().cpu().numpy()
+                    out = fn(pts, *extra).float().cpu().numpy()
             except (ValueError, KeyError, TypeError) as e:  # client errors
                 self._send(400, {"error": f"{type(e).__name__}: {e}"})
                 return
@@ -65,8 +92,14 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
                 traceback.print_exc(file=sys.stderr)
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            self._send(200, {"logits": out.tolist(),
-                             "argmax": out.argmax(-1).tolist()})
+            if meta.get("kind") == "segmentation":
+                # per-point labels; the (B, N, C) log-probs only on request
+                resp = {"labels": out.argmax(-1).tolist()}
+                if req.get("return_log_probs"):
+                    resp["log_probs"] = out.tolist()
+            else:
+                resp = {"logits": out.tolist(), "argmax": out.argmax(-1).tolist()}
+            self._send(200, resp)
 
         def log_message(self, fmt, *args):  # quiet default access log
             pass
@@ -77,15 +110,38 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
 def make_server(fn: Callable, meta: dict, host: str = "127.0.0.1",
                 port: int = 8080) -> ThreadingHTTPServer:
     """An HTTP server answering with ``fn`` ((B, N, 3) numpy -> logits
-    tensor); port 0 takes a free one (``server.server_address[1]``)."""
+    tensor; for ``meta['kind'] == 'segmentation'`` log-probs, with the (B,
+    16) one-hot as a second argument where ``meta['num_categories']`` is
+    set); port 0 takes a free one (``server.server_address[1]``)."""
     return ThreadingHTTPServer((host, port),
                                make_handler(fn, meta, threading.Lock()))
 
 
-def serve(config, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080,
-          device="cuda", seed: int = 0) -> ThreadingHTTPServer:
-    from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_model
+def seg_meta(model, task: str, npoint: int) -> dict:
+    """The ``/healthz`` meta of a segmentation server; ``num_categories``
+    (part segmentation) makes the handler require a ``cls_label``."""
+    from act_tpu_torch.models.segmentation import NUM_SHAPE_CATEGORIES
 
+    meta = {"kind": "segmentation", "task": task, "npoint": int(npoint),
+            "cls_dim": int(model.cls_dim), "device": str(next(model.parameters()).device)}
+    if model.with_label:
+        meta["num_categories"] = NUM_SHAPE_CATEGORIES
+    return meta
+
+
+def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080,
+          device="cuda", seed: int = 0, task=None, npoint: int = 2048,
+          num_group: int = 128) -> ThreadingHTTPServer:
+    """A server of the classifier of ``config`` (requests resampled to its
+    ``npoints`` by FPS) or, with ``task`` ('partseg' or 'semseg'), of that
+    segmentation model on clouds of exactly ``npoint`` points."""
+    from act_tpu_torch.engine.serve import (build_infer_fn, load_config, load_model,
+                                            load_seg_model)
+
+    if task is not None:
+        model = load_seg_model(task, ckpt_path, num_group=num_group, seed=seed, device=device)
+        return make_server(build_infer_fn(model, int(npoint), with_fps=False),
+                           seg_meta(model, task, npoint), host, port)
     cfg = load_config(config)
     model = load_model(cfg, ckpt_path, seed=seed, device=device)
     npoints = int(cfg.npoints)
@@ -96,16 +152,23 @@ def serve(config, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080,
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--config", required=True, help="finetune YAML")
+    p.add_argument("--config", default=None, help="finetune YAML (the classifier)")
+    p.add_argument("--task", choices=("partseg", "semseg"), default=None,
+                   help="serve a segmentation model instead of a classifier")
+    p.add_argument("--npoint", type=int, default=2048, help="points a segmentation cloud")
+    p.add_argument("--num_group", type=int, default=128)
     p.add_argument("--ckpts", default=None, help="reference .pth (else seeded weights)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     args = p.parse_args()
-    server = serve(args.config, args.ckpts, args.host, args.port, args.device,
-                   args.seed)
-    print(f"serving {args.config} on http://{args.host}:{server.server_address[1]}")
+    if (args.config is None) == (args.task is None):
+        p.error("give one of --config (a classifier) and --task (segmentation)")
+    server = serve(args.config, args.ckpts, args.host, args.port, args.device, args.seed,
+                   args.task, args.npoint, args.num_group)
+    print(f"serving {args.config or args.task} on "
+          f"http://{args.host}:{server.server_address[1]}")
     server.serve_forever()
 
 

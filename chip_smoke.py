@@ -42,6 +42,17 @@ version at the shapes the path gives it:
   through the kernels against the plain path, one finetune step from the
   Stage-II checkpoint, and the loader's clouds/s; checkpoints and data under
   a temporary directory, deleted afterwards;
+- part and semantic segmentation (``SegBackbone`` 384 x 12, G=128 groups of
+  32, clouds of 2048 points, bf16, seeded weights, synthetic ShapeNetPart and
+  S3DIS data): FPS, k-smallest (k=32 and the 3-NN's k=3) and the gathers at
+  the part-seg (B=16), sem-seg (B=32) and whole-scene (16 blocks) shapes and
+  ``three_nn_interpolate``, each against its plain version; both models'
+  eval forwards through the kernels and through the plain versions, the
+  request times and ``serve_http``'s segmentation kind; one part-seg
+  train-mode loss and backward through both; ``run_partseg`` and
+  ``run_semseg`` for a few steps and an evaluation each with ckpt-best
+  reloaded; ``whole_scene_eval`` with the blocks batched against one block a
+  forward;
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -55,6 +66,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -148,6 +160,28 @@ LOADER_CLOUDS, LOADER_BATCH, LOADER_WORKERS = 256, 32, 8  # the .npy tree of pha
 # through the same bf16 products); a swap reorders the groups, and bf16 sums
 # in another order stay within FEAT_ATOL
 FEAT_ATOL = 0.05
+# the segmentation path (phases 25-28): part seg on 16 clouds, sem seg on 32
+# blocks, the whole-scene vote on 16 blocks, 2048 points each, G=128 x M=32
+SEG_NPOINT, SEG_GROUPS, SEG_GROUP_SIZE = 2048, 128, 32
+SEG_PART_B, SEG_SEM_B, SEG_BLOCKS = 16, 32, 16
+# a forward (and a train step): group_points' FPS, k=32 kNN and two gathers,
+# then the 3-NN's k=3 k-smallest
+SEG_PER_FORWARD = {"fps": 1, "k_smallest": 2, "gather": 2}
+# bf16 eval log-probs, kernel path against plain path: bit-equal unless an FPS
+# tie swap reorders the groups (then bf16 sums in another order)
+SEG_LOGP_ATOL = 0.05
+SEG_GRAD_KEYS = ("convs3.weight", "convs1.weight", "label_conv.0.weight",
+                 "propagation_0.mlp_convs.0.weight", "blocks.blocks.11.mlp.fc2.weight",
+                 "blocks.blocks.0.attn.qkv.weight", "pos_embed.0.weight",
+                 "encoder.first_conv.0.weight")
+SEG_RUN_STEPS, SEG_RUN_EVAL, SEG_TIMED_STEPS = 3, 2, 8
+SEG_HTTP_BATCH = 2
+# whole-scene votes (a point's probabilities summed over the ~4 blocks that
+# hold it), 16 blocks a forward against one: bf16 products at another batch
+# size may round in another order (1.5e-5 to 2.3e-5 on the H100), while each
+# block's probabilities added to its neighbour's points in the chunk move the
+# votes by 0.79 (seeded weights, 256 points, on the CPU)
+SEG_VOTE_ATOL = 1e-3
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -1471,7 +1505,394 @@ def chain(dev):
     return runs, errs
 
 
+def segmentation(dev, device_ms, kernel_events, measure):
+    """Phases 25-28, the segmentation path at full width (``SegBackbone`` 384
+    x 12, G=128 groups of M=32, clouds of 2048 points, bf16): 25, FPS,
+    k-smallest (k=32 and, for the 3-NN, k=3) and the gathers at the part-seg
+    (B=16), sem-seg (B=32) and whole-scene (16 blocks) shapes against their
+    plain versions, ``three_nn_interpolate`` against its plain path, and the
+    kernel times; 26, the part-seg and sem-seg eval forwards through the
+    kernels and through the plain versions, the request times, and
+    ``serve_http`` with its 400 on a bad ``cls_label``; 27, one part-seg
+    train-mode loss and backward through both, then ``run_partseg`` and
+    ``run_semseg`` for a few steps and an evaluation each, ckpt-best
+    reloaded, and the step times; 28, ``whole_scene_eval`` with the blocks
+    batched against one block a forward. Returns (timing rows by kernel,
+    errors, launches of each run of the path)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    try:
+        return _segmentation(dev, device_ms, kernel_events, measure, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _segmentation(dev, device_ms, kernel_events, measure, tmp):
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops, serve_http
+    from act_tpu_torch.datasets.segmentation_datasets import (PartNormalDataset,
+                                                              S3DISDataset, WholeSceneDataset)
+    from act_tpu_torch.engine import runner_segmentation as rs
+    from act_tpu_torch.engine.serve import build_infer_fn, load_seg_model
+    from act_tpu_torch.engine.train_state import seg_step, step_rngs
+    from act_tpu_torch.models.segmentation import nll_seg_loss
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    N, G, M = SEG_NPOINT, SEG_GROUPS, SEG_GROUP_SIZE
+    errs, launches = {}, {}
+    none = os.path.join(tmp, "no_data")  # absent: the datasets' synthetic clouds
+    part_ds = PartNormalDataset(none, N, split="trainval")
+    part = [part_ds[i] for i in range(SEG_PART_B)]
+    p_pts = torch.from_numpy(np.stack([x[0] for x in part])).to(dev)
+    p_cls = np.asarray([x[1] for x in part])
+    p_oh = torch.from_numpy(np.eye(16, dtype=np.float32)[p_cls]).to(dev)
+    p_seg = torch.from_numpy(np.stack([x[2] for x in part])).to(dev)
+    sem_ds = S3DISDataset("train", none, N)
+    s_pts = torch.from_numpy(np.stack([sem_ds[i][0] for i in range(SEG_SEM_B)])).to(dev)
+    blocks = [b for b, _, _ in WholeSceneDataset(none, N).blocks_for_scene(0)][:SEG_BLOCKS]
+    w_pts = torch.from_numpy(np.stack(blocks)).to(dev)
+    C = 3 * 384  # the three fetched hidden states of the 384-wide backbone
+
+    def plain_path():
+        return patched(ops, group_points=ops.group_points_ref,
+                       three_nn_interpolate=ops.three_nn_interpolate_ref)
+
+    # -- 25. the kernels at the segmentation shapes --------------------------------
+    t_phase = time.perf_counter()
+    shapes = {}
+    swaps = {}
+    with torch.inference_mode():
+        for tag, pts in (("part seg", p_pts), ("sem seg", s_pts), ("whole scene", w_pts)):
+            B = pts.shape[0]
+            k, r = ops.furthest_point_sample(pts, G), ops.furthest_point_sample_ref(pts, G)
+            n_sw = tie_swaps(k, r)
+            if n_sw < 0 or not torch.equal(k.sort(-1).values, r.sort(-1).values):
+                fail(f"fps {tag} ({B}, {N}, 3)->{G}: kernel picks differ beyond tie swaps")
+            swaps[tag] = n_sw
+            errs[f"fps seg {tag}"] = float(
+                (ops.gather_points(pts, k) - ops.gather_points(pts, r)).abs().max())
+            centers = ops.gather_points(pts, r)
+            d32 = ops.square_distance(centers, pts).reshape(B * G, N)
+            d3 = ops.square_distance(pts, centers).reshape(B * N, G)
+            zeros = int((d3 == 0).sum())
+            for d, kk in ((d32, M), (d3, 3)):
+                (kv, ki), (rv, ri) = ops.k_smallest(d, kk), ops.k_smallest_ref(d, kk)
+                if not (torch.equal(ki, ri) and torch.equal(kv.view(torch.int32),
+                                                            rv.view(torch.int32))):
+                    fail(f"k_smallest {tag} {tuple(d.shape)} k={kk}: differs from the plain "
+                         "version")
+                errs[f"k_smallest seg {tag} k={kk}"] = 0.0
+            nbr = ops.k_smallest_ref(d32, M)[1].reshape(B, G * M)
+            for p, i, what in ((pts, r, "centers"), (pts, nbr, "neighbourhoods")):
+                if not torch.equal(ops.gather_coords(p, i).view(torch.int32),
+                                   ops.gather_points(p, i).view(torch.int32)):
+                    fail(f"gather {tag} {what} {tuple(p.shape)} by {tuple(i.shape)}: not "
+                         "bit-equal")
+                errs[f"gather seg {tag} {what}"] = 0.0
+            feats = torch.randn(B, G, C, generator=torch.Generator(device=dev).manual_seed(B),
+                                device=dev)
+            if not torch.equal(ops.three_nn_interpolate(pts, centers, feats),
+                               ops.three_nn_interpolate_ref(pts, centers, feats)):
+                fail(f"three_nn_interpolate {tag}: differs from its plain version")
+            print(f"[check] seg {tag} ({B}, {N}, 3): fps ->{G} equal up to {n_sw} adjacent tie "
+                  f"swaps (same set); k_smallest {tuple(d32.shape)} k={M} and "
+                  f"{tuple(d3.shape)} k=3 ({zeros} exact zeros) indices equal, values bit-equal; "
+                  f"gathers by ({B}, {G}) and ({B}, {G * M}) bit-equal; three_nn_interpolate "
+                  f"(C={C}) bit-equal to its plain version", flush=True)
+            if tag == "whole scene":
+                continue  # the part-seg shape again
+            n = 1 if tag == "part seg" else 0  # launches a part-seg train step
+            rows = shapes.setdefault("fps", [])
+            rows.append(measure(f"({B}, {N}, 3)->{G} ({tag})",
+                                lambda p=pts: ops.furthest_point_sample(p, G),
+                                lambda p=pts: ops.furthest_point_sample_ref(p, G), None, 20, 1,
+                                bound_ms(pts.numel() * 4 + B * G * 4, 10.0 * B * (G - 1) * N), n))
+            for d, kk in ((d32, M), (d3, 3)):
+                shapes.setdefault("k_smallest", []).append(measure(
+                    f"({d.shape[0]}, {d.shape[1]}) k={kk} ({tag})",
+                    lambda d=d, kk=kk: ops.k_smallest(d, kk),
+                    lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
+                    lambda d=d, kk=kk: torch.topk(d, kk, dim=-1, largest=False, sorted=True),
+                    100, 10, bound_ms(d.numel() * 4 + d.shape[0] * kk * 8, d.numel()), n))
+            for p, i, what in ((pts, r, "centers"), (pts, nbr, "neighbourhoods")):
+                shapes.setdefault("gather", []).append(measure(
+                    f"{tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read "
+                    f"({tag} {what})",
+                    lambda p=p, i=i: ops.gather_coords(p, i),
+                    lambda p=p, i=i: ops.gather_points(p, i),
+                    lambda p=p, li=i.long().reshape(B, -1, 1).expand(-1, -1, 3).contiguous():
+                    torch.gather(p, 1, li), 200, 200,
+                    bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12), n))
+            blend = (device_ms(lambda: ops.three_nn_interpolate(pts, centers, feats), 5),
+                     device_ms(lambda: ops.three_nn_interpolate_ref(pts, centers, feats), 5))
+            print(f"[time] seg three_nn_interpolate {tag} ({B}, {N}) from ({B}, {G}), C={C}, "
+                  f"f32 (device ms): kernel path {blend[0]}, plain path {blend[1]}", flush=True)
+    print_times("seg ", shapes)
+    print(f"[seg] phase 25 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 26. serving: the eval forwards through the kernels and the plain versions
+    def hold_equal(tag, k, p, n_sw):
+        """Bit-equal, or within SEG_LOGP_ATOL where an FPS tie swap was
+        counted; neighbouring clouds must give different log-probs."""
+        diff = float((k - p).abs().max())
+        apart = float((k[1:] - k[:-1]).abs().flatten(1).amax(-1).min())
+        print(f"[check] {tag} {tuple(k.shape)}: kernel path against plain path max |diff| "
+              f"{diff} (tolerance: bit-equal, or {SEG_LOGP_ATOL} with FPS tie swaps; {n_sw} "
+              f"counted); neighbouring clouds differ by at least {apart}", flush=True)
+        if not apart > 0:
+            fail(f"{tag}: two clouds give the same log-probs")
+        if not (torch.equal(k, p) or (n_sw and diff <= SEG_LOGP_ATOL)):
+            fail(f"{tag}: kernel path and plain path disagree")
+
+    t_phase = t0 = time.perf_counter()
+    models = {t: load_seg_model(t, seed=0, device=dev) for t in ("partseg", "semseg")}
+    print(f"[model] seg partseg / semseg: "
+          f"{[sum(p.numel() for p in m.parameters()) for m in models.values()]} params, bf16, "
+          f"G={G}, M={M}, N={N}, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    infers = {t: build_infer_fn(m, N, with_fps=False) for t, m in models.items()}
+    cases = (("partseg", (p_pts, p_oh), "part seg"), ("semseg", (w_pts,), "whole scene"))
+    for task, inputs, tag in cases:
+        infers[task](*(x[:2] for x in inputs))  # warm-up
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        out_k = infers[task](*inputs)
+        torch.cuda.synchronize()
+        launches[f"serve {task} B={inputs[0].shape[0]}"] = got = dict(_backend.LAUNCHES)
+        check_launches(f"serve {task}", got, SEG_PER_FORWARD, 1)
+        with plain_path():
+            _backend.reset_launches()
+            out_p = infers[task](*inputs)
+            if any(_backend.LAUNCHES.values()):
+                fail(f"the plain-version {task} forward launched kernels: {_backend.LAUNCHES}")
+        if tuple(out_k.shape) != (inputs[0].shape[0], N, models[task].cls_dim) or not bool(
+                torch.isfinite(out_k).all()):
+            fail(f"{task} log-probs: shape {tuple(out_k.shape)}, finite "
+                 f"{bool(torch.isfinite(out_k).all())}")
+        hold_equal(f"{task} eval log-probs", out_k, out_p, swaps[tag])
+
+    def request_ms(fn, iters):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def busy_line(tag, fn, med, iters=3, top_n=6):
+        ev = kernel_events(fn, iters)
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+        by_name = {}
+        for e in ev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+        dev_txt = (f"device busy {busy:.3f} ms ({len(ev) // iters} kernels), idle share "
+                   f"{1 - busy / med:.3f}" if ev else "device busy not measured")
+        print(f"[time] {tag}: {dev_txt}; top kernels (ms): "
+              + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+
+    for task, inputs, bs in (("partseg", (p_pts, p_oh), 1), ("partseg", (p_pts, p_oh), 16),
+                             ("semseg", (w_pts,), 16)):
+        x = tuple(t[:bs] for t in inputs)
+        lat = request_ms(lambda: infers[task](*x), 20)
+        med = statistics.median(lat)
+        print(f"[time] seg request {task} B={bs} ({N} points each): median {med:.3f} ms, min "
+              f"{min(lat):.3f}, max {max(lat):.3f} over 20; {bs / med * 1e3:.1f} clouds/s",
+              flush=True)
+        busy_line(f"seg request {task} B={bs}", lambda: infers[task](*x), med)
+
+    for task, m in models.items():
+        server = serve_http.make_server(infers[task], serve_http.seg_meta(m, task, N),
+                                        "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            pts = (p_pts if task == "partseg" else w_pts)[:SEG_HTTP_BATCH]
+            body = {"points": pts.cpu().tolist(), "return_log_probs": True}
+            bad = None
+            if task == "partseg":
+                body["cls_label"] = p_cls[:SEG_HTTP_BATCH].tolist()
+                bad = {**body, "cls_label": [16] * SEG_HTTP_BATCH}
+
+            def post(payload):
+                req = urllib.request.Request(url, data=json.dumps(payload).encode())
+                try:
+                    with urllib.request.urlopen(req, timeout=120) as resp:
+                        return resp.status, json.loads(resp.read())
+                except urllib.error.HTTPError as e:
+                    return e.code, json.loads(e.read())
+            t0 = time.perf_counter()
+            code, out = post(body)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = infers[task](pts, *((p_oh[:SEG_HTTP_BATCH],) if task == "partseg" else ()))
+            same = code == 200 and out["labels"] == want.argmax(-1).tolist() and torch.equal(
+                torch.tensor(out["log_probs"], dtype=torch.float32), want.cpu())
+            print(f"[http] seg {task}: {code}, labels and log-probs equal to the direct call "
+                  f"{same}, {ms:.1f} ms with JSON", flush=True)
+            if not same:
+                fail(f"http {task}: status {code}, or the answer differs from the direct call")
+            if bad is not None:
+                code, out = post(bad)
+                print(f"[http] seg {task} with cls_label ids of 16: {code} {out}", flush=True)
+                if code != 400:
+                    fail(f"http {task}: a cls_label id of 16 got {code}, not 400")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+
+    print(f"[seg] phase 26 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 27. training: one loss and backward through both paths, then the runners
+    t_phase = time.perf_counter()
+    st = rs.build_seg_state("partseg", 32, device=dev)
+    model = st.model
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    gen = np.random.default_rng(0)
+    a_pts = torch.from_numpy(rs._np_augment(gen, p_pts.cpu().numpy())).to(dev)
+    with torch.no_grad():
+        a_sw = tie_swaps(ops.furthest_point_sample(a_pts, G), ops.furthest_point_sample_ref(a_pts, G))
+    if a_sw:
+        fail(f"fps part-seg train batch: {a_sw} tie swaps; the comparison needs a batch without")
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        loss = nll_seg_loss(model(a_pts, p_oh, rngs=step_rngs(0, 0, dev)), p_seg)
+        loss.backward()
+        return loss.item(), {k: model.get_parameter(k).grad.float() for k in SEG_GRAD_KEYS}
+    _backend.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    check_launches("part-seg loss and backward through the kernels", dict(_backend.LAUNCHES),
+                   SEG_PER_FORWARD, 1)
+    _, again = loss_and_grads()
+    spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in SEG_GRAD_KEYS}
+    with plain_path():
+        _backend.reset_launches()
+        loss_p, grads_p = loss_and_grads()
+        torch.cuda.synchronize()
+        if any(_backend.LAUNCHES.values()):
+            fail(f"the plain-version part-seg loss launched kernels: {_backend.LAUNCHES}")
+    rel = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()) for k in SEG_GRAD_KEYS}
+    limit = {k: max(GRAD_RTOL, SPREAD_FACTOR * spread[k]) for k in SEG_GRAD_KEYS}
+    print(f"[seg] part-seg train-mode loss through the kernels {loss_k}, through the plain "
+          f"versions {loss_p}: |diff| {abs(loss_k - loss_p)} (tolerance {LOSS_ATOL}); "
+          f"gradients, relative L2 difference: {rel}; two kernel-path runs differ by {spread}; "
+          f"tolerance ({SPREAD_FACTOR} x that spread, at least {GRAD_RTOL}): {limit}", flush=True)
+    bad = [k for k in SEG_GRAD_KEYS if not rel[k] <= limit[k]]
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_ATOL and not bad):
+        fail(f"part-seg loss and backward: kernel path and plain path disagree ({bad})")
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict({k: v.to(dev) for k, v in init.items()})
+
+    for task, run in (("partseg", rs.run_partseg), ("semseg", rs.run_semseg)):
+        exp = os.path.join(tmp, task)
+        bs = SEG_PART_B if task == "partseg" else SEG_SEM_B
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _backend.reset_launches()
+        t0 = time.perf_counter()
+        res = run(root=none, npoint=N, batch_size=bs, epoch=1, experiment_path=exp, device=dev,
+                  max_steps=SEG_RUN_STEPS, eval_batches=SEG_RUN_EVAL)
+        run_s = time.perf_counter() - t0
+        launches[f"run_{task}"] = got = dict(_backend.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"run_{task}", got, SEG_PER_FORWARD, SEG_RUN_STEPS + SEG_RUN_EVAL)
+        m = res.state.model
+        seeded = load_seg_model(task, seed=0, device="cpu").state_dict()
+        after = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        trained = [n for n, p in m.named_parameters() if p.requires_grad]
+        still = [n for n in trained if torch.equal(after[n], seeded[n])]
+        bn_still = [k for k in after if "running" in k and torch.equal(after[k], seeded[k])]
+        print(f"[seg] run_{task} ({SEG_RUN_STEPS} steps at B={bs}, {SEG_RUN_EVAL} evaluation "
+              f"batches, {run_s:.1f} s): losses {res.losses}; metrics {res.epoch_metrics}; "
+              f"launches {got}; trainable tensors moved {len(trained) - len(still)} of "
+              f"{len(trained)}, BN statistics moved all but {len(bn_still)}; peak memory "
+              f"{peak / 2 ** 30:.3f} GiB", flush=True)
+        if not all(math.isfinite(x) for x in res.losses) or still or bn_still:
+            fail(f"run_{task}: a loss is not finite, or tensors did not move "
+                 f"({still + bn_still})")
+        path = os.path.join(exp, "ckpt-best.pth")
+        if not os.path.exists(path):
+            fail(f"run_{task}: no ckpt-best (best {res.best})")
+        x = (p_pts, p_oh) if task == "partseg" else (s_pts,)
+        reloaded = build_infer_fn(load_seg_model(task, path, device=dev), N,
+                                  with_fps=False)(*x)
+        if not torch.equal(reloaded, build_infer_fn(m.eval(), N, with_fps=False)(*x)):
+            fail(f"run_{task}: the reloaded ckpt-best gives other eval log-probs")
+        print(f"[seg] run_{task} ckpt-best ({os.path.getsize(path) / 2 ** 20:.1f} MiB) reloaded: "
+              "eval log-probs bit-equal to the trained model's", flush=True)
+        # step times of the run's state: each step ends in a synchronize
+        batch = (p_pts, p_seg, p_oh) if task == "partseg" else (s_pts, p_seg.new_zeros(
+            bs, N).random_(0, 13), None)
+        wt = torch.ones(13, device=dev) if task == "semseg" else None
+
+        def step(i, st=res.state, b=batch, wt=wt):
+            return seg_step(st.model, st.optimizer, st.schedule, b[0], b[1], i,
+                            step_rngs(0, i, dev), b[2], wt)
+        ms = request_ms(lambda: step(res.steps), SEG_TIMED_STEPS)
+        med = statistics.median(ms)
+        print(f"[time] seg {task} train step B={bs}: median {med:.3f} ms, min {min(ms):.3f}, "
+              f"max {max(ms):.3f} over {SEG_TIMED_STEPS} (after 3 warm-up); "
+              f"{bs / med * 1e3:.1f} clouds/s; peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
+        busy_line(f"seg {task} train step B={bs}", lambda: step(res.steps), med, top_n=8)
+        if task == "partseg":  # the step's parts, device ms
+            with torch.no_grad():
+                ctr = ops.gather_coords(p_pts, ops.furthest_point_sample(p_pts, G))
+            feats = torch.randn(bs, G, C, device=dev, requires_grad=True)
+            grad_out = torch.randn(bs, N, C, device=dev)
+            parts = {"group_points": device_ms(lambda: ops.group_points(p_pts, G, M), 3),
+                     "three_nn_interpolate forward (C=1152)": device_ms(
+                         lambda: ops.three_nn_interpolate(p_pts, ctr, feats), 3),
+                     "three_nn_interpolate forward + backward": device_ms(
+                         lambda: ops.three_nn_interpolate(p_pts, ctr, feats).backward(grad_out),
+                         3),
+                     "AdamW (clip and step)": device_ms(lambda: res.state.optimizer.step(), 3),
+                     "whole step": device_ms(lambda: step(res.steps), 3)}
+            print(f"[time] seg partseg train step B={bs} parts (device ms): " + ", ".join(
+                f"{k} {v if v is None else round(v, 5)}" for k, v in parts.items()), flush=True)
+        if task == "semseg":
+            trained_sem = m
+
+    print(f"[seg] phase 27 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 28. the whole-scene vote: blocks batched against one block a forward ----
+    t_phase = time.perf_counter()
+    votes, mets = {}, {}
+    scenes = WholeSceneDataset(none, N)
+    n_blocks = [sum(1 for _ in scenes.blocks_for_scene(s)) for s in range(len(scenes))]
+    for bs in (SEG_BLOCKS, 1):
+        _backend.reset_launches()
+        t0 = time.perf_counter()
+        mets[bs], votes[bs] = rs.whole_scene_eval(trained_sem, root=none, npoint=N,
+                                                  eval_batch_size=bs, vote_num=1, device=dev)
+        secs = time.perf_counter() - t0
+        launches[f"whole_scene_eval eval_batch_size={bs}"] = got = dict(_backend.LAUNCHES)
+        forwards = sum(-(-n // bs) for n in n_blocks)  # one forward a chunk of bs blocks
+        check_launches(f"whole_scene_eval eval_batch_size={bs}", got, SEG_PER_FORWARD, forwards)
+        print(f"[seg] whole_scene_eval eval_batch_size={bs}: {mets[bs]}; {forwards} forwards, "
+              f"{secs:.2f} s", flush=True)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(votes[SEG_BLOCKS], votes[1]))
+    flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum()) for a, b in zip(votes[SEG_BLOCKS],
+                                                                           votes[1]))
+    print(f"[check] whole-scene votes, batched against one block a forward: max |diff| {diff} "
+          f"(tolerance {SEG_VOTE_ATOL}), {flips} points change their vote", flush=True)
+    if not diff <= SEG_VOTE_ATOL:
+        fail("whole_scene_eval: the batched votes differ from the per-block votes")
+    print(f"[seg] phase 28 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return shapes, errs, launches
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -1735,6 +2156,9 @@ def main() -> None:
     # are still whole (late windows of a process have come back incomplete)
     chain_rows, c_errs = chain_shapes(dev, measure)
     errs.update(c_errs)
+    # -- 25-28. part and semantic segmentation, also while windows are whole ---------
+    seg_rows, seg_errs, seg_launches = segmentation(dev, device_ms, kernel_events, measure)
+    errs.update(seg_errs)
 
     # -- 6-10. Stage-II pretraining ----------------------------------------------
     stage2, s2_errs, s2_launches = stage_two(dev, device_ms, kernel_events, measure)
@@ -1768,6 +2192,7 @@ def main() -> None:
             "launches_per_step": per_step, "launches_serve_b32": launches[kernel],
             "launches_finetune": ft_launches[kernel],
             "launches_chain": {tag: n[kernel] for tag, n in chain_runs.items()},
+            "launches_seg": {tag: n[kernel] for tag, n in seg_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -1783,10 +2208,12 @@ def main() -> None:
                                                 ("autoencoder", [] if by_kernel is stage1
                                                  else stage1.get(kernel, [])),
                                                 ("finetune", ft_rows.get(kernel, [])),
-                                                ("chain", chain_rows.get(kernel, [])))
+                                                ("chain", chain_rows.get(kernel, [])),
+                                                ("segmentation", seg_rows.get(kernel, [])))
                            for r in group],
         }
 
+    print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s in all", flush=True)
     record = [row_entry(name, name, REPLACES[name]) for name in REPLACES]
     record += [row_entry(name, kernel, rep) for name, (kernel, rep) in COVERED.items()]
     print(json.dumps({"kernels": record}, allow_nan=False), flush=True)

@@ -765,3 +765,84 @@ def test_worker_pool_after_cuda_init(cuda, tmp_path):
         for a, b in zip(gp, wp):
             np.testing.assert_allclose(a[np.lexsort(a.T)], b[np.lexsort(b.T)], atol=1e-6)
     assert torch.cuda.is_available() and torch.ones(2, device=cuda).sum().item() == 2.0
+
+
+# ---------------------------------------------------------------------------
+# the segmentation path's shapes
+# ---------------------------------------------------------------------------
+
+def seg_distances(B, N, G, device):
+    """The segmentation path's two distance matrices from a cloud and its FPS
+    centers: (B * N, G) for the 3-NN (every center is one of the points, so
+    each center's own row holds a near-0 entry) and (B * G, N) for the group
+    kNN; and the points and centers."""
+    pts = cloud(70 + B, B, N, 3, device=device)
+    centers = ops.gather_points(pts, ops.furthest_point_sample_ref(pts, G))
+    return (ops.square_distance(pts, centers).reshape(B * N, G),
+            ops.square_distance(centers, pts).reshape(B * G, N), pts, centers)
+
+
+@pytest.mark.parametrize("B", [16, 32])
+def test_k_smallest_kernel_segmentation_shapes(cuda, B):
+    """k = 3 on rows of 128 centers (the 3-NN, rows above 64 take the radix
+    select) with exact-zero, all-tied and two-valued rows added, and k = 32
+    on rows of 2048 (the group kNN): indices exact, values bit-equal."""
+    d3, d32, _, _ = seg_distances(B, 2048, 128, cuda)
+    d3[0] = 0.0
+    d3[1] = 1.5
+    d3[2, ::2] = 0.25
+    d3[3, 5] = d3[3, 9] = d3[3, 77] = 0.0
+    d3[4, 100:] = -0.0
+    for d, k in ((d3, 3), (d32, 32)):
+        vals, idx = ops.k_smallest(d, k)
+        want_v, want_i = ops.k_smallest_ref(d, k)
+        assert torch.equal(idx, want_i)
+        assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    assert ops.k_smallest(d3, 3)[1][3].tolist() == [5, 9, 77]
+
+
+@pytest.mark.parametrize("B", [1, 16, 32])
+def test_fps_kernel_segmentation_shape(cuda, B):
+    pts = cloud(80 + B, B, 2048, 3, device=cuda)
+    got, want = ops.furthest_point_sample(pts, 128), ops.furthest_point_sample_ref(pts, 128)
+    assert tie_swaps(got, want) >= 0
+    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+
+
+def test_three_nn_interpolate_kernel_path_matches_plain(cuda):
+    """At the part-seg shapes (16 clouds of 2048 points, 128 FPS centers,
+    1152 features): the kernel path launches the k-smallest kernel once and
+    gives the plain path's values bit for bit (the same indices, the same
+    gathers); the gradients to both coordinate arguments and the features
+    within 1e-5 of each one's largest (the gathers' backward adds by atomics,
+    in a changing order, ~50 f32 terms a center and cloud)."""
+    _, _, pts, centers = seg_distances(16, 2048, 128, cuda)
+    feats = cloud(90, 16, 128, 1152, device=cuda)
+    g = cloud(91, 16, 2048, 1152, device=cuda)
+
+    def run(plain):
+        u, k, f = (t.clone().requires_grad_() for t in (pts, centers, feats))
+        _backend.reset_launches()
+        out = (ops.three_nn_interpolate_ref if plain else ops.three_nn_interpolate)(u, k, f)
+        launches = dict(_backend.LAUNCHES)
+        out.backward(g)
+        return out.detach(), [t.grad for t in (u, k, f)], launches
+    out_k, grads_k, launches = run(False)
+    out_p, grads_p, plain_launches = run(True)
+    assert launches == {**{k: 0 for k in _backend.KERNELS}, "k_smallest": 1}
+    assert not any(plain_launches.values())
+    assert torch.equal(out_k, out_p)
+    for a, b in zip(grads_k, grads_p):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("task", ["partseg", "semseg"])
+def test_small_seg_model_card_matches_cpu(cuda, task):
+    """The f32 segmentation serving forward gives the same log-probs on the
+    card (kernels) and on the CPU (plain versions)."""
+    from act_tpu_torch.engine.serve import load_seg_model
+    pts = np.random.default_rng(1).normal(size=(3, 256, 3)).astype(np.float32)
+    extra = (np.eye(16, dtype=np.float32)[[0, 4, 15]],) if task == "partseg" else ()
+    out = [build_infer_fn(load_seg_model(task, num_group=16, dtype="f32", device=dev), 256,
+                          with_fps=False)(pts, *extra).cpu() for dev in (cuda, "cpu")]
+    torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
