@@ -1,19 +1,24 @@
-"""Stage-II pretraining entry points: train ACT_PointDistillation with the
-linear-SVM probe and checkpoints.
+"""Stage-II pretraining entry points: train ACT_PointDistillation or
+ACT_PointBERT with the linear-SVM probe and checkpoints.
 
 Counterpart of ``act_tpu/engine/runner_pretrain.py`` (reference
 tools/runner_pretrain.py): build the model from the YAML, draw the weights
 from a seed, load the Stage-I dVAE from ``dvae_config.ckpt`` (a ``.pth``: the
-port's Stage-I checkpoint or a reference one) into the tokenizer, freeze the
-tokenizer and store its matmul weights in bf16, build AdamW with CosLR, and
+port's Stage-I checkpoint or a reference one) into the tokenizer
+(``dvae_tokenizer``, or ``dvae`` for ACT_PointBERT), freeze the tokenizer and
+store its matmul weights in bf16, build AdamW with CosLR, and
 train on the ShapeNet-55 loader (or ModelNet, resampled by FPS first). Each
 epoch ends in the SVM probe on the student's features of the ModelNet40
 ``extra_train`` and ``val`` splits, ckpt-best on its accuracy, ckpt-last,
 and from epoch 250 a ``ckpt-epoch-NNN`` every 25 epochs. ``resume``
 continues from ckpt-last; ``start_ckpts`` starts from a checkpoint's weights.
 ``run_steps`` takes train steps on given batches or on the synthetic clouds,
-without loader or checkpoints. Not ported: ``ACT_PointBERT`` (it raises) and
-the TPU workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
+without loader or checkpoints. For ACT_PointBERT (``runner_pretrain.py:170-192,
+234-238``) the k encoder starts as a copy of the q encoder and is frozen
+beside the tokenizer (only the tokenizer is stored in bf16), every step ends
+in the EMA of k at ``model.m``, and the checkpoints carry the MoCo queue and
+its pointer (buffers of the model's state dict). Not ported: the TPU
+workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
 
   python -m act_tpu_torch.engine.runner_pretrain \\
       --config cfgs/pretrain/pretrain_act_distill.yaml --steps 3
@@ -37,7 +42,8 @@ from act_tpu_torch import ops
 from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine import checkpoint as ckpt_lib
-from act_tpu_torch.engine.serve import Checkpoint, load_config, load_state_dict
+from act_tpu_torch.engine.serve import (Checkpoint, build_features_fn, load_config,
+                                        load_state_dict)
 from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
@@ -47,7 +53,20 @@ from act_tpu_torch.utils.meters import AccMetric, AverageMeter
 from act_tpu_torch.utils.svm import LinearSVC
 
 TOKENIZER = "dvae_tokenizer"
-STAGE_I_KEYS = f"{TOKENIZER}.decoder."  # FoldingNet decoder, not built here
+# the frozen Stage-I tokenizer's name in each pretrain model
+TOKENIZERS = {"ACT_PointDistillation": TOKENIZER, "ACT_PointBERT": "dvae"}
+MOMENTUM_ENCODER = "transformer_k"  # ACT_PointBERT's EMA copy of transformer_q
+
+
+def tokenizer_name(model_cfg) -> str:
+    """The tokenizer submodule of the pretrain model ``model_cfg`` names."""
+    if model_cfg.NAME not in TOKENIZERS:
+        raise ValueError(f"{model_cfg.NAME} is not a pretrain model ({sorted(TOKENIZERS)})")
+    return TOKENIZERS[model_cfg.NAME]
+
+
+def is_pointbert(model_cfg) -> bool:
+    return model_cfg.NAME == "ACT_PointBERT"
 
 
 @dataclass
@@ -62,30 +81,52 @@ class PretrainRun:
 
 def build_pretrain_model(model_cfg, seed: int = 0,
                          state_dict: Optional[Checkpoint] = None) -> nn.Module:
-    """``model_cfg`` built on the CPU with weights from ``seed``, or from a
-    reference state dict / ``.pth`` (its Stage-I ``decoder.*`` keys are
-    dropped, every other key must match)."""
-    if model_cfg.NAME != "ACT_PointDistillation":
-        raise NotImplementedError(f"{model_cfg.NAME} pretraining is not ported yet")
+    """``model_cfg`` built on the CPU with weights from ``seed`` (ACT_PointBERT's
+    k encoder then a copy of its q encoder, ``copy_query_encoder``), or from
+    a reference state dict / ``.pth`` (its tokenizer's Stage-I ``decoder.*``
+    keys are dropped, every other key must match)."""
+    stage_one_keys = f"{tokenizer_name(model_cfg)}.decoder."  # FoldingNet, not built here
     with torch.device("meta"):
         model = MODELS.build(model_cfg)
     model = model.to_empty(device="cpu")
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))
+        if is_pointbert(model_cfg):
+            copy_query_encoder(model)
     else:
         sd = {k: v for k, v in load_state_dict(state_dict).items()
-              if not k.startswith(STAGE_I_KEYS)}
+              if not k.startswith(stage_one_keys)}
         model.load_state_dict(sd, strict=True)
     return model
 
 
 def freeze_tokenizer(model: nn.Module, cfg) -> nn.Module:
     """The tokenizer frozen, its matmul weights stored in bf16 unless the
-    config sets ``model.frozen_bf16: false``; returns ``model``."""
-    builder.freeze(model, [TOKENIZER])
+    config sets ``model.frozen_bf16: false``; returns ``model``. For
+    ACT_PointBERT the k encoder is also frozen (it moves by EMA only) and
+    stays f32."""
+    tok = tokenizer_name(cfg.model)
+    builder.freeze(model, [tok] + ([MOMENTUM_ENCODER] if is_pointbert(cfg.model) else []))
     if bool(cfg.model.get("frozen_bf16", True)):
-        builder.cast_frozen_bf16(model, [TOKENIZER])
+        builder.cast_frozen_bf16(model, [tok])
     return model
+
+
+def copy_query_encoder(model: nn.Module) -> nn.Module:
+    """ACT_PointBERT's k encoder parameters set to a copy of the q encoder's
+    (``runner_pretrain.py:182-189``; reference models/act.py:939-942); the
+    BatchNorm statistics stay each encoder's own. Returns ``model``."""
+    q = dict(model.transformer_q.named_parameters())
+    with torch.no_grad():
+        for name, p in model.transformer_k.named_parameters():
+            p.copy_(q[name])
+    return model
+
+
+def ema_momentum(cfg) -> Optional[float]:
+    """The EMA momentum of the config's train step: ``model.m`` for
+    ACT_PointBERT, else None."""
+    return float(cfg.model.m) if is_pointbert(cfg.model) else None
 
 
 def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: int = 0,
@@ -97,23 +138,25 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     ShapeNet-55 clouds at ``total_bs`` x ``npoints``. The lr schedule counts
     ``512 // total_bs`` steps an epoch, as the JAX runner does on those
     clouds. Every step ends in a device synchronize, so its host time is
-    the step's time."""
+    the step's time. An ACT_PointBERT step's loss is the sum of its three."""
     cfg = load_config(config)
     dev = resolve_device(device)
     model = freeze_tokenizer(build_pretrain_model(cfg.model, seed, state_dict), cfg).to(dev)
     optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
-    clip = cfg.get("grad_norm_clip", None)
+    clip, m = cfg.get("grad_norm_clip", None), ema_momentum(cfg)
     losses, step_ms = timed_steps(
         lambda step, pts: pretrain_step(model, optimizer, schedule, pts, step,
-                                        step_rngs(seed, step, dev), grad_norm_clip=clip),
+                                        step_rngs(seed, step, dev), grad_norm_clip=clip,
+                                        ema_momentum=m),
         steps, cfg, batches, dev)
     return PretrainRun([float(x) for x in losses], model, optimizer, step_ms)
 
 
 def load_dvae_ckpt(model: nn.Module, dvae_cfg, allow_random: bool = False,
-                   logger=None) -> int:
-    """The frozen Stage-I tokenizer from ``dvae_config.ckpt`` into
-    ``model.dvae_tokenizer`` (``runner_pretrain.py:46-104``; reference
+                   logger=None, tokenizer: str = TOKENIZER) -> int:
+    """The frozen Stage-I tokenizer from ``dvae_config.ckpt`` into the
+    submodule ``tokenizer`` of ``model`` (``dvae`` for ACT_PointBERT;
+    ``runner_pretrain.py:46-104``; reference
     build_tokenizer, models/act.py:1151-1160). Call it before
     ``cast_frozen_bf16``: the tensors load into the f32 parameters.
 
@@ -143,7 +186,7 @@ def load_dvae_ckpt(model: nn.Module, dvae_cfg, allow_random: bool = False,
                          "(the port's Stage-I ckpt-best.pth or a reference .pth), not an "
                          "orbax directory")
     loaded = {k: v for k, v in load_state_dict(path).items() if not k.startswith("decoder.")}
-    tokenizer = getattr(model, TOKENIZER)
+    tokenizer = getattr(model, tokenizer)
     want = tokenizer.state_dict()
     missing = sorted(set(want) - set(loaded))
     if missing:
@@ -159,9 +202,11 @@ def prepare_model(cfg, seed: int, device, allow_random_tokenizer: bool = False,
                   logger=None) -> nn.Module:
     """The config's model from ``seed`` with the Stage-I tokenizer of
     ``dvae_config.ckpt`` (``load_dvae_ckpt``), the tokenizer frozen and its
-    matmul weights stored in bf16, on ``device``."""
+    matmul weights stored in bf16 (ACT_PointBERT: k a frozen f32 copy of
+    q), on ``device``."""
     model = build_pretrain_model(cfg.model, seed)
-    load_dvae_ckpt(model, cfg.model.dvae_config, allow_random_tokenizer, logger)
+    load_dvae_ckpt(model, cfg.model.dvae_config, allow_random_tokenizer, logger,
+                   tokenizer_name(cfg.model))
     return freeze_tokenizer(model, cfg).to(device)
 
 
@@ -185,21 +230,16 @@ def probe_features(model: nn.Module, loader: Iterable, npoints: int
     """The student's cls features of every cloud of ``loader`` (the JAX
     runner's ``feat_step``, ``runner_pretrain.py:272-282``): each batch
     resampled by FPS + gather to ``npoints`` when it has another point
-    count, then ``forward_eval`` in eval mode without grad; the model's
+    count, then ``forward_eval`` in eval mode (``build_features_fn``); the model's
     mode is restored afterwards. Returns (f32 features (n, cls_dim), labels
     (n,))."""
     was_training = model.training
-    dev = next(model.parameters()).device
-    model.eval()
+    features = build_features_fn(model.eval(), npoints)
     feats, labels = [], []
     try:
-        with torch.no_grad():
-            for _, _, (pts, label) in loader:
-                pts = torch.as_tensor(pts, dtype=torch.float32).to(dev)
-                if pts.shape[1] != npoints:
-                    pts = ops.gather_coords(pts, ops.furthest_point_sample(pts, npoints))
-                feats.append(model(pts, noaug=True).float().cpu().numpy())
-                labels.append(np.asarray(label).reshape(-1))
+        for _, _, (pts, label) in loader:
+            feats.append(features(pts).float().cpu().numpy())
+            labels.append(np.asarray(label).reshape(-1))
     finally:
         model.train(was_training)
     return np.concatenate(feats), np.concatenate(labels)
@@ -263,7 +303,9 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     ``step_rngs(seed, i)``; after each epoch the SVM probe over the
     ``extra_train`` and ``val`` splits at twice ``total_bs`` with ckpt-best
     on its accuracy, ckpt-last, and ``ckpt-epoch-NNN`` every 25 epochs from
-    epoch 250, in ``experiment_path``."""
+    epoch 250, in ``experiment_path``. ACT_PointBERT's steps end in the EMA
+    of its k encoder, and its checkpoints carry the queue and its pointer,
+    which ``resume`` restores with the weights."""
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
@@ -282,7 +324,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     epoch_steps = max(len(train_loader), 1)
     optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
     bnm = builder.build_bnm_schedule(cfg)
-    clip = cfg.get("grad_norm_clip", None)
+    clip, m = cfg.get("grad_norm_clip", None), ema_momentum(cfg)
     start_epoch, step, best = 0, 0, AccMetric(0.0)
     if resume:
         start_epoch, step, best_d = ckpt_lib.resume_state(model, optimizer, experiment_path)
@@ -304,7 +346,8 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                 pts = torch.as_tensor(data[0] if isinstance(data, (tuple, list)) else data,
                                       dtype=torch.float32).to(dev)
                 pending.append(pretrain_step(model, optimizer, schedule, pts, res.step,
-                                             step_rngs(seed, res.step, dev), transform, clip))
+                                             step_rngs(seed, res.step, dev), transform, clip,
+                                             m))
                 res.step += 1
                 if max_steps and idx + 1 >= max_steps:
                     break

@@ -1,10 +1,12 @@
-"""The serving forwards: a classifier built from its YAML, and the part and
-semantic segmentation models.
+"""The serving forwards: a classifier built from its YAML, the part and
+semantic segmentation models, and a pretrain model's features.
 
-Counterpart of ``act_tpu/engine/export.py:36-71, 189-247``. Where the JAX
-package exports a jitted artifact, the port serves the eager module directly:
-the classifier takes an FPS resample of the request cloud to ``npoints``, the
-segmentation models take clouds of exactly ``npoint`` points.
+Counterpart of ``act_tpu/engine/export.py:36-71, 126-147, 189-247``. Where the
+JAX package exports a jitted artifact, the port serves the eager module
+directly: the classifier takes an FPS resample of the request cloud to
+``npoints``, the segmentation models take clouds of exactly ``npoint``
+points, and a pretrain model's features resample only clouds of another
+point count.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable, Mapping, Optional, Union
 
 import torch
 
+from act_tpu_torch import ops
 from act_tpu_torch.engine.weights import seg_reference_keys
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.models.segmentation import NUM_SHAPE_CATEGORIES
@@ -97,6 +100,25 @@ def build_infer_fn(model: torch.nn.Module, npoints: int, with_fps: bool = True
                 inputs = (gather_coords(pts, furthest_point_sample(pts, npoints)),) + inputs[1:]
             return model(*inputs)
     return infer
+
+
+def build_features_fn(model: torch.nn.Module, npoints: int) -> Callable[..., torch.Tensor]:
+    """A pretrain model's feature forward (``export_features``,
+    ``export.py:126-147``, and the SVM probe's ``feat_step``): (B, N, 3)
+    points, resampled by FPS + gather to ``npoints`` when N differs, -> its
+    ``forward_eval`` cls features (B, cls_dim) on its device, under
+    ``torch.inference_mode()``. The caller puts the model in eval mode."""
+    device = next(model.parameters()).device
+
+    def features(pts) -> torch.Tensor:
+        pts = torch.as_tensor(pts, dtype=torch.float32).to(device).contiguous()
+        if pts.dim() != 3 or pts.shape[-1] != 3:
+            raise ValueError(f"points must be (B, N, 3), got {tuple(pts.shape)}")
+        with torch.inference_mode():
+            if pts.shape[1] != npoints:
+                pts = ops.gather_coords(pts, ops.furthest_point_sample(pts, npoints))
+            return model(pts, noaug=True)
+    return features
 
 
 SEG_TASKS = {"partseg": ("PartSegTransformer", 50), "semseg": ("SemSegTransformer", 13)}

@@ -6,7 +6,8 @@ Counterpart of ``act_tpu/engine/train_state.py:54-59, 107-170, 209-283``
 ``make_finetune_step``) and of the train steps of
 ``act_tpu/engine/runner_segmentation.py:209-225, 340-356``: loss in
 training mode (BatchNorm running statistics update as well, frozen ones
-included), backward, then AdamW at the scheduled lr. Every random draw of a
+included), backward, then AdamW at the scheduled lr (and, for ACT_PointBERT,
+the EMA of the k encoder). Every random draw of a
 step comes from one generator per named stream, seeded from (seed, step,
 stream), on the step's device. ``timed_steps`` is the trainers' step loop.
 """
@@ -71,17 +72,39 @@ def pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   schedule: Callable[[int], float], pts: torch.Tensor, step: int,
                   rngs: Dict[str, torch.Generator],
                   transform: Optional[Callable] = scale_and_translate,
-                  grad_norm_clip: Optional[float] = None) -> torch.Tensor:
+                  grad_norm_clip: Optional[float] = None,
+                  ema_momentum: Optional[float] = None) -> torch.Tensor:
     """One Stage-II train step on the (B, N, 3) batch ``pts``; returns the
-    loss (detached, still on the device)."""
+    loss (detached, still on the device). A model that returns a tuple of
+    losses (ACT_PointBERT) trains on their sum. With ``ema_momentum`` m,
+    every parameter of ``model.transformer_k`` becomes ``k * m + q * (1 -
+    m)`` of ``model.transformer_q`` after the AdamW step
+    (``train_state.py:157-163``); BatchNorm running statistics are not
+    averaged."""
     if transform is not None:
         pts = transform(pts, rngs["augment"])
     model.train()
     optimizer.zero_grad(set_to_none=False)
-    loss = model(pts, rngs=rngs)
+    out = model(pts, rngs=rngs)
+    loss = sum(out) if isinstance(out, tuple) else out
     loss.backward()
     _update(optimizer, schedule(step), grad_norm_clip)
+    if ema_momentum is not None:
+        ema_update(model.transformer_k, model.transformer_q, ema_momentum)
     return loss.detach()
+
+
+@torch.no_grad()
+def ema_update(k: nn.Module, q: nn.Module, m: float) -> None:
+    """Each parameter of ``k`` to ``k * m + q * (1 - m)``, two products
+    rounded to f32 and their sum, as the JAX step computes it."""
+    ks, qs = dict(k.named_parameters()), dict(q.named_parameters())
+    if ks.keys() != qs.keys():
+        raise ValueError("the EMA needs k and q of the same parameters")
+    names = sorted(ks)
+    kt = [ks[n] for n in names]
+    torch._foreach_mul_(kt, m)
+    torch._foreach_add_(kt, torch._foreach_mul([qs[n] for n in names], 1.0 - m))
 
 
 def autoencoder_step(model: nn.Module, optimizer: torch.optim.Optimizer,

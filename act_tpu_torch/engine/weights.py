@@ -1,8 +1,9 @@
 """Weight bridge: JAX (flax) parameters, given as numpy arrays, to port state dicts.
 
 Inverts the torch -> flax rules of ``act_tpu/engine/torch_convert.py``
-(``student_rules``, ``point_transformer_rules``, ``dvae_rules`` and
-``act_distillation_rules``, :346-443), so the port's
+(``student_rules``, ``point_transformer_rules``, ``dvae_rules``,
+``act_distillation_rules``, ``seg_rules`` and ``act_pointbert_rules`` with
+``pointbert_buffers``, :346-525), so the port's
 modules, which keep the reference PyTorch key layout, run the same weights as
 the JAX package:
 
@@ -190,11 +191,16 @@ def teacher_state(p: Mapping, prefix: str) -> StateDict:
 
 
 def tokenizer_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
-    """A dVAE's params but the FoldingNet decoder (all of Stage II's tokenizer)."""
+    """A dVAE's params but the FoldingNet decoder (all of Stage II's
+    tokenizer). ``dgcnn_2``, the codebook and the teacher only where the
+    tree has them: flax creates no parameters for a submodule that never
+    runs, and ACT_PointBERT runs only the encoder and ``dgcnn_1``."""
     sd = {**encoder_state(p["encoder"], stats["encoder"], _key(prefix, "encoder")),
-          **dgcnn_state(p["dgcnn_1"], _key(prefix, "dgcnn_1")),
-          **dgcnn_state(p["dgcnn_2"], _key(prefix, "dgcnn_2")),
-          _key(prefix, "codebook"): _t(p["codebook"])}
+          **dgcnn_state(p["dgcnn_1"], _key(prefix, "dgcnn_1"))}
+    if "dgcnn_2" in p:
+        sd.update(dgcnn_state(p["dgcnn_2"], _key(prefix, "dgcnn_2")))
+    if "codebook" in p:
+        sd[_key(prefix, "codebook")] = _t(p["codebook"])
     if "visual_embed" in p:
         sd.update(teacher_state(p["visual_embed"], prefix))
     return sd
@@ -257,6 +263,29 @@ def distillation_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
         sd.update(norm_state(params["ACT_decoder"]["norm"], "ACT_decoder.norm"))
     if "cls_pos" in params:
         sd["cls_pos"] = _t(params["cls_pos"])
+    return sd
+
+
+def pointbert_state_dict(params: Mapping, batch_stats: Mapping,
+                         buffers: Optional[Mapping] = None) -> StateDict:
+    """A JAX ACT_PointBERT's (params, batch_stats, buffers) -> the port's
+    state dict, the inverse of ``torch_convert.act_pointbert_rules`` and
+    ``pointbert_buffers`` (``torch_convert.py:497-525``); unrolled or scanned
+    stacks. The q/k trunks are ``student_state`` plus ``mask_token`` and
+    ``lm_head``; the tokenizer (``dvae.``) holds what the tree has, in JAX its
+    encoder and dgcnn_1 alone. ``queue`` comes out (cls_dim, K) f32 and
+    ``queue_ptr`` (1,) int64, the reference's buffer layout."""
+    sd: StateDict = {}
+    for name in ("transformer_q", "transformer_k"):
+        p = params[name]
+        sd.update(student_state(p, batch_stats[name], name))
+        sd[f"{name}.mask_token"] = _t(p["mask_token"])
+        sd.update(dense_state(p["lm_head"], f"{name}.lm_head"))
+    sd.update(tokenizer_state(params["dvae"], batch_stats["dvae"], "dvae"))
+    if buffers:
+        sd["queue"] = _t(buffers["queue"])
+        sd["queue_ptr"] = torch.tensor(np.asarray(buffers["queue_ptr"]).reshape(1),
+                                       dtype=torch.long)
     return sd
 
 

@@ -1,16 +1,19 @@
-"""Stage-II pretraining: the masked student and ACT_PointDistillation.
+"""Stage-II pretraining: the masked students, ACT_PointDistillation and
+ACT_PointBERT.
 
-Counterpart of ``act_tpu/models/act.py:38-182, 305-471`` (reference
-models/act.py:148-309, 1099-1258). Masks have a fixed count
+Counterpart of ``act_tpu/models/act.py`` (reference models/act.py:148-309,
+532-723, 913-1258). The distillation student's masks have a fixed count
 ``int(ratio * G)``, so the visible and masked token sets are index gathers of
-a stable sort of the mask, in token order. The frozen tokenizer runs under
-``torch.no_grad()`` in the model's own mode: in training mode its BatchNorms
-take batch statistics (and update their running ones) and its prompt dropout
-is live, as in the reference.
+a stable sort of the mask, in token order. The Point-BERT student
+(``MaskTransformer``) keeps every token: its Bernoulli mask has a count that
+varies from batch to batch and only weights a blend with the mask token. The
+frozen tokenizer runs under ``torch.no_grad()`` in the model's own mode: in
+training mode its BatchNorms take batch statistics (and update their running
+ones) and its prompt dropout is live, as in the reference.
 
-Random draws come from the generators in ``rngs``: 'mask' (masking),
-'gumbel' (the tokenizer's sample), 'dropout' (prompt dropout) and
-'droppath' (stochastic depth).
+Random draws come from the generators in ``rngs``: 'mask' (masking, token
+replacement and the mixup), 'gumbel' (the tokenizer's sample), 'dropout'
+(prompt dropout) and 'droppath' (stochastic depth).
 """
 from __future__ import annotations
 
@@ -52,6 +55,15 @@ def block_mask(generator: torch.Generator, center: torch.Tensor, num_mask: int
     seed = center[torch.arange(B, device=center.device), seed_idx][:, None, :]
     d = torch.sum((center - seed) ** 2, dim=-1)
     return torch.argsort(torch.argsort(d, dim=-1), dim=-1) < num_mask
+
+
+def bernoulli_ratio_mask(generator: torch.Generator, batch: int, num_group: int,
+                         lo: float, hi: float) -> torch.Tensor:
+    """(B, G) bool: one ratio for the batch drawn from U[lo, hi), then each
+    group masked with that probability (``act.py:59-67``; the reference
+    MaskTransformer's per-batch ratio). The count varies."""
+    ratio = lo + (hi - lo) * torch.rand((), generator=generator, device=generator.device)
+    return torch.rand(batch, num_group, generator=generator, device=generator.device) < ratio
 
 
 def split_by_mask(mask: torch.Tensor, num_mask: int
@@ -188,6 +200,92 @@ class VisableOnlyMaskTransformer(nn.Module):
         return x[:, 1:], mask
 
 
+class MaskTransformer(nn.Module):
+    """Point-BERT student: every group is embedded and kept, the masked ones
+    blended with the mask token (reference models/act.py:532-723,
+    ``act.py:185-289``); the q/k pair of ACT_PointBERT.
+
+    The group encoder emits ``transformer_config.encoder_dims`` and
+    ``reduce_dim`` always maps it to ``embed_dim`` (``use_reduce``). Both
+    heads run on every forward: ``cls_head`` on the cls token, ``lm_head``
+    (no compute dtype, so f32 logits) on the group tokens."""
+
+    def __init__(self, config: Any, use_reduce: bool = True):
+        super().__init__()
+        cfg = as_cfg(config)
+        tc = cfg.transformer_config
+        r = tc.mask_ratio
+        self.mask_ratio = tuple(r) if isinstance(r, (list, tuple)) else (r, r)
+        self.replace_pob = float(tc.replace_pob)
+        self.embed_dim = C = tc.embed_dim
+        dtype = dtype_from_cfg(tc)
+        enc = tc.encoder_dims
+        self.encoder = GroupEncoder(enc, dtype=dtype)
+        self.reduce_dim = Dense(enc, C) if use_reduce else nn.Identity()
+        self.cls_token = nn.Parameter(torch.empty(1, 1, C))
+        self.mask_token = nn.Parameter(torch.empty(1, 1, C))
+        self.cls_pos = nn.Parameter(torch.empty(1, 1, C))
+        self.pos_embed = PosEmbedMLP(C, dtype=dtype)
+        self.blocks = TransformerEncoder(C, tc.depth, tc.num_heads, dtype=dtype,
+                                         drop_path_rate=tc.drop_path_rate)
+        self.norm = LayerNorm(C, eps=1e-5)
+        self.lm_head = Dense(C, cfg.dvae_config.num_tokens)
+        self.cls_head = nn.Sequential(Dense(C, tc.cls_dim), nn.GELU(approximate="tanh"),
+                                      Dense(tc.cls_dim, tc.cls_dim))
+
+    def make_mask(self, center: torch.Tensor, noaug: bool, rngs: Rngs) -> torch.Tensor:
+        B, G, _ = center.shape
+        lo, hi = self.mask_ratio
+        if noaug or hi == 0:
+            return torch.zeros(B, G, dtype=torch.bool, device=center.device)
+        return bernoulli_ratio_mask(rng(rngs, "mask"), B, G, lo, hi)
+
+    def random_replace(self, tokens: torch.Tensor, mask: torch.Tensor, noaug: bool,
+                       rngs: Rngs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """BERT-style corruption (``act.py:242-257``): with probability
+        ``replace_pob`` an unmasked token becomes a detached token drawn from
+        the flattened batch by a random permutation. Returns the tokens and the
+        overall mask (masked or replaced) that the token loss covers."""
+        if noaug or self.replace_pob == 0:
+            return tokens, mask
+        B, G, C = tokens.shape
+        g = rng(rngs, "mask")
+        replace = (torch.rand(B, G, generator=g, device=g.device) < self.replace_pob) & ~mask
+        perm = torch.randperm(B * G, generator=g, device=g.device)
+        shuffled = tokens.detach().reshape(B * G, C)[perm].reshape(B, G, C)
+        w = replace[:, :, None].to(tokens.dtype)
+        return tokens * (1 - w) + shuffled * w, mask | replace
+
+    def forward(self, neighborhood: torch.Tensor, center: torch.Tensor, rngs: Rngs = None,
+                noaug: bool = False, only_cls_tokens: bool = False,
+                mask: Optional[torch.Tensor] = None):
+        """-> the cls feature (only_cls_tokens), else (cls feature (B,
+        cls_dim), logits (B, G, num_tokens), overall mask (B, G)). ``mask``
+        pins the (B, G) mask instead of drawing one."""
+        B = center.shape[0]
+        if mask is None:
+            mask = self.make_mask(center, noaug, rngs)
+        tokens = self.reduce_dim(self.encoder(neighborhood))
+        tokens, overall_mask = self.random_replace(tokens, mask, noaug, rngs)
+        w = mask[:, :, None].to(tokens.dtype)
+        tokens = tokens * (1 - w) + self.mask_token.to(tokens.dtype) * w
+        x = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
+        pos = torch.cat([self.cls_pos.expand(B, -1, -1), self.pos_embed(center)], dim=1)
+        x = self.norm(self.blocks(x, pos, rngs)[0])
+        cls_feature = self.cls_head(x[:, 0])
+        if only_cls_tokens:
+            return cls_feature
+        return cls_feature, self.lm_head(x[:, 1:]), overall_mask
+
+
+class TokenAllMaskTransformer(MaskTransformer):
+    """MaskTransformer whose group encoder emits ``embed_dim`` directly, with
+    no ``reduce_dim`` (``act.py:294-298``; no registered model uses it)."""
+
+    def __init__(self, config: Any):
+        super().__init__(config, use_reduce=False)
+
+
 # ---------------------------------------------------------------------------
 # Stage-II pretrain model
 # ---------------------------------------------------------------------------
@@ -284,3 +382,159 @@ class ACT_PointDistillation(nn.Module):
             x_rec_shallow = self.ACT_decoder(x_shallow_full, pos_shallow, num_mask, rngs)
             loss = loss + self.loss_fn(self.proj_head(x_rec_shallow), teacher_masked)
         return loss
+
+
+# ---------------------------------------------------------------------------
+# ACT_PointBERT
+# ---------------------------------------------------------------------------
+
+def _normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x / (||x|| + 1e-12) along ``dim`` (``act.py:624-625``)."""
+    return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + 1e-12)
+
+
+def _ce_per_item(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp - the label's logit, per row: the cross entropy without the
+    full log-softmax (``act.py:634-637``)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean(_ce_per_item(logits, labels))
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
+               ) -> torch.Tensor:
+    """The cross entropy at the masked positions of (B, G, V) logits, their
+    mean weighted by the mask over max(mask count, 1) (``act.py:531-548``)."""
+    w = mask.to(logits.dtype)
+    return torch.sum(_ce_per_item(logits, labels) * w) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+@MODELS.register_module()
+class ACT_PointBERT(nn.Module):
+    """Point-BERT with the ACT tokenizer (reference models/act.py:913-1095,
+    ``act.py:475-622``): the q and k MaskTransformers, the frozen dVAE whose
+    argmax tokens label the masked groups, the point mixup and the MoCo
+    queue. The forward returns (moco, dvae, cutmix) losses.
+
+    The queue (cls_dim, K) and its pointer (1,) int64 are buffers in the
+    reference's layout. Each loss forward reads a copy of the queue, then
+    writes the normalised k features at the pointer (on the device, no host
+    read) and advances it by B; K must be a multiple of B. The k encoder
+    takes no gradient: the train step moves it by EMA
+    (``train_state.pretrain_step``, ``ema_momentum``). Only the tokenizer's
+    encoder and dgcnn_1 run; its other tensors keep the reference layout."""
+
+    def __init__(self, config: Any):
+        super().__init__()
+        cfg = as_cfg(config)
+        tc = cfg.transformer_config
+        self.T, self.K = float(cfg.T), int(cfg.K)
+        self.moco_loss_on = bool(tc.moco_loss)
+        self.dvae_loss_on = bool(tc.dvae_loss)
+        self.cutmix_loss_on = bool(tc.cutmix_loss)
+        self.return_all_tokens = bool(tc.return_all_tokens)
+        self.cls_dim = int(tc.cls_dim)
+        self.num_group = cfg.dvae_config.num_group
+        self.group_size = cfg.dvae_config.group_size
+        self.transformer_q = MaskTransformer(cfg)
+        self.transformer_k = MaskTransformer(cfg)
+        self.dvae = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config, decoder=False)
+        self.register_buffer("queue", torch.empty(self.cls_dim, self.K))
+        self.register_buffer("queue_ptr", torch.zeros(1, dtype=torch.long))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's initializers (lecun-normal
+        kernels, N(0, 1) cls tokens and codebook, truncated-normal (std 0.02)
+        mask tokens and prompts) and a queue of unit N(0, 1) columns drawn
+        from ``generator`` (JAX draws its own from PRNGKey(0))."""
+        init_weights(self, generator)
+        with torch.no_grad():
+            for enc in (self.transformer_q, self.transformer_k):
+                enc.cls_token.normal_(0.0, 1.0, generator=generator)
+                enc.cls_pos.normal_(0.0, 1.0, generator=generator)
+                trunc_normal_(enc.mask_token, 0.02, generator)
+            self.dvae.codebook.normal_(0.0, 1.0, generator=generator)
+            self.queue.copy_(_normalize(torch.randn(self.cls_dim, self.K, generator=generator),
+                                        dim=0))
+            self.queue_ptr.zero_()
+        init_teacher_prompts(self.dvae, generator)
+
+    def forward_eval(self, pts: torch.Tensor) -> torch.Tensor:
+        """(B, N, 3) -> transformer_q's cls feature (B, cls_dim), no masking."""
+        neighborhood, center = ops.group_points(pts, self.num_group, self.group_size)
+        return self.transformer_q(neighborhood, center, noaug=True, only_cls_tokens=True)
+
+    def _mixup(self, neighborhood, center, dvae_label, rngs: Rngs, draws=None):
+        """Point mixup with the batch flipped (``act.py:516-529``): a ratio
+        a cloud and a Bernoulli(ratio) group mask, or ``draws`` = (ratio (B,),
+        mask (B, G) float) pinned."""
+        B, G = center.shape[:2]
+        if draws is None:
+            g = rng(rngs, "mask")
+            ratio = torch.rand(B, generator=g, device=g.device)
+            mm = (torch.rand(B, G, generator=g, device=g.device) < ratio[:, None]
+                  ).to(center.dtype)
+        else:
+            ratio, mm = draws
+        m4 = mm[:, :, None, None]
+        mix_n = neighborhood * m4 + torch.flip(neighborhood, (0,)) * (1 - m4)
+        mix_c = center * mm[:, :, None] + torch.flip(center, (0,)) * (1 - mm[:, :, None])
+        mix_l = (dvae_label * mm + torch.flip(dvae_label, (0,)) * (1 - mm)).to(torch.int32)
+        return ratio, mix_n, mix_c, mix_l
+
+    def forward(self, pts: torch.Tensor, rngs: Rngs = None, noaug: bool = False,
+                masks: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                mixup: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """(B, N, 3) clouds -> (moco, dvae, cutmix) losses; the queue and its
+        pointer advance.
+
+        ``masks`` = (q mask, mixup-pass mask, k mask) and ``mixup`` =
+        (ratio, mask) pin the draws, replaying the JAX model's sown
+        intermediates."""
+        if noaug:
+            return self.forward_eval(pts)
+        B = pts.shape[0]
+        if self.K % B:
+            raise ValueError(f"MoCo queue K={self.K} must be a multiple of the batch {B}")
+        mq, mmix, mk = masks if masks is not None else (None, None, None)
+        neighborhood, center = ops.group_points(pts, self.num_group, self.group_size)
+        with torch.no_grad():
+            dvae_label = self.dvae.forward_tokenizer(neighborhood, center)
+        q_cls, logits, mask = self.transformer_q(neighborhood, center, rngs, mask=mq)
+        q_cls = _normalize(q_cls, dim=1)
+        ratio, mix_n, mix_c, mix_l = self._mixup(neighborhood, center, dvae_label, rngs, mixup)
+        mix_cls, mix_logits, mix_mask = self.transformer_q(mix_n, mix_c, rngs, mask=mmix)
+        mix_cls = _normalize(mix_cls, dim=1)
+        with torch.no_grad():
+            k_cls = _normalize(self.transformer_k(neighborhood, center, rngs,
+                                                  only_cls_tokens=True, mask=mk), dim=1)
+        # autograd saves the queue for the backward of q @ queue: read a
+        # copy, so that the in-place enqueue below does not change it
+        queue = self.queue.clone()
+        zero = torch.zeros((), device=pts.device)
+        moco_loss = dvae_loss = cutmix_loss = zero
+        if self.moco_loss_on:
+            l_pos = torch.sum(q_cls * k_cls, dim=1, keepdim=True)
+            ce = torch.cat([l_pos, q_cls @ queue], dim=1) / self.T
+            moco_loss = _ce(ce, torch.zeros(B, dtype=torch.long, device=pts.device))
+        if self.dvae_loss_on:
+            if self.return_all_tokens:
+                V = logits.shape[-1]
+                dvae_loss = (_ce(logits.reshape(-1, V), dvae_label.reshape(-1))
+                             + _ce(mix_logits.reshape(-1, V), mix_l.reshape(-1)))
+            else:
+                dvae_loss = (_masked_ce(logits, dvae_label, mask)
+                             + _masked_ce(mix_logits, mix_l, mix_mask))
+        if self.cutmix_loss_on:
+            ce = torch.cat([mix_cls @ k_cls.T, mix_cls @ queue], dim=1) / self.T
+            labels = torch.arange(B, device=pts.device)
+            cutmix_loss = torch.mean(ratio * _ce_per_item(ce, labels)
+                                     + (1 - ratio) * _ce_per_item(ce, torch.flip(labels, (0,))))
+        with torch.no_grad():
+            slots = self.queue_ptr + torch.arange(B, device=self.queue_ptr.device)
+            self.queue.index_copy_(1, slots, k_cls.T.to(self.queue.dtype))
+            self.queue_ptr.copy_((self.queue_ptr + B) % self.K)
+        return moco_loss, dvae_loss, cutmix_loss

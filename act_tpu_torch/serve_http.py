@@ -1,17 +1,24 @@
-"""Minimal HTTP inference server for the port's classifier and segmentation models.
+"""Minimal HTTP inference server for the port's classifier, segmentation and
+pretrain (features) models.
 
 Stdlib only (http.server), the same contract as ``tools/serve_http.py`` for
-the classifier and segmentation kinds, but run from a config (or a task) and
-an optional reference checkpoint instead of an exported artifact:
+the classifier, features and segmentation kinds, but run from a config (or a
+task) and an optional reference checkpoint instead of an exported artifact.
+A pretrain config (ACT_PointDistillation or ACT_PointBERT) serves the
+features kind: the student's cls features, clouds of another point count
+than the config's ``npoints`` (else its val split's) resampled by FPS:
 
   python -m act_tpu_torch.serve_http \
       --config cfgs/finetune_classification/full/finetune_modelnet.yaml \
       [--ckpts model.pth] [--device cuda] --port 8080
+  python -m act_tpu_torch.serve_http --config cfgs/pretrain/pretrain_act_distill.yaml \
+      [--ckpts ckpt-best.pth] --port 8080                      # features
   python -m act_tpu_torch.serve_http --task partseg|semseg [--npoint 2048] \
       [--num_group 128] [--ckpts model.pth] [--device cuda] --port 8080
 
   POST /predict   {"points": [[[x,y,z], ...], ...]}   # (B, N, 3)
       -> classifier:   {"logits": [...], "argmax": [...]}
+         features:     {"features": [...]}              # (B, cls_dim)
          segmentation: {"labels": [...]}                # (B, N) per-point classes
              (+ "log_probs" with "return_log_probs": true; part segmentation
               also requires "cls_label": (B,) ids or a (B, 16) one-hot)
@@ -97,6 +104,8 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
                 resp = {"labels": out.argmax(-1).tolist()}
                 if req.get("return_log_probs"):
                     resp["log_probs"] = out.tolist()
+            elif meta.get("kind") == "features":
+                resp = {"features": out.tolist()}
             else:
                 resp = {"logits": out.tolist(), "argmax": out.argmax(-1).tolist()}
             self._send(200, resp)
@@ -110,9 +119,10 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
 def make_server(fn: Callable, meta: dict, host: str = "127.0.0.1",
                 port: int = 8080) -> ThreadingHTTPServer:
     """An HTTP server answering with ``fn`` ((B, N, 3) numpy -> logits
-    tensor; for ``meta['kind'] == 'segmentation'`` log-probs, with the (B,
-    16) one-hot as a second argument where ``meta['num_categories']`` is
-    set); port 0 takes a free one (``server.server_address[1]``)."""
+    tensor; for ``meta['kind'] == 'features'`` features; for
+    ``'segmentation'`` log-probs, with the (B, 16) one-hot as a second
+    argument where ``meta['num_categories']`` is set); port 0 takes a free
+    one (``server.server_address[1]``)."""
     return ThreadingHTTPServer((host, port),
                                make_handler(fn, meta, threading.Lock()))
 
@@ -133,16 +143,28 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
           device="cuda", seed: int = 0, task=None, npoint: int = 2048,
           num_group: int = 128) -> ThreadingHTTPServer:
     """A server of the classifier of ``config`` (requests resampled to its
-    ``npoints`` by FPS) or, with ``task`` ('partseg' or 'semseg'), of that
-    segmentation model on clouds of exactly ``npoint`` points."""
-    from act_tpu_torch.engine.serve import (build_infer_fn, load_config, load_model,
-                                            load_seg_model)
+    ``npoints`` by FPS); of the features of a pretrain ``config``
+    (``build_pretrain_model``: seeded weights or a Stage-II checkpoint;
+    ``npoints`` the config's, else its val split's, the SVM probe's); or,
+    with ``task`` ('partseg' or 'semseg'), of that segmentation model on
+    clouds of exactly ``npoint`` points."""
+    from act_tpu_torch.engine.runner_pretrain import TOKENIZERS, build_pretrain_model
+    from act_tpu_torch.engine.serve import (build_features_fn, build_infer_fn, load_config,
+                                            load_model, load_seg_model)
+    from act_tpu_torch.ops import resolve_device
 
     if task is not None:
         model = load_seg_model(task, ckpt_path, num_group=num_group, seed=seed, device=device)
         return make_server(build_infer_fn(model, int(npoint), with_fps=False),
                            seg_meta(model, task, npoint), host, port)
     cfg = load_config(config)
+    if cfg.model.NAME in TOKENIZERS:  # a pretrain model: its features
+        dev = resolve_device(device)
+        model = build_pretrain_model(cfg.model, seed, ckpt_path).to(dev).eval()
+        npoints = int(cfg.get("npoints") or cfg.dataset.val.others.npoints)
+        meta = {"kind": "features", "model": cfg.model.NAME, "npoints": npoints,
+                "cls_dim": int(cfg.model.transformer_config.cls_dim), "device": str(dev)}
+        return make_server(build_features_fn(model, npoints), meta, host, port)
     model = load_model(cfg, ckpt_path, seed=seed, device=device)
     npoints = int(cfg.npoints)
     meta = {"kind": "classifier", "npoints": npoints,
@@ -152,7 +174,8 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--config", default=None, help="finetune YAML (the classifier)")
+    p.add_argument("--config", default=None,
+                   help="finetune YAML (the classifier) or pretrain YAML (features)")
     p.add_argument("--task", choices=("partseg", "semseg"), default=None,
                    help="serve a segmentation model instead of a classifier")
     p.add_argument("--npoint", type=int, default=2048, help="points a segmentation cloud")

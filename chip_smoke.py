@@ -53,6 +53,15 @@ version at the shapes the path gives it:
   ``run_semseg`` for a few steps and an evaluation each with ckpt-best
   reloaded; ``whole_scene_eval`` with the blocks batched against one block a
   forward;
+- ``ACT_PointBERT`` at ``pretrain_act_distill.yaml`` with the PointBERT
+  overrides of ``tools/bench_suite.py`` (B=128 clouds of 1024 points, the q and
+  k 384 x 12 MaskTransformers with the 8192-way f32 ``lm_head``, the frozen
+  bf16 tokenizer of which the encoder and dgcnn_1 label the groups, K=16384,
+  m=0.999, seeded weights, synthetic clouds): ``forward_eval`` features
+  through the kernels and the plain versions and over HTTP, one train-mode
+  loss and backward through both, ``run_steps`` with the EMA of k held to its
+  host recomputation, and ``run_net`` with the SVM probe and a resume that
+  restores the MoCo queue;
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -182,6 +191,23 @@ SEG_HTTP_BATCH = 2
 # block's probabilities added to its neighbour's points in the chunk move the
 # votes by 0.79 (seeded weights, 256 points, on the CPU)
 SEG_VOTE_ATOL = 1e-3
+# ACT_PointBERT (phases 29-32): pretrain_act_distill.yaml with the overrides of
+# tools/bench_suite.py's PointBERT setup (B=128 clouds of 1024 points, the two
+# 384 x 12 MaskTransformers with an 8192-way lm_head, the frozen tokenizer in bf16)
+POINTBERT_MODEL = dict(NAME="ACT_PointBERT", m=0.999, T=0.07, K=16384)
+POINTBERT_TC = dict(mask_ratio=[0.25, 0.45], moco_loss=False, dvae_loss=True,
+                    cutmix_loss=True)
+PB_FEAT_B, PB_HTTP_N = 32, 2048  # the features request's batch; HTTP clouds are resampled
+# a train step: group_points' FPS, k=32 kNN and two gathers once (the q, mixup
+# and k passes reuse the groups), then the tokenizer's dgcnn_1 k=4 kNN
+POINTBERT_PER_STEP = {"fps": 1, "k_smallest": 2, "gather": 2}
+FEATURES_PER_REQUEST = {"fps": 1, "k_smallest": 1, "gather": 2}  # N == npoints
+FEATURES_RESAMPLED = {"fps": 2, "k_smallest": 1, "gather": 3}  # N != npoints
+PB_GRAD_KEYS = ("transformer_q.lm_head.weight", "transformer_q.cls_head.2.weight",
+                "transformer_q.blocks.blocks.11.mlp.fc2.weight",
+                "transformer_q.blocks.blocks.0.attn.qkv.weight", "transformer_q.mask_token",
+                "transformer_q.pos_embed.0.weight", "transformer_q.encoder.first_conv.0.weight")
+PB_EMA_STEPS, PB_RUN_STEPS = 3, 3
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -246,6 +272,73 @@ def distinct_rows(idx) -> int:
     counted per cloud."""
     s = idx.reshape(idx.shape[0], -1).sort(-1).values
     return int(s.shape[0] * (s.shape[1] > 0) + (s[:, 1:] != s[:, :-1]).sum().item())
+
+
+def timed(fn, iters, warm=3):
+    """CUDA-event ms a call of ``fn``, over ``iters`` calls after ``warm``."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1):
+    """Times of one launch shape; ``n`` launches of it a step or request.
+
+    A kernel's time is its device time from torch.profiler (CUPTI): at these
+    sizes a call's CUDA-event time is the host's dispatch time, which is
+    printed beside it as "per call". A window whose records are not all
+    there gives no device time (act_tpu_torch/profiling.py); the row then
+    keeps the CUDA-event time and says so."""
+    from act_tpu_torch.profiling import device_ms
+    call = timed(fn, iters)
+    dev_ms = device_ms(fn, iters)
+    return dict(shape=shape, n=n, ms=call if dev_ms is None else dev_ms, call_ms=call,
+                timing="cuda_events" if dev_ms is None else "profiler",
+                plain_ms=device_ms(plain, plain_iters) or timed(plain, plain_iters, 1),
+                library_ms=None if library is None else
+                (device_ms(library, iters) or timed(library, iters)),
+                bound=bound)
+
+
+def request_ms(fn, iters):
+    """Host ms of ``iters`` calls of ``fn``, each ending in a device
+    synchronize, after 3 warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def busy_line(kernel_events, tag, fn, med, iters=3, top_n=6):
+    """Print the device busy time of a call of ``fn``, its idle share against
+    the host median ``med`` and its top kernels; returns the busy ms (None
+    when the profiler recorded nothing)."""
+    ev = kernel_events(fn, iters)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    dev_txt = (f"device busy {busy:.3f} ms ({len(ev) // iters} kernels), idle share "
+               f"{1 - busy / med:.3f}" if ev else "device busy not measured")
+    print(f"[time] {tag}: {dev_txt}; top kernels (ms): "
+          + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+    return busy if ev else None
 
 
 @contextmanager
@@ -1673,30 +1766,6 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
                  f"{bool(torch.isfinite(out_k).all())}")
         hold_equal(f"{task} eval log-probs", out_k, out_p, swaps[tag])
 
-    def request_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def busy_line(tag, fn, med, iters=3, top_n=6):
-        ev = kernel_events(fn, iters)
-        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
-        by_name = {}
-        for e in ev:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
-        dev_txt = (f"device busy {busy:.3f} ms ({len(ev) // iters} kernels), idle share "
-                   f"{1 - busy / med:.3f}" if ev else "device busy not measured")
-        print(f"[time] {tag}: {dev_txt}; top kernels (ms): "
-              + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
-
     for task, inputs, bs in (("partseg", (p_pts, p_oh), 1), ("partseg", (p_pts, p_oh), 16),
                              ("semseg", (w_pts,), 16)):
         x = tuple(t[:bs] for t in inputs)
@@ -1705,7 +1774,7 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
         print(f"[time] seg request {task} B={bs} ({N} points each): median {med:.3f} ms, min "
               f"{min(lat):.3f}, max {max(lat):.3f} over 20; {bs / med * 1e3:.1f} clouds/s",
               flush=True)
-        busy_line(f"seg request {task} B={bs}", lambda: infers[task](*x), med)
+        busy_line(kernel_events, f"seg request {task} B={bs}", lambda: infers[task](*x), med)
 
     for task, m in models.items():
         server = serve_http.make_server(infers[task], serve_http.seg_meta(m, task, N),
@@ -1843,7 +1912,8 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
         print(f"[time] seg {task} train step B={bs}: median {med:.3f} ms, min {min(ms):.3f}, "
               f"max {max(ms):.3f} over {SEG_TIMED_STEPS} (after 3 warm-up); "
               f"{bs / med * 1e3:.1f} clouds/s; peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
-        busy_line(f"seg {task} train step B={bs}", lambda: step(res.steps), med, top_n=8)
+        busy_line(kernel_events, f"seg {task} train step B={bs}", lambda: step(res.steps), med,
+                  top_n=8)
         if task == "partseg":  # the step's parts, device ms
             with torch.no_grad():
                 ctr = ops.gather_coords(p_pts, ops.furthest_point_sample(p_pts, G))
@@ -1891,6 +1961,407 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
     return shapes, errs, launches
 
 
+def pointbert_config():
+    """``pretrain_act_distill.yaml`` as ACT_PointBERT (``POINTBERT_MODEL``,
+    ``POINTBERT_TC``), with no Stage-I checkpoint: seeded weights."""
+    from act_tpu_torch.engine.serve import load_config
+    cfg = load_config(PRETRAIN_CONFIG)
+    cfg.model.update(POINTBERT_MODEL)
+    cfg.model.transformer_config.update(POINTBERT_TC)
+    cfg.model.dvae_config.ckpt = None
+    return cfg
+
+
+def pointbert(dev, device_ms, kernel_events, measure):
+    """Phases 29-32, ACT_PointBERT at full width (``pointbert_config``): 29,
+    ``forward_eval`` features at B=32 through the kernels and through the
+    plain versions, a resampled request, ``serve_http``'s features kind with
+    its 400, and the request times; 30, one train-mode forward and backward
+    at B=128 through both paths with the same generators (token labels,
+    losses, gradients); 31, ``run_steps`` with its step times and parts, the
+    EMA of k held to its host recomputation and the queue pointer after each
+    of a few more steps, and the kernel times at the step's shapes; 32,
+    ``run_net`` through the ShapeNet-55 loader with the SVM probe, ckpt-last,
+    and a resume that restores the weights and the queue. Returns (timing
+    rows by kernel, errors, launches of each run of the path)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pb_")
+    try:
+        return _pointbert(dev, device_ms, kernel_events, measure, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pointbert(dev, device_ms, kernel_events, measure, tmp):
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops, serve_http
+    from act_tpu_torch.datasets import build_dataset_from_cfg, synthetic_batch
+    from act_tpu_torch.engine import checkpoint as ckpt_lib
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.serve import build_features_fn
+    from act_tpu_torch.engine.train_state import ema_update, pretrain_step, step_rngs
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    cfg = pointbert_config()
+    mc = cfg.model
+    bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
+    G, M, K = int(mc.dvae_config.num_group), int(mc.dvae_config.group_size), int(mc.K)
+    m = float(mc.m)
+    errs, launches = {}, {}
+    clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
+
+    def plain_path():
+        return patched(ops, group_points=ops.group_points_ref,
+                       graph_feature_idx=ops.graph_feature_idx_ref)
+
+    def counted(tag, fn, plain=False):
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = dict(_backend.LAUNCHES)
+        if plain and any(launches[tag].values()):
+            fail(f"pointbert {tag}: the plain path launched kernels: {launches[tag]}")
+        return out
+
+    def swaps_of(pts):
+        with torch.no_grad():
+            return tie_swaps(ops.furthest_point_sample(pts, G),
+                             ops.furthest_point_sample_ref(pts, G))
+
+    # -- 29. serving: forward_eval features through the kernels and the plain path
+    t_phase = t0 = time.perf_counter()
+    model = rp.freeze_tokenizer(rp.build_pretrain_model(mc, seed=0), cfg).to(dev).eval()
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"[model] ACT_PointBERT ({PRETRAIN_CONFIG} with {POINTBERT_MODEL}, {POINTBERT_TC}): "
+          f"{n_all} params ({n_train} trainable: transformer_q), queue "
+          f"{tuple(model.queue.shape)}, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    features = build_features_fn(model, npts)
+    x = clouds[:PB_FEAT_B]
+    features(x[:2])  # warm-up
+    tag = f"features B={PB_FEAT_B}"
+    feat_k = counted(tag, lambda: features(x))
+    check_launches(f"pointbert {tag}", launches[tag], FEATURES_PER_REQUEST, 1)
+    with plain_path():
+        feat_p = counted(f"{tag}, plain", lambda: features(x), plain=True)
+    cls_dim = int(mc.transformer_config.cls_dim)
+    if tuple(feat_k.shape) != (PB_FEAT_B, cls_dim) or not bool(torch.isfinite(feat_k).all()):
+        fail(f"pointbert features: shape {tuple(feat_k.shape)} or not finite")
+    n_sw = swaps_of(x)
+    diff = float((feat_k - feat_p).abs().max())
+    apart = float((feat_k[1:] - feat_k[:-1]).abs().amax(-1).min())
+    tol = 0.0 if n_sw == 0 else FEAT_ATOL
+    errs["pointbert features"] = diff
+    print(f"[pointbert] features {tuple(feat_k.shape)} through the kernels against the plain "
+          f"path: max |diff| {diff} (tolerance {tol}: {n_sw} FPS tie swaps); neighbouring "
+          f"clouds at least {apart} apart; launches {launches[tag]}", flush=True)
+    if not (diff <= tol and apart > 0):
+        fail("pointbert features: kernel path and plain path disagree")
+    big = torch.from_numpy(synthetic_batch(1, 4, PB_HTTP_N)).to(dev)
+    counted("features resampled", lambda: features(big))
+    check_launches("pointbert features resampled", launches["features resampled"],
+                   FEATURES_RESAMPLED, 1)
+    meta = {"kind": "features", "model": "ACT_PointBERT", "npoints": npts, "cls_dim": cls_dim}
+    server = serve_http.make_server(features, meta, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+
+        def post(payload):
+            req = urllib.request.Request(url, data=json.dumps(payload).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+        for r in range(HTTP_REQUESTS):
+            batch = big[r:r + 2]
+            t0 = time.perf_counter()
+            code, out = post({"points": batch.cpu().tolist()})
+            ms = (time.perf_counter() - t0) * 1e3
+            same = code == 200 and torch.equal(
+                torch.tensor(out["features"], dtype=torch.float32), features(batch).cpu())
+            print(f"[http] pointbert features request {r} ({tuple(batch.shape)}, resampled to "
+                  f"{npts}): {code}, equal to the direct call {same}, {ms:.1f} ms with JSON",
+                  flush=True)
+            if not same:
+                fail(f"http pointbert features request {r}: status {code} or another answer")
+        bad = big[:1].cpu().clone()
+        bad[0, 3, 0] = float("nan")
+        code, out = post({"points": bad.tolist()})
+        print(f"[http] pointbert features with a NaN coordinate: {code} {out}", flush=True)
+        if code != 400:
+            fail(f"http pointbert features: a NaN coordinate got {code}, not 400")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for b in (1, PB_FEAT_B):
+        lat = request_ms(lambda b=b: features(clouds[:b]), 20)
+        med = statistics.median(lat)
+        print(f"[time] pointbert features request B={b} ({npts} points each): median "
+              f"{med:.3f} ms, min {min(lat):.3f}, max {max(lat):.3f} over 20; "
+              f"{b / med * 1e3:.1f} clouds/s", flush=True)
+        busy_line(kernel_events, f"pointbert features request B={b}",
+                  lambda b=b: features(clouds[:b]), med)
+    print(f"[pointbert] phase 29 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 30. one train-mode loss and backward through both paths -------------------
+    t_phase = time.perf_counter()
+    n_sw = swaps_of(clouds)
+    if n_sw:
+        fail(f"fps pointbert train batch: {n_sw} tie swaps; the comparison needs a batch "
+             "without them")
+    queue0 = {k: v.clone() for k, v in model.named_buffers() if k.startswith("queue")}
+    labels = {}
+
+    def loss_and_grads(tag):
+        with torch.no_grad():
+            for k, v in queue0.items():
+                model.get_buffer(k).copy_(v)
+        model.zero_grad(set_to_none=True)
+        model.train()
+        tokenize = model.dvae.forward_tokenizer
+
+        def record(nbr, ctr):
+            labels[tag] = tokenize(nbr, ctr)
+            return labels[tag]
+        with patched(model.dvae, forward_tokenizer=record):
+            losses = model(clouds, rngs=step_rngs(0, 0, dev))
+        sum(losses).backward()
+        return ([float(v.detach()) for v in losses],
+                {k: model.get_parameter(k).grad.float().clone() for k in PB_GRAD_KEYS})
+    losses_k, grads_k = counted("train loss and backward", lambda: loss_and_grads("kernel"))
+    check_launches("pointbert train loss and backward", launches["train loss and backward"],
+                   POINTBERT_PER_STEP, 1)
+    _, again = loss_and_grads("again")
+    with plain_path():
+        losses_p, grads_p = counted("train loss and backward, plain",
+                                    lambda: loss_and_grads("plain"), plain=True)
+    same_labels = torch.equal(labels["kernel"], labels["plain"])
+    spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in PB_GRAD_KEYS}
+    rel = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()) for k in PB_GRAD_KEYS}
+    limit = {k: max(GRAD_RTOL, SPREAD_FACTOR * spread[k]) for k in PB_GRAD_KEYS}
+    dl = max(abs(a - b) for a, b in zip(losses_k, losses_p))
+    errs["pointbert train losses"] = dl
+    print(f"[pointbert] train-mode (moco, dvae, cutmix) losses through the kernels {losses_k}, "
+          f"through the plain versions {losses_p}: max |diff| {dl} (tolerance {LOSS_ATOL}); "
+          f"token labels {tuple(labels['kernel'].shape)} equal {same_labels}; gradients, "
+          f"relative L2 difference: {rel}; two kernel-path runs differ by {spread}; tolerance "
+          f"({SPREAD_FACTOR} x that spread, at least {GRAD_RTOL}): {limit}", flush=True)
+    bad = [k for k in PB_GRAD_KEYS if not rel[k] <= limit[k]]
+    if not (all(map(math.isfinite, losses_k)) and dl <= LOSS_ATOL and same_labels and not bad):
+        fail(f"pointbert loss and backward: kernel path and plain path disagree ({bad})")
+    del model, features, grads_k, grads_p, again
+    torch.cuda.empty_cache()
+    print(f"[pointbert] phase 30 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 31. run_steps, the EMA and the queue after each step, the step's parts -----
+    t_phase = time.perf_counter()
+    steps = WARM_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = counted("run_steps", lambda: rp.run_steps(cfg, steps, seed=0, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("pointbert run_steps", launches["run_steps"], POINTBERT_PER_STEP, steps)
+    model = run.model
+    fresh = rp.build_pretrain_model(mc, seed=0).state_dict()
+    after = model.state_dict()
+    dvae_same = all(torch.equal(v.cpu(), fresh[k].to(v.dtype)) for k, v in after.items()
+                    if k.startswith("dvae.") and "running" not in k and "num_batches" not in k)
+    moved = {k: not torch.equal(after[k].cpu(), fresh[k]) for k in
+             ("transformer_q.lm_head.weight", "transformer_k.lm_head.weight",
+              "transformer_q.blocks.blocks.0.attn.qkv.weight")}
+    ptr = int(model.queue_ptr)
+    print(f"[pointbert] run_steps losses {run.losses}; launches {launches['run_steps']}; dvae "
+          f"parameters bit-equal to the seeded ones in bf16: {dvae_same}; moved {moved}; queue "
+          f"pointer {ptr} (expected {steps * bs % K})", flush=True)
+    if not (all(map(math.isfinite, run.losses)) and dvae_same and all(moved.values())
+            and ptr == steps * bs % K):
+        fail("pointbert run_steps: a loss, the frozen tokenizer, a moved tensor or the queue "
+             "pointer is wrong")
+    k_mod, q_mod = model.transformer_k, model.transformer_q
+    worst = 0.0
+    for i in range(PB_EMA_STEPS):
+        k_old = {n: p.detach().cpu().clone() for n, p in k_mod.named_parameters()}
+        ptr_old = int(model.queue_ptr)
+        pretrain_step(model, run.optimizer, lambda s: 1e-3, clouds, steps + i,
+                      step_rngs(0, steps + i, dev), ema_momentum=m)
+        q_new = {n: p.detach().cpu() for n, p in q_mod.named_parameters()}
+        for n, p in k_mod.named_parameters():
+            host = k_old[n] * m + q_new[n] * (1.0 - m)
+            ulps = ((p.detach().cpu() - host).abs() / torch.from_numpy(
+                np.spacing(host.abs().numpy()))).max()
+            worst = max(worst, float(ulps))
+        if int(model.queue_ptr) != (ptr_old + bs) % K:
+            fail(f"pointbert step {steps + i}: queue pointer {int(model.queue_ptr)}, expected "
+                 f"{(ptr_old + bs) % K}")
+    errs["pointbert ema"] = worst
+    print(f"[pointbert] EMA of transformer_k after each of {PB_EMA_STEPS} steps (lr 1e-3) "
+          f"against k * m + q * (1 - m) on the host: at most {worst} f32 ulp (tolerance 1); "
+          f"queue pointer advanced by {bs} mod {K} each step", flush=True)
+    if not worst <= 1.0:
+        fail("pointbert EMA: transformer_k differs from its host recomputation")
+    med = statistics.median(run.step_ms[WARM_STEPS:])
+    print(f"[time] PointBERT step B={bs}: median {med:.3f} ms, min {min(run.step_ms):.3f}, max "
+          f"{max(run.step_ms[WARM_STEPS:]):.3f} over {TIMED_STEPS} (after {WARM_STEPS} warm-up); "
+          f"{bs / med * 1e3:.1f} clouds/s; peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
+
+    def step(i):
+        return pretrain_step(model, run.optimizer, lambda s: 1e-6, clouds, i,
+                             step_rngs(0, i, dev), ema_momentum=m)
+    busy_line(kernel_events, f"PointBERT step B={bs}", lambda: step(steps), med, top_n=8)
+    tok = model.dvae
+    with torch.no_grad():
+        nbr, ctr = ops.group_points(clouds, G, M)
+        model.train()
+        feats = tok.encoder(nbr)
+    h = torch.randn(bs, G, int(mc.transformer_config.embed_dim), device=dev, requires_grad=True)
+    g_logits = torch.randn(bs, G, int(mc.dvae_config.num_tokens), device=dev)
+
+    def q_pass():
+        cls, logits, _ = q_mod(nbr, ctr, step_rngs(0, 0, dev))
+        (cls.sum() + logits.sum()).backward()
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+    parts = {
+        "group_points": device_ms(lambda: ops.group_points(clouds, G, M), 3),
+        "tokenizer labels (train mode, no grad)": device_ms(
+            no_grad(lambda: tok.forward_tokenizer(nbr, ctr)), 3),
+        "  of which encoder": device_ms(no_grad(lambda: tok.encoder(nbr)), 3),
+        "  dgcnn_1": device_ms(no_grad(lambda: tok.dgcnn_1(feats, ctr)), 3),
+        "transformer_q pass forward + backward": device_ms(q_pass, 3),
+        "  of which group encoder forward + backward": device_ms(
+            lambda: q_mod.encoder(nbr).float().sum().backward(), 3),
+        "  lm_head forward + backward (f32)": device_ms(
+            lambda: q_mod.lm_head(h).backward(g_logits), 3),
+        "transformer_k forward (no grad)": device_ms(
+            no_grad(lambda: model.transformer_k(nbr, ctr, step_rngs(0, 0, dev),
+                                                only_cls_tokens=True)), 3),
+        "AdamW": device_ms(lambda: run.optimizer.step(), 3),
+        "EMA": device_ms(lambda: ema_update(k_mod, q_mod, m), 3),
+        "whole step": device_ms(lambda: step(steps + 1), 3)}
+    print(f"[time] PointBERT step parts (device ms): " + ", ".join(
+        f"{k} {v if v is None else round(v, 5)}" for k, v in parts.items()), flush=True)
+    with torch.inference_mode():
+        centers = ops.gather_points(clouds, ops.furthest_point_sample_ref(clouds, G))
+        d_grp = ops.square_distance(centers, clouds).reshape(bs * G, npts)
+        d_dg = ops.square_distance(centers, centers).reshape(bs * G, G)
+        rc = ops.furthest_point_sample_ref(clouds, G)
+        gathers = [(clouds, rc), (clouds, ops.k_smallest_ref(d_grp, M)[1].reshape(bs, G * M))]
+        rows = {
+            "fps": [measure(
+                f"({bs}, {npts}, 3)->{G} (pointbert)",
+                lambda: ops.furthest_point_sample(clouds, G),
+                lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
+                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={kk} (pointbert)",
+                lambda d=d, kk=kk: ops.k_smallest(d, kk),
+                lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
+                lambda d=d, kk=kk: torch.topk(d, kk, dim=-1, largest=False, sorted=True),
+                100, 20, bound_ms(d.numel() * 4 + d.shape[0] * kk * 8, d.numel()))
+                for d, kk in ((d_grp, M), (d_dg, 4))],
+            "gather": [measure(
+                f"{tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read (pointbert)",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=i.long().reshape(bs, -1, 1).expand(-1, -1, 3).contiguous():
+                torch.gather(p, 1, li), 200, 200,
+                bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12))
+                for p, i in gathers],
+        }
+    print_times("pointbert ", rows)
+    del model, run, tok, feats, nbr, h, g_logits, k_mod, q_mod
+    torch.cuda.empty_cache()
+    print(f"[pointbert] phase 31 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 32. run_net through the loader with the SVM probe, ckpt-last and --resume ---
+    t_phase = time.perf_counter()
+    exp = os.path.join(tmp, "pointbert")
+    res = counted("run_net", lambda: rp.run_net(pointbert_config(), device=dev, epochs=1,
+                                               max_steps=PB_RUN_STEPS, experiment_path=exp))
+    # the probe's batches: the train split drops its last partial batch
+    n_probe = sum((len(build_dataset_from_cfg(cfg.dataset[n])) + pad) // PROBE_BATCH
+                  for n, pad in (("extra_train", 0), ("val", PROBE_BATCH - 1)))
+    want = {k: POINTBERT_PER_STEP.get(k, 0) * PB_RUN_STEPS + PROBE_PER_BATCH.get(k, 0) * n_probe
+            for k in launches["run_net"]}
+    check_launches("pointbert run_net", launches["run_net"], want, 1)
+    probe = res.probes[0]
+    last = ckpt_lib.ckpt_path(exp, "ckpt-last")
+    print(f"[pointbert] run_net: {res.step} steps, loss {res.epoch_loss}; SVM probe accuracy "
+          f"{probe.acc:.4f} % ({n_probe} batches of {PROBE_BATCH}), relative gradient norm "
+          f"{probe.svm_rel_grad:.3e}; ckpt-last {os.path.getsize(last) / 2 ** 20:.1f} MiB; "
+          f"launches {launches['run_net']}", flush=True)
+    if not (res.step == PB_RUN_STEPS and all(map(math.isfinite, res.epoch_loss))
+            and math.isfinite(probe.acc) and probe.svm_rel_grad <= 1e-6):
+        fail("pointbert run_net: steps, loss or probe wrong")
+    again = counted("run_net resume", lambda: rp.run_net(pointbert_config(), device=dev,
+                                                        epochs=1, resume=True,
+                                                        experiment_path=exp))
+    want_sd, got_sd = res.model.state_dict(), again.model.state_dict()
+    same = sorted(want_sd) == sorted(got_sd) and all(torch.equal(got_sd[k], v)
+                                                     for k, v in want_sd.items())
+    print(f"[pointbert] resume of ckpt-last: step {again.step}, no epoch left to run; "
+          f"{len(got_sd)} tensors with the queue {tuple(got_sd['queue'].shape)} and its pointer "
+          f"{int(got_sd['queue_ptr'])} bit-equal to the trained model's: {same}; phase 32 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (same and again.step == PB_RUN_STEPS and int(got_sd["queue_ptr"]) ==
+            PB_RUN_STEPS * bs % K and not any(launches["run_net resume"].values())):
+        fail("pointbert resume: the weights, the queue or the step were not restored")
+    del res, again
+    torch.cuda.empty_cache()
+    return rows, errs, launches
+
+
+def pointbert_in_child():
+    """Phases 29-32 in a child process (``chip_smoke.py --pointbert OUT``),
+    where the profiler's windows are whole: late windows of a long process
+    come back incomplete, and its heavy windows would cost the later phases
+    theirs. The child loads the kernels this process built and writes its
+    timing rows, errors and launch counts to OUT; returns them."""
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_pb_", suffix=".json")
+    os.close(fd)
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--pointbert", out],
+                              cwd=ROOT, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the PointBERT phases failed (exit {proc.returncode})")
+        with open(out) as f:
+            got = json.load(f)
+    finally:
+        os.remove(out)
+    return got["rows"], got["errs"], got["launches"]
+
+
+def pointbert_child(out: str) -> None:
+    """The child of ``pointbert_in_child``: phases 29-32 on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.profiling import device_ms, kernel_events
+    dev = _backend.resolve_device("cuda")
+    _backend.build_kernels()
+    rows, errs, launches = pointbert(dev, device_ms, kernel_events, measure)
+    with open(out, "w") as f:
+        json.dump({"rows": rows, "errs": errs, "launches": launches}, f, allow_nan=False)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1924,18 +2395,6 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-
-    def timed(fn, iters, warm=3):
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
 
     # -- 2. kernels vs plain versions at the path shapes ---------------------
     gen = torch.Generator().manual_seed(0)
@@ -2049,24 +2508,8 @@ def main() -> None:
         server.server_close()
         thread.join(timeout=30)
 
-    # -- 5. times on the card -------------------------------------------------
-    # A kernel's time is its device time from torch.profiler (CUPTI): at these
-    # sizes a call's CUDA-event time is the host's dispatch time, which is
-    # printed beside it as "per call". A window whose records are not all
-    # there gives no device time (act_tpu_torch/profiling.py); the row then
-    # keeps the CUDA-event time and says so.
+    # -- 5. times on the card (``measure``) -----------------------------------
     print(f"[time] card: {card}", flush=True)
-
-    def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1):
-        """Times of one launch shape; ``n`` launches of it a step or request."""
-        call = timed(fn, iters)
-        dev_ms = device_ms(fn, iters)
-        return dict(shape=shape, n=n, ms=call if dev_ms is None else dev_ms, call_ms=call,
-                    timing="cuda_events" if dev_ms is None else "profiler",
-                    plain_ms=device_ms(plain, plain_iters) or timed(plain, plain_iters, 1),
-                    library_ms=None if library is None else
-                    (device_ms(library, iters) or timed(library, iters)),
-                    bound=bound)
 
     with torch.inference_mode():
         d_pts = pts.contiguous()
@@ -2110,19 +2553,8 @@ def main() -> None:
         }
     print_times("", shapes)
 
-    def request_ms(batch, iters):
-        for _ in range(3):
-            infer(batch)
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            infer(batch)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
     for bs, iters in ((1, 30), (B, 20)):
-        lat = request_ms(clouds[:bs], iters)
+        lat = request_ms(lambda: infer(clouds[:bs]), iters)
         med = statistics.median(lat)
         ev = kernel_events(lambda: infer(clouds[:bs]), 5)
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / 5
@@ -2173,6 +2605,9 @@ def main() -> None:
     # -- 20-24. the Stage-I -> Stage-II -> finetune chain and the loader ---------
     chain_runs, chain_errs = chain(dev)
     errs.update(chain_errs)
+    # -- 29-32. ACT_PointBERT, in a process of its own (its profiler windows whole)
+    pb_rows, pb_errs, pb_launches = pointbert_in_child()
+    errs.update(pb_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -2193,6 +2628,7 @@ def main() -> None:
             "launches_finetune": ft_launches[kernel],
             "launches_chain": {tag: n[kernel] for tag, n in chain_runs.items()},
             "launches_seg": {tag: n[kernel] for tag, n in seg_launches.items()},
+            "launches_pointbert": {tag: n[kernel] for tag, n in pb_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -2209,7 +2645,8 @@ def main() -> None:
                                                  else stage1.get(kernel, [])),
                                                 ("finetune", ft_rows.get(kernel, [])),
                                                 ("chain", chain_rows.get(kernel, [])),
-                                                ("segmentation", seg_rows.get(kernel, [])))
+                                                ("segmentation", seg_rows.get(kernel, [])),
+                                                ("pointbert", pb_rows.get(kernel, [])))
                            for r in group],
         }
 
@@ -2225,4 +2662,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pointbert"]:
+        pointbert_child(sys.argv[2])
+    else:
+        main()

@@ -846,3 +846,93 @@ def test_small_seg_model_card_matches_cpu(cuda, task):
     out = [build_infer_fn(load_seg_model(task, num_group=16, dtype="f32", device=dev), 256,
                           with_fps=False)(pts, *extra).cpu() for dev in (cuda, "cpu")]
     torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# ACT_PointBERT's call sites
+# ---------------------------------------------------------------------------
+
+def small_pointbert(device):
+    """A small f32 ACT_PointBERT (2 blocks 32 wide, G=16 groups of 8, a
+    64-way lm_head, K=8) from seed 0, the tokenizer and k frozen, on
+    ``device``; and its config."""
+    from act_tpu_torch.engine import runner_pretrain
+    dvae = dict(NAME="ACTPromptedDiscreteVAEwithVIT", group_size=8, num_group=16,
+                encoder_dims=32, num_tokens=64, tokens_dims=32, decoder_dims=32,
+                visual_embed_dim=48, visual_embed_depth=2, visual_embed_heads=4,
+                num_prompt_token=4, use_deep_prompt=True, visual_embed_pos="after_dgcnn1",
+                freeze_visual_embed=True, visual_embed_type="vit_tiny")
+    tc = dict(mask_ratio=[0.25, 0.45], mask_type="rand", embed_dim=32, encoder_dims=32,
+              depth=2, drop_path_rate=0.1, cls_dim=32, replace_pob=0.0, num_heads=4,
+              return_all_tokens=False, moco_loss=True, dvae_loss=True, cutmix_loss=True)
+    cfg = ConfigDict(dict(model=dict(NAME="ACT_PointBERT", m=0.999, T=0.07, K=8,
+                                     transformer_config=tc, dvae_config=dvae,
+                                     frozen_bf16=False)))
+    model = runner_pretrain.build_pretrain_model(cfg.model, seed=0)
+    return runner_pretrain.freeze_tokenizer(model, cfg).to(device), cfg
+
+
+def test_pointbert_eval_features_kernels_match_plain(cuda, monkeypatch):
+    """``forward_eval`` features through the kernels (FPS, k-smallest, two
+    gathers, each launched once) equal the plain path's bit for bit on clouds
+    without FPS tie swaps."""
+    from act_tpu_torch.engine.serve import build_features_fn
+    model, _ = small_pointbert(cuda)
+    pts = cloud(100, 4, 256, 3, device=cuda)
+    assert tie_swaps(ops.furthest_point_sample(pts, 16), ops.furthest_point_sample_ref(pts, 16)) == 0
+    features = build_features_fn(model.eval(), 256)
+    _backend.reset_launches()
+    got = features(pts)
+    assert dict(_backend.LAUNCHES) == {**{k: 0 for k in _backend.KERNELS}, "fps": 1,
+                                       "k_smallest": 1, "gather": 2}
+    monkeypatch.setattr(ops, "group_points", ops.group_points_ref)
+    assert torch.equal(got, features(pts))
+
+
+def test_pointbert_train_labels_kernels_match_plain(cuda, monkeypatch):
+    """The train-mode forward's token labels (the tokenizer's argmax after the
+    group kNN and dgcnn_1's k=4 kNN, both through the k-smallest kernel) equal
+    the plain path's, and so do the three losses; one FPS, two k-smallest and
+    two gather launches."""
+    from act_tpu_torch.engine.train_state import step_rngs
+    model, _ = small_pointbert(cuda)
+    model.train()
+    pts = cloud(101, 4, 256, 3, device=cuda)
+    queue = model.queue.clone()
+    labels = []
+    tokenize = model.dvae.forward_tokenizer
+    monkeypatch.setattr(model.dvae, "forward_tokenizer",
+                        lambda n, c: labels.append(tokenize(n, c)) or labels[-1])
+
+    def losses():
+        model.queue.copy_(queue)
+        with torch.no_grad():
+            return torch.stack(model(pts, rngs=step_rngs(0, 0, cuda)))
+    _backend.reset_launches()
+    got = losses()
+    assert dict(_backend.LAUNCHES) == {**{k: 0 for k in _backend.KERNELS}, "fps": 1,
+                                       "k_smallest": 2, "gather": 2}
+    monkeypatch.setattr(ops, "group_points", ops.group_points_ref)
+    monkeypatch.setattr(ops, "graph_feature_idx", ops.graph_feature_idx_ref)
+    want = losses()
+    assert torch.equal(labels[0], labels[1])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_pointbert_ema_matches_host_recomputation(cuda):
+    """After a train step with ``ema_momentum`` the k encoder equals
+    k * m + q * (1 - m) recomputed on the host from the previous k and the
+    new q, within one f32 ulp; the queue pointer advanced by B."""
+    from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
+    model, cfg = small_pointbert(cuda)
+    m = float(cfg.model.m)
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=1e-3)
+    pts = cloud(102, 4, 256, 3, device=cuda)
+    k_old = {n: p.detach().cpu().clone() for n, p in model.transformer_k.named_parameters()}
+    pretrain_step(model, opt, lambda s: 1e-3, pts, 0, step_rngs(0, 0, cuda), ema_momentum=m)
+    q_new = {n: p.detach().cpu() for n, p in model.transformer_q.named_parameters()}
+    for n, p in model.transformer_k.named_parameters():
+        host = k_old[n] * m + q_new[n] * (1.0 - m)
+        ulp = torch.from_numpy(np.spacing(host.abs().numpy()))
+        assert ((p.detach().cpu() - host).abs() <= ulp).all(), n
+    assert int(model.queue_ptr) == 4
