@@ -2,7 +2,7 @@
 the frozen-bf16 cast.
 
 Counterpart of ``act_tpu/engine/builder.py:32-88, 113-220`` and of the Stage-I
-freezing of ``act_tpu/engine/runner_autoencoder.py:130-143``:
+freezing of ``act_tpu/engine/runner_autoencoder.py:130-143`` for each teacher arch:
 
 - weight decay on every trainable parameter except 1-D ones and those whose
   name holds 'bias' or 'token' (reference add_weight_decay, tools/builder.py:38-51);
@@ -32,6 +32,7 @@ from act_tpu_torch.datasets.build import build_dataset_from_cfg
 from act_tpu_torch.datasets.loader import DataLoader
 from act_tpu_torch.models.common import BatchNorm
 from act_tpu_torch.models.point_transformer import trainable
+from act_tpu_torch.models.teacher import TEACHER_LAYOUT
 from act_tpu_torch.utils.misc import bn_momentum_schedule
 
 FROZEN_KEEP_F32 = ("norm", "ln_", "bn", "gn")
@@ -72,18 +73,18 @@ def cast_frozen_bf16(model: nn.Module, prefixes: Iterable[str]) -> None:
                 p.data = p.data.to(torch.bfloat16)
 
 
-TEACHER_BACKBONE = "visual_embed"  # the teacher's blocks (.0) and final norm (.1)
-
-
 def freeze_teacher_backbone(model: nn.Module, cast_bf16: bool = True) -> None:
-    """Stage I's ``freeze_visual_embed``: only the teacher backbone, its blocks
-    and final norm, is frozen, and only its blocks are stored in bf16. The
-    prompts, ``proj_pre``, ``proj_post`` and ``visual_pos_embed`` stay
-    trainable, and gradients flow through the frozen blocks to them and to
-    everything before the teacher."""
-    freeze(model, [TEACHER_BACKBONE])
+    """Stage I's ``freeze_visual_embed``: the JAX mask (``blocks_`` and
+    ``norm``, ``runner_autoencoder.py:131-135``) for the model's teacher arch
+    (``TEACHER_LAYOUT``): the ViT's blocks and final norm, CLIP's resblocks
+    (its ``ln_pre``/``ln_post`` train, as in the JAX package), BERT's layers.
+    Only the blocks are stored in bf16. The prompts, ``proj_pre``,
+    ``proj_post`` and ``visual_pos_embed`` stay trainable, and gradients flow
+    through the frozen blocks to them and to everything before the teacher."""
+    blocks, frozen = TEACHER_LAYOUT[model.teacher_arch]
+    freeze(model, frozen)
     if cast_bf16:
-        cast_frozen_bf16(model, [f"{TEACHER_BACKBONE}.0"])
+        cast_frozen_bf16(model, [blocks])
 
 
 def cos_lr(base_lr: float, warmup_steps: int, decay_steps: int) -> Callable[[int], float]:

@@ -3,11 +3,12 @@
 Counterpart of ``act_tpu/engine/runner_autoencoder.py`` (reference
 tools/runner_autoencoder.py): build the dVAE from the YAML with weights drawn
 from a seed, load the 2D teacher from ``model.teacher_ckpt`` when the file is
-there (a timm ViT ``.pth``; else the teacher stays random, with a warning,
-as in the JAX runner), freeze the teacher backbone and store its blocks in
-bf16 (``freeze_visual_embed``), build AdamW with CosLR, and train on the
-ShapeNet-55 loader with the Gumbel temperature and the KLD weight on their
-cosine anneals over the iteration count. Each epoch ends in a validation
+there (a timm ViT, CLIP or HuggingFace BERT ``.pth`` by the teacher's arch;
+else the teacher stays random, with a warning, as in the JAX runner), freeze
+the teacher backbone and store its blocks in bf16 (``freeze_visual_embed``),
+build AdamW with CosLR, and train on the ShapeNet-55 loader with the Gumbel
+temperature and the KLD weight on their cosine anneals over the iteration
+count. Each epoch ends in a validation
 (the per-taxonomy table of F-Score, CDL1 and CDL2, its Overall row the mean
 of the category means), ckpt-best on ``consider_metric`` (CDL1, lower is
 better) and ckpt-last; ``resume`` continues from ckpt-last. ``validate_net``
@@ -39,7 +40,7 @@ from torch import nn
 
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine import checkpoint as ckpt_lib
-from act_tpu_torch.engine.serve import load_config
+from act_tpu_torch.engine.serve import load_config, recon_forward
 from act_tpu_torch.engine.train_state import (autoencoder_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
@@ -95,27 +96,41 @@ def build_autoencoder_model(model_cfg, seed: int = 0) -> nn.Module:
     return model
 
 
-TEACHER_KEYS = (("blocks.", "visual_embed.0."), ("norm.", "visual_embed.1."))
+# arch -> (raw checkpoint prefix, the model's prefix): the layouts that
+# torch_convert's load_timm_vit, load_clip_visual and load_hf_bert read
+# (torch_convert.py:291-325); the JAX runner reads the timm one for every arch
+TEACHER_KEYS = {
+    "vit": (("blocks.", "visual_embed.0."), ("norm.", "visual_embed.1.")),
+    "clip": (("visual.transformer.resblocks.", "visual_embed.1."),
+             ("visual.ln_pre.", "visual_embed.0."), ("visual.ln_post.", "visual_embed.2.")),
+    "bert": (("bert.encoder.layer.", "visual_embed.0.layer."),
+             ("encoder.layer.", "visual_embed.0.layer.")),
+}
+TEACHER_FILES = {"vit": "a timm ViT", "clip": "an OpenAI CLIP model",
+                 "bert": "a HuggingFace BERT"}
 
 
 def load_teacher_weights(model: nn.Module, model_cfg, logger=None) -> int:
-    """The 2D teacher's blocks and final norm from the timm ViT ``.pth`` at
-    ``model_cfg.teacher_ckpt`` (``runner_autoencoder.py:52-83``): its
-    ``blocks.i.*`` go to ``visual_embed.0.i.*`` and its ``norm.*`` to
-    ``visual_embed.1.*``, by name and shape; the rest of a timm ViT (patch
-    embedding, cls token, head) has no place here. Without the file the
-    teacher stays random, with a warning. Returns the tensors loaded."""
-    if not model_cfg.get("visual_embed_type"):
+    """The 2D teacher's backbone from the ``.pth`` at ``model_cfg.teacher_ckpt``
+    (``runner_autoencoder.py:52-83``), in the layout of the model's teacher
+    arch (``TEACHER_KEYS``), by name and shape: a timm ViT's ``blocks.i.*``
+    and ``norm.*``; CLIP's ``visual.transformer.resblocks.i.*``,
+    ``visual.ln_pre.*`` and ``visual.ln_post.*``; HuggingFace BERT's
+    ``[bert.]encoder.layer.i.*``. The rest of such a file (embeddings, heads,
+    CLIP's text tower) has no place here. Without the file the teacher stays
+    random, with a warning. Returns the tensors loaded."""
+    if not getattr(model, "has_teacher", False):
         return 0
+    arch = model.teacher_arch
     path = model_cfg.get("teacher_ckpt")
     if not path or not os.path.exists(str(path)):
         print_log("[AUTOENCODER][WARNING] no teacher_ckpt provided or found: the frozen "
-                  f"'{model_cfg.get('visual_embed_type')}' teacher is RANDOMLY INITIALIZED "
-                  "(set model.teacher_ckpt to a local timm .pth to reproduce the reference)",
-                  logger=logger)
+                  f"{arch} teacher is RANDOMLY INITIALIZED (set model.teacher_ckpt to "
+                  f"{TEACHER_FILES[arch]} .pth to reproduce the reference)", logger=logger)
         return 0
     if not str(path).endswith(".pth"):
-        raise ValueError(f"teacher_ckpt {path}: the port reads a timm ViT .pth state dict")
+        raise ValueError(f"teacher_ckpt {path}: the port reads {TEACHER_FILES[arch]} .pth "
+                         "state dict")
     payload = torch.load(str(path), map_location="cpu", weights_only=True)
     for key in ("model", "state_dict", "model_state_dict"):
         if isinstance(payload, dict) and key in payload:
@@ -126,13 +141,14 @@ def load_teacher_weights(model: nn.Module, model_cfg, logger=None) -> int:
     with torch.no_grad():
         for k, v in payload.items():
             k = k.replace("module.", "")
-            for src, dst in TEACHER_KEYS:
+            for src, dst in TEACHER_KEYS[arch]:
                 if k.startswith(src):
                     name = dst + k[len(src):]
                     if name in state and tuple(state[name].shape) == tuple(v.shape):
                         state[name].copy_(v)
                         n += 1
-    print_log(f"[AUTOENCODER] loaded {n} teacher tensors from {path}", logger=logger)
+                    break
+    print_log(f"[AUTOENCODER] loaded {n} {arch} teacher tensors from {path}", logger=logger)
     return n
 
 
@@ -188,15 +204,6 @@ def _clouds_of(batch) -> Tuple[List[str], torch.Tensor]:
     pts = torch.as_tensor(batch, dtype=torch.float32)
     pts = pts.reshape(-1, pts.shape[-2], 3)
     return ["-"] * pts.shape[0], pts
-
-
-def recon_forward(model: nn.Module, pts: torch.Tensor) -> torch.Tensor:
-    """The validation forward of one (1, N, 3) cloud: the reconstruction
-    with ``hard=True`` at temperature 1 and a 'gumbel' generator seeded 0
-    (the JAX runner's fixed ``PRNGKey(0)``, ``runner_autoencoder.py:293-304``);
-    returns the whole fine cloud (1, G*M, 3)."""
-    rngs = {"gumbel": torch.Generator(device=pts.device).manual_seed(0)}
-    return model(pts, 1.0, True, rngs=rngs)[1]
 
 
 def category_table(taxonomies: List[str], per_cloud: List[List[float]]

@@ -1,12 +1,13 @@
 """The serving forwards: a classifier built from its YAML, the part and
-semantic segmentation models, and a pretrain model's features.
+semantic segmentation models, a pretrain model's features, and a Stage-I
+dVAE's tokens and reconstruction.
 
-Counterpart of ``act_tpu/engine/export.py:36-71, 126-147, 189-247``. Where the
+Counterpart of ``act_tpu/engine/export.py:36-71, 126-247``. Where the
 JAX package exports a jitted artifact, the port serves the eager module
 directly: the classifier takes an FPS resample of the request cloud to
-``npoints``, the segmentation models take clouds of exactly ``npoint``
-points, and a pretrain model's features resample only clouds of another
-point count.
+``npoints``, the segmentation models and the dVAE take clouds of exactly
+``npoint(s)`` points, and a pretrain model's features resample only clouds
+of another point count.
 """
 from __future__ import annotations
 
@@ -119,6 +120,59 @@ def build_features_fn(model: torch.nn.Module, npoints: int) -> Callable[..., tor
                 pts = ops.gather_coords(pts, ops.furthest_point_sample(pts, npoints))
             return model(pts, noaug=True)
     return features
+
+
+def _dvae_input(pts, device, npoints: int) -> torch.Tensor:
+    pts = torch.as_tensor(pts, dtype=torch.float32).to(device).contiguous()
+    if pts.dim() != 3 or pts.shape[-1] != 3:
+        raise ValueError(f"points must be (B, N, 3), got {tuple(pts.shape)}")
+    if pts.shape[1] != npoints:
+        raise ValueError(f"the dVAE takes clouds of npoints={npoints} points, "
+                         f"got {pts.shape[1]}")
+    return pts
+
+
+def build_tokenize_fn(model: torch.nn.Module, npoints: int) -> Callable[..., torch.Tensor]:
+    """A Stage-I dVAE's tokenizer (``export_dvae_tokenize``,
+    ``export.py:150-168``): (B, npoints, 3) points, no resample -> the
+    (B, G) int32 codebook ids of ``forward_tokenizer`` over
+    ``ops.group_points``, on the model's device, in eval mode and under
+    ``torch.inference_mode()``. Another point count raises."""
+    device = next(model.parameters()).device
+    model.eval()
+
+    def tokenize(pts) -> torch.Tensor:
+        pts = _dvae_input(pts, device, npoints)
+        with torch.inference_mode():
+            return model.forward_tokenizer(*ops.group_points(pts, model.num_group,
+                                                             model.group_size))
+    return tokenize
+
+
+def recon_forward(model: torch.nn.Module, pts: torch.Tensor) -> torch.Tensor:
+    """The dVAE's reconstruction of (B, N, 3) clouds: ``hard=True`` at
+    temperature 1 with a 'gumbel' generator seeded 0 anew on every call (the
+    JAX package's pinned ``PRNGKey(0)``, ``export.py:182-184`` and
+    ``runner_autoencoder.py:293-304``), so an answer does not depend on
+    earlier calls; returns the whole fine cloud (B, G*M, 3)."""
+    rngs = {"gumbel": torch.Generator(device=pts.device).manual_seed(0)}
+    return model(pts, 1.0, True, rngs=rngs)[1]
+
+
+def build_recon_fn(model: torch.nn.Module, npoints: int) -> Callable[..., torch.Tensor]:
+    """A Stage-I dVAE's reconstruction (``export_dvae_recon``,
+    ``export.py:171-186``): (B, npoints, 3) points, no resample -> the
+    (B, G*M, 3) f32 ``whole_fine`` of :func:`recon_forward`, on the model's
+    device, in eval mode and under ``torch.inference_mode()``. Another point
+    count raises."""
+    device = next(model.parameters()).device
+    model.eval()
+
+    def recon(pts) -> torch.Tensor:
+        pts = _dvae_input(pts, device, npoints)
+        with torch.inference_mode():
+            return recon_forward(model, pts)
+    return recon
 
 
 SEG_TASKS = {"partseg": ("PartSegTransformer", 50), "semseg": ("SemSegTransformer", 13)}

@@ -1,7 +1,8 @@
 """Weight bridge: JAX (flax) parameters, given as numpy arrays, to port state dicts.
 
 Inverts the torch -> flax rules of ``act_tpu/engine/torch_convert.py``
-(``student_rules``, ``point_transformer_rules``, ``dvae_rules``,
+(``student_rules``, ``point_transformer_rules``, ``dvae_rules`` for each
+teacher arch with ``fuse_bert_qkv``,
 ``act_distillation_rules``, ``seg_rules`` and ``act_pointbert_rules`` with
 ``pointbert_buffers``, :346-525), so the port's
 modules, which keep the reference PyTorch key layout, run the same weights as
@@ -151,13 +152,13 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     return sd
 
 
-def blocks_state(p: Mapping, prefix: str) -> StateDict:
+def blocks_state(p: Mapping, prefix: str, block_fn=block_state) -> StateDict:
     """A stack's blocks (``blocks_N`` subtrees or one scanned ``blocks``) ->
-    ``{prefix}.N.*``."""
+    ``{prefix}.N.*``, each by ``block_fn``."""
     sd: StateDict = {}
     for name, blk in unstack_blocks(p).items():
         if name.startswith("blocks_"):
-            sd.update(block_state(blk, f"{prefix}.{name.split('_')[1]}"))
+            sd.update(block_fn(blk, f"{prefix}.{name.split('_')[1]}"))
     return sd
 
 
@@ -173,28 +174,73 @@ def dgcnn_state(p: Mapping, prefix: str) -> StateDict:
     return sd
 
 
-def teacher_state(p: Mapping, prefix: str) -> StateDict:
-    """A ViT PromptedTeacher's params (flax ``visual_embed``) -> the
-    reference's sibling keys of the tokenizer (``torch_convert.py:197-215,
-    328-343``)."""
+def clip_block_state(p: Mapping, prefix: str) -> StateDict:
+    """A JAX ``CLIPBlock`` -> CLIP's ResidualAttentionBlock keys (the inverse
+    of ``clip_block_rules``, ``torch_convert.py:168-195``)."""
+    qkv = p["attn"]["qkv"]
+    return {**norm_state(p["ln_1"], _key(prefix, "ln_1")),
+            _key(prefix, "attn.in_proj_weight"): _t(np.asarray(qkv["kernel"]).T),
+            _key(prefix, "attn.in_proj_bias"): _t(qkv["bias"]),
+            **dense_state(p["attn"]["proj"], _key(prefix, "attn.out_proj")),
+            **norm_state(p["ln_2"], _key(prefix, "ln_2")),
+            **dense_state(p["c_fc"], _key(prefix, "mlp.c_fc")),
+            **dense_state(p["c_proj"], _key(prefix, "mlp.c_proj"))}
+
+
+def bert_block_state(p: Mapping, prefix: str) -> StateDict:
+    """A JAX ``PostLNBlock`` -> HuggingFace ``BertLayer`` keys (the inverse of
+    ``fuse_bert_qkv`` and ``bert_block_rules``, ``torch_convert.py:233-288``):
+    the fused (in, 3C) qkv kernel splits by columns q | k | v before the
+    transpose."""
+    qkv = p["attn"]["qkv"]
+    kernel, bias = np.asarray(qkv["kernel"]), np.asarray(qkv["bias"])
+    C = kernel.shape[0]
+    sd = {}
+    for i, name in enumerate(("query", "key", "value")):
+        sd.update(dense_state({"kernel": kernel[:, i * C:(i + 1) * C],
+                               "bias": bias[i * C:(i + 1) * C]},
+                              _key(prefix, f"attention.self.{name}")))
+    return {**sd,
+            **dense_state(p["attn"]["proj"], _key(prefix, "attention.output.dense")),
+            **norm_state(p["norm1"], _key(prefix, "attention.output.LayerNorm")),
+            **dense_state(p["mlp"]["fc1"], _key(prefix, "intermediate.dense")),
+            **dense_state(p["mlp"]["fc2"], _key(prefix, "output.dense")),
+            **norm_state(p["norm2"], _key(prefix, "output.LayerNorm"))}
+
+
+def teacher_state(p: Mapping, prefix: str, arch: str = "vit") -> StateDict:
+    """A PromptedTeacher's params (flax ``visual_embed``) of ``arch`` ('vit',
+    'clip' or 'bert') -> the reference's sibling keys of the tokenizer
+    (``teacher_rules``, ``clip_teacher_rules``, ``bert_teacher_rules``,
+    ``torch_convert.py:197-343``): timm blocks ``visual_embed.0.N`` and norm
+    ``.1``; CLIP ``ln_pre`` ``.0``, resblocks ``.1.N``, ``ln_post`` ``.2``;
+    BERT layers ``visual_embed.0.layer.N``."""
     sd = {**dense_state(p["proj_pre"], _key(prefix, "proj_pre")),
           **dense_state(p["proj_post"], _key(prefix, "proj_post")),
           **dense_state(p["pos_fc1"], _key(prefix, "visual_pos_embed.0")),
-          **dense_state(p["pos_fc2"], _key(prefix, "visual_pos_embed.2")),
-          **norm_state(p["norm"], _key(prefix, "visual_embed.1"))}
+          **dense_state(p["pos_fc2"], _key(prefix, "visual_pos_embed.2"))}
     for name in ("visual_prompt_token", "visual_prompt_pos", "deep_prompt_tokens",
                  "deep_prompt_pos"):
         if name in p:
             sd[_key(prefix, name)] = _t(p[name])
-    sd.update(blocks_state(p, _key(prefix, "visual_embed.0")))
+    ve = _key(prefix, "visual_embed")
+    blocks, block_fn = {"vit": (f"{ve}.0", block_state), "clip": (f"{ve}.1", clip_block_state),
+                        "bert": (f"{ve}.0.layer", bert_block_state)}[arch]
+    sd.update(blocks_state(p, blocks, block_fn))
+    if arch == "vit":
+        sd.update(norm_state(p["norm"], f"{ve}.1"))
+    elif arch == "clip":
+        sd.update(norm_state(p["ln_pre"], f"{ve}.0"))
+        sd.update(norm_state(p["ln_post"], f"{ve}.2"))
     return sd
 
 
-def tokenizer_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
+def tokenizer_state(p: Mapping, stats: Mapping, prefix: str, arch: str = "vit") -> StateDict:
     """A dVAE's params but the FoldingNet decoder (all of Stage II's
-    tokenizer). ``dgcnn_2``, the codebook and the teacher only where the
-    tree has them: flax creates no parameters for a submodule that never
-    runs, and ACT_PointBERT runs only the encoder and ``dgcnn_1``."""
+    tokenizer), its teacher of ``arch``. ``dgcnn_2``, the codebook and the
+    teacher only where the tree has them: flax creates no parameters for a
+    submodule that never runs, and ACT_PointBERT runs only the encoder and
+    ``dgcnn_1``."""
     sd = {**encoder_state(p["encoder"], stats["encoder"], _key(prefix, "encoder")),
           **dgcnn_state(p["dgcnn_1"], _key(prefix, "dgcnn_1"))}
     if "dgcnn_2" in p:
@@ -202,7 +248,7 @@ def tokenizer_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
     if "codebook" in p:
         sd[_key(prefix, "codebook")] = _t(p["codebook"])
     if "visual_embed" in p:
-        sd.update(teacher_state(p["visual_embed"], prefix))
+        sd.update(teacher_state(p["visual_embed"], prefix, arch))
     return sd
 
 
@@ -222,11 +268,11 @@ def folding_decoder_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
     }
 
 
-def dvae_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
-    """A JAX Stage-I dVAE's (params, batch_stats) (``DiscreteVAE`` or the
-    ViT-prompted one) -> the port's state dict, the inverse of
-    ``torch_convert.dvae_rules`` (``torch_convert.py:346``)."""
-    sd = tokenizer_state(params, batch_stats, "")
+def dvae_state_dict(params: Mapping, batch_stats: Mapping, arch: str = "vit") -> StateDict:
+    """A JAX Stage-I dVAE's (params, batch_stats) (``DiscreteVAE`` or a
+    prompted one, its teacher of ``arch``) -> the port's state dict, the
+    inverse of ``torch_convert.dvae_rules`` (``torch_convert.py:346``)."""
+    sd = tokenizer_state(params, batch_stats, "", arch)
     sd.update(folding_decoder_state(params["decoder"], batch_stats["decoder"], "decoder"))
     return sd
 

@@ -29,7 +29,7 @@ from act_tpu_torch.models.common import (Dense, GroupEncoder, LayerNorm, PosEmbe
                                          Rngs, TransformerDecoder, TransformerEncoder,
                                          dtype_from_cfg, init_weights, rng,
                                          trunc_normal_)
-from act_tpu_torch.models.dvae import ACTPromptedDiscreteVAEwithVIT
+from act_tpu_torch.models.dvae import stage_two_tokenizer
 from act_tpu_torch.models.teacher import init_teacher_prompts
 from act_tpu_torch.utils.config import as_cfg
 
@@ -309,7 +309,7 @@ class ACT_PointDistillation(nn.Module):
         self.cls_loss = bool(tc.get("cls_loss", False))
         self.shallow_hook = int(tc.get("register_shallow_hook", -1))
         self.ACT_encoder = VisableOnlyMaskTransformer(cfg)
-        self.dvae_tokenizer = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config, decoder=False)
+        self.dvae_tokenizer = stage_two_tokenizer(cfg.dvae_config)
         if tc.get("proj", "linear") in ("linear", "conv"):
             self.proj_head = Dense(C, cfg.dvae_config.tokens_dims)
         else:
@@ -441,7 +441,7 @@ class ACT_PointBERT(nn.Module):
         self.group_size = cfg.dvae_config.group_size
         self.transformer_q = MaskTransformer(cfg)
         self.transformer_k = MaskTransformer(cfg)
-        self.dvae = ACTPromptedDiscreteVAEwithVIT(cfg.dvae_config, decoder=False)
+        self.dvae = stage_two_tokenizer(cfg.dvae_config)
         self.register_buffer("queue", torch.empty(self.cls_dim, self.K))
         self.register_buffer("queue_ptr", torch.zeros(1, dtype=torch.long))
 

@@ -263,13 +263,36 @@ class Attention(nn.Module):
                 B, N, 2, H, C // H).permute(2, 0, 3, 1, 4)
         else:
             q, k, v = dense(x, w, b, dt).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        attn = torch.matmul(q, k.transpose(-2, -1)) * self.scale
-        attn = torch.softmax(attn.to(torch.float32), dim=-1).to(x.dtype)
-        ct = torch.promote_types(attn.dtype, v.dtype)
-        ctx = torch.matmul(attn.to(ct), v.to(ct))  # (B, H, Nq, hd)
-        ctx = ctx.transpose(1, 2).reshape(B, q.shape[2], C)
-        return dense(ctx, self.proj.weight, self.proj.bias,
-                     self.proj.compute_dtype or self.proj.weight.dtype)
+        return head_proj(attend(q, k, v, self.scale, x.dtype), self.proj.weight,
+                         self.proj.bias, self.proj.compute_dtype)
+
+
+def head_proj(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A projection of the JAX attention (``_QKVProj``, ``_HeadMergeProj``):
+    emitted in the compute dtype, else in the weight's (a frozen bf16 weight
+    keeps its dtype under an f32 config)."""
+    return dense(x, weight, bias, dtype or weight.dtype)
+
+
+def split_heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, C) -> (B, H, N, C / H)."""
+    B, N, C = y.shape
+    return y.reshape(B, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, Nq, hd) queries over (B, H, N, hd) keys and values -> the
+    merged (B, Nq, C) context. The softmax runs in f32 and is cast to
+    ``dtype`` (the attention input's), so the weighted sum of v runs in the
+    promoted type (``common.py:186-196``)."""
+    attn = torch.matmul(q, k.transpose(-2, -1)) * scale
+    attn = torch.softmax(attn.to(torch.float32), dim=-1).to(dtype)
+    ct = torch.promote_types(attn.dtype, v.dtype)
+    ctx = torch.matmul(attn.to(ct), v.to(ct))  # (B, H, Nq, hd)
+    B, H, Nq, hd = ctx.shape
+    return ctx.transpose(1, 2).reshape(B, Nq, H * hd)
 
 
 class Block(nn.Module):
@@ -293,6 +316,90 @@ class Block(nn.Module):
         h = self.attn(self.norm1(x), q_keep_from)
         x = x[:, q_keep_from:] + self.drop_path(h, rngs)
         return x + self.drop_path(self.mlp(self.norm2(x)), rngs)
+
+
+class CLIPAttention(nn.Module):
+    """CLIP's ``nn.MultiheadAttention`` parameters (fused ``in_proj_weight``
+    (3C, C) and ``in_proj_bias`` rows q | k | v, ``out_proj``) run per sample
+    with :class:`Attention`'s numerics (``clip_block_rules``,
+    ``torch_convert.py:168-195``)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = Dense(dim, dim, dtype=dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
+        C, H, dt = x.shape[-1], self.num_heads, self.compute_dtype
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q, k, v = (split_heads(head_proj(x[:, q_keep_from:] if i == 0 else x,
+                                         w[i * C:(i + 1) * C], b[i * C:(i + 1) * C], dt), H)
+                   for i in range(3))
+        return head_proj(attend(q, k, v, self.scale, x.dtype), self.out_proj.weight,
+                         self.out_proj.bias, dt)
+
+
+class CLIPBlock(nn.Module):
+    """CLIP's ResidualAttentionBlock (``act_tpu/models/teacher.py:48-68``):
+    pre-LN (eps 1e-5), the fused-projection attention, a QuickGELU MLP
+    ``h * sigmoid(1.702 h)`` at every dtype; keys ``ln_1``, ``attn.*``,
+    ``ln_2``, ``mlp.c_fc``, ``mlp.c_proj``. ``q_keep_from`` as in
+    :class:`Block`."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim, eps=1e-5)
+        self.attn = CLIPAttention(dim, num_heads, dtype)
+        self.ln_2 = LayerNorm(dim, eps=1e-5)
+        self.mlp = nn.ModuleDict(dict(c_fc=Dense(dim, 4 * dim, dtype=dtype),
+                                      c_proj=Dense(4 * dim, dim, dtype=dtype)))
+
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
+        x = x[:, q_keep_from:] + self.attn(self.ln_1(x), q_keep_from)
+        h = self.mlp["c_fc"](self.ln_2(x))
+        return x + self.mlp["c_proj"](h * torch.sigmoid(1.702 * h))
+
+
+class PostLNBlock(nn.Module):
+    """BERT's post-LN layer (``act_tpu/models/teacher.py:25-45``) in
+    HuggingFace's ``BertLayer`` key layout (``bert_block_rules``,
+    ``torch_convert.py:255-288``): separate ``attention.self.{query,key,
+    value}``, ``attention.output.dense`` and ``.LayerNorm``,
+    ``intermediate.dense``, ``output.dense`` and ``.LayerNorm`` (eps 1e-12).
+    The MLP's GELU follows :class:`Mlp`'s dtype rule. With ``q_keep_from``
+    the first norm takes ``x[:, q_keep_from:] + h``."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: Optional[torch.dtype] = None, ln_eps: float = 1e-12):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.compute_dtype = dtype
+        hidden = int(dim * mlp_ratio)
+        self.attention = nn.ModuleDict(dict(
+            self=nn.ModuleDict({n: Dense(dim, dim, dtype=dtype) for n in ("query", "key", "value")}),
+            output=nn.ModuleDict(dict(dense=Dense(dim, dim, dtype=dtype),
+                                      LayerNorm=LayerNorm(dim, eps=ln_eps)))))
+        self.intermediate = nn.ModuleDict(dict(dense=Dense(dim, hidden, dtype=dtype)))
+        self.output = nn.ModuleDict(dict(dense=Dense(hidden, dim, dtype=dtype),
+                                         LayerNorm=LayerNorm(dim, eps=ln_eps)))
+        self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
+        H, dt = self.num_heads, self.compute_dtype
+        sa, out = self.attention["self"], self.attention["output"]
+        q, k, v = (split_heads(head_proj(x[:, q_keep_from:] if n == "query" else x,
+                                         sa[n].weight, sa[n].bias, dt), H)
+                   for n in ("query", "key", "value"))
+        h = head_proj(attend(q, k, v, self.scale, x.dtype), out["dense"].weight,
+                      out["dense"].bias, dt)
+        x = out["LayerNorm"](x[:, q_keep_from:] + h)
+        h = F.gelu(self.intermediate["dense"](x), approximate=self.approximate)
+        return self.output["LayerNorm"](x + self.output["dense"](h))
 
 
 def drop_path_rates(rate: float, depth: int) -> List[float]:
@@ -530,6 +637,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 lecun_normal_(m.weight, m.weight.shape[1], generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, CLIPAttention):
+                lecun_normal_(m.in_proj_weight, m.in_proj_weight.shape[1], generator)
+                m.in_proj_bias.zero_()
             elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.GroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -9,8 +9,8 @@ uniform).
 ``ACTPromptedDiscreteVAEwithVIT`` is also Stage II's frozen tokenizer, which
 only runs :meth:`forward_tokenizer_features`. In flax a submodule that is never
 called has no parameters, so the JAX Stage-II tokenizer has no ``decoder``;
-``decoder=False`` builds it the same way here. A ``clip_*`` teacher raises (not
-ported yet).
+``decoder=False`` builds it the same way here; :func:`stage_two_tokenizer`
+builds it and refuses a BERT dVAE config.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from act_tpu_torch.models.build import MODELS
 from act_tpu_torch.models.common import (DGCNN, FoldingDecoder, GroupEncoder, Rngs,
                                          dtype_from_cfg, gumbel_softmax_from_u,
                                          init_weights, rng)
-from act_tpu_torch.models.teacher import add_teacher, init_teacher_prompts, teacher_forward
+from act_tpu_torch.models.teacher import (add_teacher, init_teacher_prompts, teacher_arch,
+                                          teacher_forward)
 from act_tpu_torch.utils.config import as_cfg
 
 
@@ -147,19 +148,50 @@ class DiscreteVAE(_DVAEBase):
     models/dvae.py:278-357; ``cfgs/autoencoder/pointbert_dvae.yaml``)."""
 
 
+def _add_prompted_teacher(m: nn.Module, cfg, dtype, arch: str) -> None:
+    m.has_teacher = True
+    add_teacher(m, int(cfg.visual_embed_dim), int(cfg.get("visual_embed_depth", 12)),
+                int(cfg.get("visual_embed_heads", 12)), cfg.tokens_dims,
+                cfg.num_prompt_token, cfg.use_deep_prompt, arch=arch, dtype=dtype)
+
+
 @MODELS.register_module()
 class ACTPromptedDiscreteVAEwithVIT(_DVAEBase):
-    """dVAE with a frozen, deep-prompt-tuned ViT between the codebook and
-    dgcnn_2 (``visual_embed_pos=after_dgcnn1``). ``visual_embed_dim: none``
-    leaves the teacher out."""
+    """dVAE with a frozen, deep-prompt-tuned 2D image Transformer between the
+    codebook and dgcnn_2 (``visual_embed_pos=after_dgcnn1``): CLIP's visual
+    transformer for a ``clip_*`` ``visual_embed_type``, else a timm ViT
+    (reference dvae.py:394-410). ``visual_embed_dim: none`` leaves the
+    teacher out."""
 
     def _add_teacher(self, cfg, dtype) -> None:
         ved = cfg.get("visual_embed_dim", "none")
-        self.has_teacher = not (ved is None or str(ved).lower() in ("none", "null", ""))
-        if self.has_teacher:
-            embed_type = str(cfg.get("visual_embed_type", "vit_base_patch16_224"))
-            add_teacher(self, int(ved), int(cfg.get("visual_embed_depth", 12)),
-                        int(cfg.get("visual_embed_heads", 12)), cfg.tokens_dims,
-                        cfg.num_prompt_token, cfg.use_deep_prompt,
-                        arch="clip" if embed_type.lower().startswith("clip") else "vit",
-                        dtype=dtype)
+        if not (ved is None or str(ved).lower() in ("none", "null", "")):
+            _add_prompted_teacher(self, cfg, dtype, teacher_arch(
+                cfg.get("visual_embed_type", "vit_base_patch16_224")))
+
+
+@MODELS.register_module()
+class ACTPromptedDiscreteVAEwithBERT(_DVAEBase):
+    """The same with a frozen BERT-style (post-LN) language-model teacher
+    (reference models/dvae.py:617-857; ``act_tpu/models/dvae.py:203-219``)."""
+
+    def _add_teacher(self, cfg, dtype) -> None:
+        _add_prompted_teacher(self, cfg, dtype, "bert")
+
+
+def stage_two_tokenizer(dvae_cfg) -> ACTPromptedDiscreteVAEwithVIT:
+    """Stage II's frozen tokenizer (no decoder): ``ACTPromptedDiscreteVAEwithVIT``
+    whatever ``dvae_config.NAME`` says, as the JAX package builds it
+    (``act_tpu/models/act.py:371-372, 501``), so a ViT or CLIP Stage-I
+    checkpoint loads strict. A ``...withBERT`` config raises: the JAX package
+    would load its BERT layers into pre-LN ViT blocks with a random final
+    norm, without an error, and distil from another function than the one
+    Stage I trained (ROADMAP.md §3, fault (a))."""
+    if "bert" in str(as_cfg(dvae_cfg).get("NAME", "")).lower():
+        raise ValueError(
+            f"dvae_config.NAME = {dvae_cfg.get('NAME')}: Stage II's tokenizer is "
+            "ACTPromptedDiscreteVAEwithVIT for every dvae_config (act_tpu/models/act.py:371), "
+            "so a BERT teacher's post-LN layers would run as pre-LN ViT blocks with a random "
+            "final norm (fault (a) of the JAX package, ROADMAP.md section 3); the port refuses "
+            "a BERT tokenizer in Stage II")
+    return ACTPromptedDiscreteVAEwithVIT(dvae_cfg, decoder=False)

@@ -1,12 +1,15 @@
-"""Minimal HTTP inference server for the port's classifier, segmentation and
-pretrain (features) models.
+"""Minimal HTTP inference server for the port's classifier, segmentation,
+pretrain (features) and Stage-I dVAE (tokenize, dvae) models.
 
 Stdlib only (http.server), the same contract as ``tools/serve_http.py`` for
-the classifier, features and segmentation kinds, but run from a config (or a
-task) and an optional reference checkpoint instead of an exported artifact.
-A pretrain config (ACT_PointDistillation or ACT_PointBERT) serves the
-features kind: the student's cls features, clouds of another point count
-than the config's ``npoints`` (else its val split's) resampled by FPS:
+every kind, but run from a config (or a task) and an optional reference
+checkpoint instead of an exported artifact. A pretrain config
+(ACT_PointDistillation or ACT_PointBERT) serves the features kind: the
+student's cls features, clouds of another point count than the config's
+``npoints`` (else its val split's) resampled by FPS. A Stage-I config (a
+``DVAE_MODELS`` name) serves ``--kind tokenize`` (the default: the (B, G)
+codebook ids) or ``--kind dvae`` (the (B, G*M, 3) reconstruction), on
+clouds of exactly the config's ``npoints`` points:
 
   python -m act_tpu_torch.serve_http \
       --config cfgs/finetune_classification/full/finetune_modelnet.yaml \
@@ -15,17 +18,23 @@ than the config's ``npoints`` (else its val split's) resampled by FPS:
       [--ckpts ckpt-best.pth] --port 8080                      # features
   python -m act_tpu_torch.serve_http --task partseg|semseg [--npoint 2048] \
       [--num_group 128] [--ckpts model.pth] [--device cuda] --port 8080
+  python -m act_tpu_torch.serve_http \
+      --config cfgs/autoencoder/act_dvae_with_pretrained_transformer.yaml \
+      [--kind tokenize|dvae] [--ckpts ckpt-best.pth] --port 8080   # Stage-I dVAE
 
   POST /predict   {"points": [[[x,y,z], ...], ...]}   # (B, N, 3)
       -> classifier:   {"logits": [...], "argmax": [...]}
          features:     {"features": [...]}              # (B, cls_dim)
+         tokenize:     {"tokens": [...]}                # (B, G) int codebook ids
+         dvae:         {"recon": [...]}                 # (B, G*M, 3)
          segmentation: {"labels": [...]}                # (B, N) per-point classes
              (+ "log_probs" with "return_log_probs": true; part segmentation
               also requires "cls_label": (B,) ids or a (B, 16) one-hot)
   GET  /healthz   -> {"ok": true, ...meta}
 
-Malformed requests (wrong shape, non-finite coordinates, a category id
-outside [0, 16)) get 400; dispatch to the model is serialized by a lock.
+Malformed requests (wrong shape, another point count where the model takes
+exactly ``npoints``, non-finite coordinates, a category id outside [0, 16))
+get 400; dispatch to the model is serialized by a lock.
 """
 from __future__ import annotations
 
@@ -39,6 +48,9 @@ from typing import Callable
 
 import numpy as np
 
+# Stage-I dVAE configs, served by the tokenize and dvae kinds
+DVAE_MODELS = ("DiscreteVAE", "ACTPromptedDiscreteVAEwithVIT", "ACTPromptedDiscreteVAEwithBERT")
+DVAE_KINDS = ("tokenize", "dvae")
 
 def cls_label_one_hot(label, batch: int, n_cat: int) -> np.ndarray:
     """A request's ``cls_label``, (B,) category ids or a (B, n_cat) one-hot,
@@ -90,8 +102,10 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
                 if meta.get("num_categories"):  # part segmentation
                     extra = (cls_label_one_hot(req["cls_label"], pts.shape[0],
                                                int(meta["num_categories"])),)
+                kind = meta.get("kind")
                 with lock:  # one model, serialized dispatch
-                    out = fn(pts, *extra).float().cpu().numpy()
+                    out = fn(pts, *extra)
+                    out = (out if kind == "tokenize" else out.float()).cpu().numpy()
             except (ValueError, KeyError, TypeError) as e:  # client errors
                 self._send(400, {"error": f"{type(e).__name__}: {e}"})
                 return
@@ -99,13 +113,17 @@ def make_handler(fn: Callable, meta: dict, lock: threading.Lock):
                 traceback.print_exc(file=sys.stderr)
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            if meta.get("kind") == "segmentation":
+            if kind == "segmentation":
                 # per-point labels; the (B, N, C) log-probs only on request
                 resp = {"labels": out.argmax(-1).tolist()}
                 if req.get("return_log_probs"):
                     resp["log_probs"] = out.tolist()
-            elif meta.get("kind") == "features":
+            elif kind == "features":
                 resp = {"features": out.tolist()}
+            elif kind == "tokenize":
+                resp = {"tokens": out.tolist()}
+            elif kind == "dvae":
+                resp = {"recon": out.tolist()}
             else:
                 resp = {"logits": out.tolist(), "argmax": out.argmax(-1).tolist()}
             self._send(200, resp)
@@ -121,7 +139,8 @@ def make_server(fn: Callable, meta: dict, host: str = "127.0.0.1",
     """An HTTP server answering with ``fn`` ((B, N, 3) numpy -> logits
     tensor; for ``meta['kind'] == 'features'`` features; for
     ``'segmentation'`` log-probs, with the (B, 16) one-hot as a second
-    argument where ``meta['num_categories']`` is set); port 0 takes a free
+    argument where ``meta['num_categories']`` is set; for ``'tokenize'``
+    integer ids; for ``'dvae'`` the reconstruction); port 0 takes a free
     one (``server.server_address[1]``)."""
     return ThreadingHTTPServer((host, port),
                                make_handler(fn, meta, threading.Lock()))
@@ -141,15 +160,18 @@ def seg_meta(model, task: str, npoint: int) -> dict:
 
 def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080,
           device="cuda", seed: int = 0, task=None, npoint: int = 2048,
-          num_group: int = 128) -> ThreadingHTTPServer:
+          num_group: int = 128, kind=None) -> ThreadingHTTPServer:
     """A server of the classifier of ``config`` (requests resampled to its
     ``npoints`` by FPS); of the features of a pretrain ``config``
     (``build_pretrain_model``: seeded weights or a Stage-II checkpoint;
-    ``npoints`` the config's, else its val split's, the SVM probe's); or,
-    with ``task`` ('partseg' or 'semseg'), of that segmentation model on
-    clouds of exactly ``npoint`` points."""
+    ``npoints`` the config's, else its val split's, the SVM probe's); of a
+    Stage-I dVAE ``config``'s ``kind`` ('tokenize', the default, or 'dvae';
+    ``load_model``: seeded weights or a Stage-I checkpoint) on clouds of
+    exactly its ``npoints``; or, with ``task`` ('partseg' or 'semseg'), of
+    that segmentation model on clouds of exactly ``npoint`` points."""
     from act_tpu_torch.engine.runner_pretrain import TOKENIZERS, build_pretrain_model
-    from act_tpu_torch.engine.serve import (build_features_fn, build_infer_fn, load_config,
+    from act_tpu_torch.engine.serve import (build_features_fn, build_infer_fn,
+                                            build_recon_fn, build_tokenize_fn, load_config,
                                             load_model, load_seg_model)
     from act_tpu_torch.ops import resolve_device
 
@@ -158,6 +180,19 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
         return make_server(build_infer_fn(model, int(npoint), with_fps=False),
                            seg_meta(model, task, npoint), host, port)
     cfg = load_config(config)
+    if cfg.model.NAME in DVAE_MODELS:  # a Stage-I dVAE: its tokens or reconstruction
+        kind = kind or "tokenize"
+        if kind not in DVAE_KINDS:
+            raise ValueError(f"a dVAE serves the kinds {DVAE_KINDS}, not {kind!r}")
+        model = load_model(cfg, ckpt_path, seed=seed, device=device)
+        npoints = int(cfg.npoints)
+        build = build_tokenize_fn if kind == "tokenize" else build_recon_fn
+        meta = {"kind": kind, "model": cfg.model.NAME, "npoints": npoints,
+                "num_group": int(cfg.model.num_group), "group_size": int(cfg.model.group_size),
+                "device": str(next(model.parameters()).device)}
+        return make_server(build(model, npoints), meta, host, port)
+    if kind is not None:
+        raise ValueError(f"--kind {kind} serves a Stage-I dVAE config, not {cfg.model.NAME}")
     if cfg.model.NAME in TOKENIZERS:  # a pretrain model: its features
         dev = resolve_device(device)
         model = build_pretrain_model(cfg.model, seed, ckpt_path).to(dev).eval()
@@ -175,7 +210,10 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--config", default=None,
-                   help="finetune YAML (the classifier) or pretrain YAML (features)")
+                   help="finetune YAML (the classifier), pretrain YAML (features) or "
+                        "Stage-I YAML (the dVAE)")
+    p.add_argument("--kind", choices=DVAE_KINDS, default=None,
+                   help="what a Stage-I dVAE config serves (default tokenize)")
     p.add_argument("--task", choices=("partseg", "semseg"), default=None,
                    help="serve a segmentation model instead of a classifier")
     p.add_argument("--npoint", type=int, default=2048, help="points a segmentation cloud")
@@ -189,7 +227,7 @@ def main():
     if (args.config is None) == (args.task is None):
         p.error("give one of --config (a classifier) and --task (segmentation)")
     server = serve(args.config, args.ckpts, args.host, args.port, args.device, args.seed,
-                   args.task, args.npoint, args.num_group)
+                   args.task, args.npoint, args.num_group, args.kind)
     print(f"serving {args.config or args.task} on "
           f"http://{args.host}:{server.server_address[1]}")
     server.serve_forever()

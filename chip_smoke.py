@@ -208,6 +208,18 @@ PB_GRAD_KEYS = ("transformer_q.lm_head.weight", "transformer_q.cls_head.2.weight
                 "transformer_q.blocks.blocks.0.attn.qkv.weight", "transformer_q.mask_token",
                 "transformer_q.pos_embed.0.weight", "transformer_q.encoder.first_conv.0.weight")
 PB_EMA_STEPS, PB_RUN_STEPS = 3, 3
+# the dVAE tokenizer and its teachers (phases 33-35): the served Stage-I config
+# at B=1 and TOK_B clouds of 1024 points; a request's launches (group_points'
+# FPS, k=32 kNN and two gathers, then dgcnn_1's k=4 kNN; recon adds dgcnn_2's)
+TOK_B, TOK_HTTP_B = 32, 2
+TOKENIZE_PER_REQUEST = {"fps": 1, "k_smallest": 2, "gather": 2}
+RECON_PER_REQUEST = {"fps": 1, "k_smallest": 3, "gather": 2}
+# the Stage-I config's teacher swapped (visual_embed_type clip_* selects CLIP's
+# visual transformer, reference dvae.py:394-410; the BERT class, dvae.py:617)
+TEACHER_ARCHS = {"clip": dict(visual_embed_type="clip_ViT-B/16"),
+                 "bert": dict(NAME="ACTPromptedDiscreteVAEwithBERT",
+                              visual_embed_type="bert-base-uncased")}
+TK_S1_STEPS, TK_S2_STEPS = 3, 2
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -597,6 +609,58 @@ def stage_two(dev, device_ms, kernel_events, measure):
     return rows, errs, launches
 
 
+def stage1_paths_agree(model, clouds, temp, kldw, dev, tag) -> None:
+    """Phase 12's check of a full-width Stage-I dVAE: one train-mode loss and
+    backward through the kernels (launches checked) and one through the plain
+    versions (patched into ``act_tpu_torch.ops`` and ``ops.chamfer``), from
+    the same generators; the losses within LOSS_ATOL, the gradients of
+    DOWNSTREAM_KEYS within GRAD_RTOL and those of UPSTREAM_KEYS within
+    SPREAD_FACTOR times the spread of two kernel-path runs."""
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.engine.train_state import step_rngs
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import chamfer as chamfer_mod
+
+    grad_keys = DOWNSTREAM_KEYS + UPSTREAM_KEYS
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        recon, kld = model.get_loss(model(clouds, temp, False, rngs=step_rngs(0, 0, dev)))
+        loss = recon + kldw * kld.float()
+        loss.backward()
+        return loss.item(), {k: model.get_parameter(k).grad.float() for k in grad_keys}
+    _backend.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    check_launches(f"{tag}: dVAE loss and backward through the kernels",
+                   dict(_backend.LAUNCHES), STAGE1_PER_STEP, 1)
+    _, again = loss_and_grads()
+    spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in grad_keys}
+    _backend.reset_launches()
+    with patched(ops, group_points=ops.group_points_ref,
+                 graph_feature_idx=ops.graph_feature_idx_ref), \
+            patched(chamfer_mod, nn_pair=ops.chamfer_ref, nn_pair_min=ops.chamfer_min_ref,
+                    chamfer_bwd=ops.chamfer_bwd_ref):
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    if any(_backend.LAUNCHES.values()):
+        fail(f"{tag}: the plain-version dVAE loss launched kernels: {_backend.LAUNCHES}")
+    rel = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()) for k in grad_keys}
+    limit = {k: GRAD_RTOL if k in DOWNSTREAM_KEYS else max(GRAD_RTOL, SPREAD_FACTOR * spread[k])
+             for k in grad_keys}
+    print(f"[{tag}] train-mode loss through the kernels {loss_k}, through the plain versions "
+          f"{loss_p}: |diff| {abs(loss_k - loss_p)} (tolerance {LOSS_ATOL}); gradients, "
+          f"relative L2 difference: {rel}; two kernel-path runs differ by {spread}; "
+          f"tolerance ({GRAD_RTOL} on the loss's side of the teacher, {SPREAD_FACTOR} x that "
+          f"spread upstream of it): {limit}", flush=True)
+    bad = [k for k in grad_keys if not rel[k] <= limit[k]]
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_ATOL and not bad):
+        fail(f"{tag}: Stage-I loss and backward: kernel path and plain path disagree ({bad})")
+    model.zero_grad(set_to_none=True)
+
+
 def stage_one(dev, device_ms, kernel_events, measure):
     """Phases 11-14: FPS and k-smallest at the Stage-I shapes and the Chamfer
     kernels against their plain versions, the
@@ -719,43 +783,8 @@ def stage_one(dev, device_ms, kernel_events, measure):
           f"frozen teacher backbone and the folded conv biases), dtype bf16, built in "
           f"{time.perf_counter() - t0:.2f} s; synthetic clouds {tuple(clouds.shape)}; "
           f"temperature {temp}, KLD weight {kldw} (iteration {S1_START_ITR})", flush=True)
-    grad_keys = DOWNSTREAM_KEYS + UPSTREAM_KEYS
-
-    def loss_and_grads():
-        model.zero_grad(set_to_none=True)
-        model.train()
-        recon, kld = model.get_loss(model(clouds, temp, False, rngs=step_rngs(0, 0, dev)))
-        loss = recon + kldw * kld.float()
-        loss.backward()
-        return loss.item(), {k: model.get_parameter(k).grad.float() for k in grad_keys}
-    _backend.reset_launches()
-    loss_k, grads_k = loss_and_grads()
-    torch.cuda.synchronize()
-    check_launches("dVAE loss and backward through the kernels", dict(_backend.LAUNCHES),
-                   STAGE1_PER_STEP, 1)
-    _, again = loss_and_grads()
-    spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in grad_keys}
-    _backend.reset_launches()
-    with patched(ops, group_points=ops.group_points_ref,
-                 graph_feature_idx=ops.graph_feature_idx_ref), \
-            patched(chamfer_mod, nn_pair=ops.chamfer_ref, nn_pair_min=ops.chamfer_min_ref,
-                    chamfer_bwd=ops.chamfer_bwd_ref):
-        loss_p, grads_p = loss_and_grads()
-    torch.cuda.synchronize()
-    if any(_backend.LAUNCHES.values()):
-        fail(f"the plain-version dVAE loss launched kernels: {_backend.LAUNCHES}")
-    rel = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()) for k in grad_keys}
-    limit = {k: GRAD_RTOL if k in DOWNSTREAM_KEYS else max(GRAD_RTOL, SPREAD_FACTOR * spread[k])
-             for k in grad_keys}
-    print(f"[stage1] train-mode loss through the kernels {loss_k}, through the plain versions "
-          f"{loss_p}: |diff| {abs(loss_k - loss_p)} (tolerance {LOSS_ATOL}); gradients, "
-          f"relative L2 difference: {rel}; two kernel-path runs differ by {spread}; "
-          f"tolerance ({GRAD_RTOL} on the loss's side of the teacher, {SPREAD_FACTOR} x that "
-          f"spread upstream of it): {limit}", flush=True)
-    bad = [k for k in grad_keys if not rel[k] <= limit[k]]
-    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_ATOL and not bad):
-        fail(f"Stage-I loss and backward: kernel path and plain path disagree ({bad})")
-    del model, grads_k, grads_p, again
+    stage1_paths_agree(model, clouds, temp, kldw, dev, "stage1")
+    del model
 
     # -- 13. run_autoencoder_steps: the train steps of the main path ----------
     steps = S1_WARM_STEPS + S1_TIMED_STEPS
@@ -2322,23 +2351,330 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     return rows, errs, launches
 
 
-def pointbert_in_child():
-    """Phases 29-32 in a child process (``chip_smoke.py --pointbert OUT``),
-    where the profiler's windows are whole: late windows of a long process
-    come back incomplete, and its heavy windows would cost the later phases
-    theirs. The child loads the kernels this process built and writes its
-    timing rows, errors and launch counts to OUT; returns them."""
+def teacher_config(arch):
+    """``act_dvae_with_pretrained_transformer.yaml`` with the teacher of
+    ``arch`` (``TEACHER_ARCHS``): CLIP ViT-B/16's visual transformer or
+    bert-base, 768 x 12, 12 heads, the 64 deep prompts, B=64, bf16."""
+    from act_tpu_torch.engine.serve import load_config
+    cfg = load_config(AUTOENCODER_CONFIG)
+    cfg.model.update(TEACHER_ARCHS[arch])
+    return cfg
+
+
+def tokenizer(dev, device_ms, kernel_events, measure):
+    """Phases 33-35, the dVAE tokenizer served and its CLIP and BERT teachers:
+    33, ``build_tokenize_fn`` and ``build_recon_fn`` of the full-width Stage-I
+    config (the ViT-B teacher, G=64 x M=32, 8192 tokens, bf16, seeded
+    weights) at B=1 and B=32 through the kernels and through the plain
+    versions, ``serve_http``'s tokenize and dvae kinds with a 400, the request
+    times and the kernel times at its shapes; 34, for each of the CLIP and
+    BERT teachers (``teacher_config``) phase 12's loss and backward check and
+    ``run_autoencoder_steps`` with the frozen backbone held bit for bit; 35,
+    Stage II (``pretrain_act_distill.yaml``, B=128) with the CLIP tokenizer
+    handed over from phase 34's ``.pth``: its features through the kernels
+    against the plain path, then ``run_steps``. Returns (timing rows by
+    kernel, errors, launches of each run)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tk_")
+    try:
+        return _tokenizer(dev, device_ms, kernel_events, measure, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tokenizer(dev, device_ms, kernel_events, measure, tmp):
+    import torch
+    from act_tpu_torch import ops, serve_http
+    from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.runner_autoencoder import (get_kld_weight, get_temp,
+                                                         prepare_model, run_autoencoder_steps)
+    from act_tpu_torch.engine.serve import (build_recon_fn, build_tokenize_fn, load_config,
+                                            load_model)
+    from act_tpu_torch.engine.train_state import autoencoder_step, pretrain_step, step_rngs
+    from act_tpu_torch.models.teacher import TEACHER_LAYOUT
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    cfg = load_config(AUTOENCODER_CONFIG)
+    npts, G, M = int(cfg.npoints), int(cfg.model.num_group), int(cfg.model.group_size)
+    errs, launches = {}, {}
+    clouds = torch.from_numpy(synthetic_batch(0, TOK_B, npts)).to(dev)
+
+    def plain_path():
+        return patched(ops, group_points=ops.group_points_ref,
+                       graph_feature_idx=ops.graph_feature_idx_ref)
+
+    def counted(tag, fn, plain=False):
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = dict(_backend.LAUNCHES)
+        if plain and any(launches[tag].values()):
+            fail(f"tokenizer {tag}: the plain path launched kernels: {launches[tag]}")
+        return out
+
+    # -- 33. serving: tokens and reconstructions through the kernels and the plain path
+    t_phase = t0 = time.perf_counter()
+    model = load_model(cfg, seed=0, device=dev)
+    fns = {"tokenize": build_tokenize_fn(model, npts), "dvae": build_recon_fn(model, npts)}
+    per_request = {"tokenize": TOKENIZE_PER_REQUEST, "dvae": RECON_PER_REQUEST}
+    print(f"[model] {AUTOENCODER_CONFIG} served: {sum(p.numel() for p in model.parameters())} "
+          f"params, dtype bf16, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    for kind, fn in fns.items():
+        fn(clouds[:2])  # warm-up
+        for b in (1, TOK_B):
+            x = clouds[:b]
+            tag = f"{kind} B={b}"
+            got = counted(tag, lambda: fn(x))
+            check_launches(f"tokenizer {tag}", launches[tag], per_request[kind], 1)
+            with plain_path():
+                want = counted(f"{tag}, plain", lambda: fn(x), plain=True)
+            with torch.no_grad():
+                n_sw = tie_swaps(ops.furthest_point_sample(x, G),
+                                 ops.furthest_point_sample_ref(x, G))
+            shape = (b, G) if kind == "tokenize" else (b, G * M, 3)
+            if tuple(got.shape) != shape or (kind == "dvae" and not torch.isfinite(got).all()):
+                fail(f"tokenizer {tag}: shape {tuple(got.shape)} (expected {shape}) or not finite")
+            if n_sw == 0:  # same groups in the same order: exact
+                same = torch.equal(got, want)
+            elif kind == "tokenize":  # a swap reorders two groups' ids
+                same = torch.equal(got.sort(-1).values, want.sort(-1).values)
+            else:
+                same = torch.equal(got.reshape(b, G, M, 3).sort(1).values,
+                                   want.reshape(b, G, M, 3).sort(1).values)
+            errs[f"tokenizer {tag}"] = 0.0 if kind == "tokenize" else float(
+                (got - want).abs().max())
+            codes = (f"{int(torch.unique(got).numel())} distinct codes; "
+                     if kind == "tokenize" else "")
+            print(f"[tokenizer] {tag} {tuple(got.shape)} {got.dtype} through the kernels "
+                  f"against the plain path: {'equal' if same else 'DIFFERENT'} (tolerance: "
+                  f"exact; {n_sw} FPS tie swaps); {codes}launches {launches[tag]}", flush=True)
+            if not same:
+                fail(f"tokenizer {tag}: kernel path and plain path disagree")
+        if not torch.equal(fn(clouds), fn(clouds)):
+            fail(f"tokenizer {kind}: two calls on the same clouds disagree")
+    for kind, fn in fns.items():
+        meta = {"kind": kind, "model": cfg.model.NAME, "npoints": npts, "num_group": G,
+                "group_size": M, "device": str(dev)}
+        server = serve_http.make_server(fn, meta, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+
+            def post(payload):
+                req = urllib.request.Request(url, data=json.dumps(payload).encode())
+                try:
+                    with urllib.request.urlopen(req, timeout=120) as resp:
+                        return resp.status, json.loads(resp.read())
+                except urllib.error.HTTPError as e:
+                    return e.code, json.loads(e.read())
+            batch = clouds[:TOK_HTTP_B]
+            t0 = time.perf_counter()
+            code, out = post({"points": batch.cpu().tolist()})
+            ms = (time.perf_counter() - t0) * 1e3
+            key = "tokens" if kind == "tokenize" else "recon"
+            direct = fn(batch).cpu()
+            same = code == 200 and torch.equal(torch.tensor(out[key], dtype=direct.dtype), direct)
+            code_bad, out_bad = post({"points": batch[:, :npts - 24].cpu().tolist()})
+            print(f"[http] {kind} request {tuple(batch.shape)}: {code}, equal to the direct call "
+                  f"{same}, {ms:.1f} ms with JSON; {npts - 24} points a cloud: {code_bad} "
+                  f"{out_bad}", flush=True)
+            if not same or code_bad != 400:
+                fail(f"http {kind}: status {code}, another answer, or {code_bad} for a wrong "
+                     "point count")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    print(f"[time] card: {card_line()}", flush=True)
+    for kind, fn in fns.items():
+        for b in (1, TOK_B):
+            lat = request_ms(lambda b=b: fn(clouds[:b]), 20)
+            med = statistics.median(lat)
+            print(f"[time] {kind} request B={b} ({npts} points each): median {med:.3f} ms, "
+                  f"min {min(lat):.3f}, max {max(lat):.3f} over 20; {b / med * 1e3:.1f} "
+                  f"clouds/s", flush=True)
+            busy_line(kernel_events, f"{kind} request B={b}", lambda b=b: fn(clouds[:b]), med)
+    with torch.inference_mode():
+        rc = ops.furthest_point_sample_ref(clouds, G)
+        centers = ops.gather_points(clouds, rc)
+        d_grp = ops.square_distance(centers, clouds).reshape(TOK_B * G, npts)
+        d_dg = ops.square_distance(centers, centers).reshape(TOK_B * G, G)
+        gathers = [(clouds, rc),
+                   (clouds, ops.k_smallest_ref(d_grp, M)[1].reshape(TOK_B, G * M))]
+        rows = {
+            "fps": [measure(
+                f"({TOK_B}, {npts}, 3)->{G} (tokenize, recon)",
+                lambda: ops.furthest_point_sample(clouds, G),
+                lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
+                bound_ms(clouds.numel() * 4 + TOK_B * G * 4, 10.0 * TOK_B * (G - 1) * npts))],
+            "k_smallest": [measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={kk} (tokenize x{n}, recon x{n + r})",
+                lambda d=d, kk=kk: ops.k_smallest(d, kk),
+                lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
+                lambda d=d, kk=kk: torch.topk(d, kk, dim=-1, largest=False, sorted=True),
+                100, 20, bound_ms(d.numel() * 4 + d.shape[0] * kk * 8, d.numel()), n)
+                for (d, kk), n, r in (((d_grp, M), 1, 0), ((d_dg, 4), 1, 1))],
+            "gather": [measure(
+                f"{tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read "
+                "(tokenize, recon)",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=i.long().reshape(TOK_B, -1, 1).expand(-1, -1, 3).contiguous():
+                torch.gather(p, 1, li), 200, 200,
+                bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12))
+                for p, i in gathers],
+        }
+    print_times("tokenizer B=32 ", rows)
+    del model, fns
+    torch.cuda.empty_cache()
+    print(f"[tokenizer] phase 33 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 34. Stage I with the CLIP and the BERT teacher -----------------------------
+    temp, kldw = get_temp(cfg, S1_START_ITR), get_kld_weight(cfg, S1_START_ITR)
+    s1_clouds = torch.from_numpy(synthetic_batch(0, int(cfg.total_bs),
+                                                 int(cfg.dataset.train.others.npoints))).to(dev)
+    clip_pth = os.path.join(tmp, "clip_dvae.pth")
+    for arch in TEACHER_ARCHS:
+        t_phase = t0 = time.perf_counter()
+        a_cfg = teacher_config(arch)
+        model = prepare_model(a_cfg, 0, dev)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        frozen = [k for k in init if k.startswith(tuple(f"{p}." for p in TEACHER_LAYOUT[arch][1]))]
+        n_all = sum(p.numel() for p in model.parameters())
+        n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+        print(f"[model] {AUTOENCODER_CONFIG} with {TEACHER_ARCHS[arch]}: {n_all} params "
+              f"({n_train} trainable; the {arch} backbone frozen, {len(frozen)} tensors, its "
+              f"blocks in bf16), built in {time.perf_counter() - t0:.2f} s", flush=True)
+        stage1_paths_agree(model, s1_clouds, temp, kldw, dev, f"stage1 {arch}")
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = counted(f"stage1 {arch} run_autoencoder_steps", lambda: run_autoencoder_steps(
+            a_cfg, TK_S1_STEPS, seed=0, start_itr=S1_START_ITR, device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"stage1 {arch} run_autoencoder_steps",
+                       launches[f"stage1 {arch} run_autoencoder_steps"], STAGE1_PER_STEP,
+                       TK_S1_STEPS)
+        after = run.model.state_dict()
+        frozen_same = all(torch.equal(after[k], init[k]) for k in frozen)
+        moved_keys = ["visual_prompt_token", "deep_prompt_tokens", "proj_pre.weight",
+                      "decoder.final_conv.6.weight"] + (
+            ["visual_embed.0.weight", "visual_embed.2.bias"] if arch == "clip" else [])
+        moved = {k: not torch.equal(after[k], init[k]) for k in moved_keys}
+        med = statistics.median(run.step_ms[1:])
+        print(f"[stage1 {arch}] run_autoencoder_steps losses {run.losses}; the frozen backbone "
+              f"bit-for-bit unchanged: {frozen_same}; moved: {moved}", flush=True)
+        if not (all(map(math.isfinite, run.losses)) and frozen_same and all(moved.values())):
+            fail(f"stage1 {arch}: a loss not finite, the frozen backbone moved or a trained "
+                 "tensor did not")
+
+        def step(i, run=run):
+            return autoencoder_step(run.model, run.optimizer, lambda s: 1e-6, s1_clouds, i,
+                                    step_rngs(0, i, dev), temp, kldw, a_cfg.grad_norm_clip)
+        print(f"[time] Stage-I step B={s1_clouds.shape[0]}, {arch} teacher: median {med:.3f} "
+              f"ms over steps 2-{TK_S1_STEPS}, all {[round(x, 3) for x in run.step_ms]}; "
+              f"{s1_clouds.shape[0] / med * 1e3:.1f} clouds/s; peak memory "
+              f"{peak / 2 ** 30:.3f} GiB", flush=True)
+        busy_line(kernel_events, f"Stage-I step, {arch} teacher", lambda: step(TK_S1_STEPS), med,
+                  top_n=8)
+        if arch == "clip":
+            torch.save({"base_model": run.model.state_dict()}, clip_pth)
+        del run
+        torch.cuda.empty_cache()
+        print(f"[stage1 {arch}] phase 34 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 35. Stage II with the CLIP tokenizer handed over from phase 34 ---------------
+    t_phase = time.perf_counter()
+    p_cfg = load_config(PRETRAIN_CONFIG)
+    p_cfg.model.dvae_config.update(TEACHER_ARCHS["clip"], ckpt=clip_pth)
+    model = rp.build_pretrain_model(p_cfg.model, seed=0)
+    n = rp.load_dvae_ckpt(model, p_cfg.model.dvae_config)
+    sd = model.state_dict()
+    model = rp.freeze_tokenizer(model, p_cfg).to(dev).eval()
+    tok = model.dvae_tokenizer
+    stage1 = torch.load(clip_pth, map_location=dev, weights_only=True)["base_model"]
+    same_blocks = all(torch.equal(p, stage1[k]) for k, p in tok.state_dict().items()
+                      if k.startswith("visual_embed.1."))
+    bs = int(p_cfg.total_bs)
+    s2_clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
+    feats = {}
+    with torch.no_grad():
+        nbr, ctr = ops.group_points(s2_clouds, G, M)
+        feats["kernel"] = counted("stage2 clip features", lambda: tok.forward_tokenizer_features(
+            nbr, ctr, rngs=step_rngs(0, 0, dev)))
+        with patched(ops, group_points=ops.group_points_ref,
+                     graph_feature_idx=ops.graph_feature_idx_ref,
+                     gumbel_argmax=ops.gumbel_argmax_ref):
+            nbr_p, ctr_p = ops.group_points(s2_clouds, G, M)
+            feats["plain"] = counted("stage2 clip features, plain",
+                                     lambda: tok.forward_tokenizer_features(
+                                         nbr_p, ctr_p, rngs=step_rngs(0, 0, dev)), plain=True)
+        n_sw = tie_swaps(ops.furthest_point_sample(s2_clouds, G),
+                         ops.furthest_point_sample_ref(s2_clouds, G))
+    check_launches("stage2 clip features", launches["stage2 clip features"],
+                   {"k_smallest": 2, "gumbel_argmax": 1}, 1)
+    diff = float((feats["kernel"] - feats["plain"]).abs().max())
+    tol = 0.0 if n_sw == 0 else FEAT_ATOL
+    errs["tokenizer stage2 clip features"] = diff
+    print(f"[stage2 clip] tokenizer from the Stage-I .pth: {n} tensors, its bf16 resblocks "
+          f"bit-equal to Stage I's {same_blocks}; features {tuple(feats['kernel'].shape)} (eval, "
+          f"the Gumbel kernel's draws from the same generator) through the kernels against the "
+          f"plain path: max |diff| {diff} (tolerance {tol}: {n_sw} FPS tie swaps)", flush=True)
+    if not (same_blocks and diff <= tol and torch.isfinite(feats["kernel"]).all()):
+        fail("stage2 clip: the handed-over tokenizer differs or kernel and plain paths disagree")
+    del model, tok, feats, nbr, ctr, nbr_p, ctr_p
+    torch.cuda.empty_cache()
+    run = counted("stage2 clip run_steps",
+                  lambda: rp.run_steps(p_cfg, TK_S2_STEPS, seed=0, device=dev, state_dict=sd))
+    check_launches("stage2 clip run_steps", launches["stage2 clip run_steps"], STAGE2_PER_STEP,
+                   TK_S2_STEPS)
+    after = run.model.dvae_tokenizer.state_dict()
+    tok_same = all(torch.equal(after[k], stage1[k].to(after[k].dtype))
+                   for k in after if "running" not in k and "num_batches" not in k)
+    print(f"[stage2 clip] run_steps losses {run.losses}, step ms "
+          f"{[round(x, 3) for x in run.step_ms]}; the tokenizer's parameters equal the Stage-I "
+          f".pth's: {tok_same}", flush=True)
+    if not (all(map(math.isfinite, run.losses)) and tok_same):
+        fail("stage2 clip run_steps: a loss not finite or the tokenizer moved")
+    step_ms = request_ms(lambda: pretrain_step(run.model, run.optimizer, lambda s: 1e-6,
+                                               s2_clouds, 0, step_rngs(0, 0, dev)), 5)
+    med = statistics.median(step_ms)
+    print(f"[time] Stage-II step B={bs}, clip tokenizer: median {med:.3f} ms over 5 (after 3 "
+          f"warm-up); {bs / med * 1e3:.1f} clouds/s", flush=True)
+    busy_line(kernel_events, "Stage-II step, clip tokenizer", lambda: pretrain_step(
+        run.model, run.optimizer, lambda s: 1e-6, s2_clouds, 0, step_rngs(0, 0, dev)), med)
+    print(f"[stage2 clip] phase 35 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del run, sd, stage1
+    torch.cuda.empty_cache()
+    return rows, errs, launches
+
+
+# the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
+# where the profiler's windows are whole
+CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer"}
+
+
+def in_child(flag):
+    """The phases of ``flag`` in a child process (``chip_smoke.py FLAG OUT``):
+    late windows of a long process come back incomplete, and heavy windows
+    would cost the later phases theirs. The child loads the kernels this
+    process built and writes its timing rows, errors and launch counts to
+    OUT; returns them."""
     import tempfile
     import torch
     torch.cuda.empty_cache()
     sys.stdout.flush()
-    fd, out = tempfile.mkstemp(prefix="chip_smoke_pb_", suffix=".json")
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_child_", suffix=".json")
     os.close(fd)
     try:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--pointbert", out],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, out],
                               cwd=ROOT, timeout=600)
         if proc.returncode != 0:
-            fail(f"the PointBERT phases failed (exit {proc.returncode})")
+            fail(f"the {CHILD_PHASES[flag]} phases failed (exit {proc.returncode})")
         with open(out) as f:
             got = json.load(f)
     finally:
@@ -2346,8 +2682,8 @@ def pointbert_in_child():
     return got["rows"], got["errs"], got["launches"]
 
 
-def pointbert_child(out: str) -> None:
-    """The child of ``pointbert_in_child``: phases 29-32 on the card."""
+def child(flag: str, out: str) -> None:
+    """The child of ``in_child``: the phases of ``flag`` on the card."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2357,7 +2693,8 @@ def pointbert_child(out: str) -> None:
     from act_tpu_torch.profiling import device_ms, kernel_events
     dev = _backend.resolve_device("cuda")
     _backend.build_kernels()
-    rows, errs, launches = pointbert(dev, device_ms, kernel_events, measure)
+    phases = globals()[CHILD_PHASES[flag]]
+    rows, errs, launches = phases(dev, device_ms, kernel_events, measure)
     with open(out, "w") as f:
         json.dump({"rows": rows, "errs": errs, "launches": launches}, f, allow_nan=False)
 
@@ -2606,8 +2943,11 @@ def main() -> None:
     chain_runs, chain_errs = chain(dev)
     errs.update(chain_errs)
     # -- 29-32. ACT_PointBERT, in a process of its own (its profiler windows whole)
-    pb_rows, pb_errs, pb_launches = pointbert_in_child()
+    pb_rows, pb_errs, pb_launches = in_child("--pointbert")
     errs.update(pb_errs)
+    # -- 33-35. the dVAE tokenizer served, the CLIP and BERT teachers, a process of their own
+    tk_rows, tk_errs, tk_launches = in_child("--tokenizer")
+    errs.update(tk_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -2629,6 +2969,7 @@ def main() -> None:
             "launches_chain": {tag: n[kernel] for tag, n in chain_runs.items()},
             "launches_seg": {tag: n[kernel] for tag, n in seg_launches.items()},
             "launches_pointbert": {tag: n[kernel] for tag, n in pb_launches.items()},
+            "launches_tokenizer": {tag: n[kernel] for tag, n in tk_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -2646,7 +2987,8 @@ def main() -> None:
                                                 ("finetune", ft_rows.get(kernel, [])),
                                                 ("chain", chain_rows.get(kernel, [])),
                                                 ("segmentation", seg_rows.get(kernel, [])),
-                                                ("pointbert", pb_rows.get(kernel, [])))
+                                                ("pointbert", pb_rows.get(kernel, [])),
+                                                ("tokenizer", tk_rows.get(kernel, [])))
                            for r in group],
         }
 
@@ -2662,7 +3004,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--pointbert"]:
-        pointbert_child(sys.argv[2])
+    if sys.argv[1:2] and sys.argv[1] in CHILD_PHASES:
+        child(sys.argv[1], sys.argv[2])
     else:
         main()
