@@ -6,5 +6,6 @@ passes ``device="cpu"``, where every CUDA kernel takes its plain PyTorch
 version. It serves the finetuned PointTransformer classifier
 (``engine/serve.py``, ``serve_http.py``) and trains Stage I, Stage II and the
 finetune (``engine/runner_*.py``; the CLIs ``main_autoencoder.py`` and
-``main.py``).
+``main.py``); it embeds features by t-SNE (``main_tsne.py``) and exports the
+serving forwards as self-contained artifacts (``export_model.py``).
 """

@@ -122,6 +122,12 @@ def build_features_fn(model: torch.nn.Module, npoints: int) -> Callable[..., tor
     return features
 
 
+def features_npoints(cfg) -> int:
+    """The point count a pretrain config's features take: its ``npoints``,
+    else its val split's (the SVM probe's)."""
+    return int(cfg.get("npoints") or cfg.dataset.val.others.npoints)
+
+
 def _dvae_input(pts, device, npoints: int) -> torch.Tensor:
     pts = torch.as_tensor(pts, dtype=torch.float32).to(device).contiguous()
     if pts.dim() != 3 or pts.shape[-1] != 3:
@@ -149,49 +155,69 @@ def build_tokenize_fn(model: torch.nn.Module, npoints: int) -> Callable[..., tor
     return tokenize
 
 
-def recon_forward(model: torch.nn.Module, pts: torch.Tensor) -> torch.Tensor:
+def recon_uniforms(model: torch.nn.Module, batch: int, device) -> torch.Tensor:
+    """The soft-Gumbel uniforms of :func:`recon_forward` for ``batch``
+    clouds: (batch, G, num_tokens) f32 from a generator seeded 0 on
+    ``device`` (the JAX package's pinned ``PRNGKey(0)``,
+    ``export.py:182-184`` and ``runner_autoencoder.py:293-304``), drawn
+    anew for every call, so that an answer does not depend on earlier
+    calls."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (batch, model.num_group, model.num_tokens)
+    return torch.clamp_min(torch.rand(shape, generator=gen, device=gen.device), 1e-10)
+
+
+def recon_forward(model: torch.nn.Module, pts: torch.Tensor,
+                  gumbel_u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dVAE's reconstruction of (B, N, 3) clouds: ``hard=True`` at
-    temperature 1 with a 'gumbel' generator seeded 0 anew on every call (the
-    JAX package's pinned ``PRNGKey(0)``, ``export.py:182-184`` and
-    ``runner_autoencoder.py:293-304``), so an answer does not depend on
-    earlier calls; returns the whole fine cloud (B, G*M, 3)."""
-    rngs = {"gumbel": torch.Generator(device=pts.device).manual_seed(0)}
-    return model(pts, 1.0, True, rngs=rngs)[1]
+    temperature 1 on the uniforms of :func:`recon_uniforms` (``gumbel_u``,
+    else drawn for B clouds here; an exported artifact bakes them);
+    returns the whole fine cloud (B, G*M, 3)."""
+    if gumbel_u is None:
+        gumbel_u = recon_uniforms(model, pts.shape[0], pts.device)
+    return model(pts, 1.0, True, gumbel_u=gumbel_u)[1]
 
 
-def build_recon_fn(model: torch.nn.Module, npoints: int) -> Callable[..., torch.Tensor]:
+def build_recon_fn(model: torch.nn.Module, npoints: int,
+                   gumbel_u: Optional[torch.Tensor] = None) -> Callable[..., torch.Tensor]:
     """A Stage-I dVAE's reconstruction (``export_dvae_recon``,
     ``export.py:171-186``): (B, npoints, 3) points, no resample -> the
     (B, G*M, 3) f32 ``whole_fine`` of :func:`recon_forward`, on the model's
     device, in eval mode and under ``torch.inference_mode()``. Another point
-    count raises."""
+    count raises. ``gumbel_u`` fixes the draw (an exported artifact bakes
+    :func:`recon_uniforms` of its batch)."""
     device = next(model.parameters()).device
     model.eval()
 
     def recon(pts) -> torch.Tensor:
         pts = _dvae_input(pts, device, npoints)
         with torch.inference_mode():
-            return recon_forward(model, pts)
+            return recon_forward(model, pts, gumbel_u)
     return recon
 
 
 SEG_TASKS = {"partseg": ("PartSegTransformer", 50), "semseg": ("SemSegTransformer", 13)}
 
 
-def seg_config(task: str, num_group: int = 128, dtype: str = "bf16") -> ConfigDict:
+def seg_config(task: str, num_group: int = 128, dtype: str = "bf16",
+               widths: Optional[Mapping] = None) -> ConfigDict:
     """The model config of a segmentation ``task`` ('partseg' or 'semseg') as
     the JAX runners and ``export_segmentation`` build it: 50 or 13 classes,
-    ``num_group`` groups of 32 points, compute ``dtype``."""
+    ``num_group`` groups of 32 points, compute ``dtype``; ``widths``
+    (trans_dim, depth, num_heads, encoder_dims, fetch_idx) narrows the
+    backbone (the CPU tests' models)."""
     if task not in SEG_TASKS:
         raise ValueError(f"task must be partseg|semseg, got {task!r}")
     name, cls_dim = SEG_TASKS[task]
     return ConfigDict(dict(NAME=name, cls_dim=cls_dim, num_group=int(num_group),
-                           group_size=32, dtype=dtype))
+                           group_size=32, dtype=dtype, **(widths or {})))
 
 
 def load_seg_model(task: str, ckpt_path: Optional[Checkpoint] = None, num_group: int = 128,
-                   dtype: str = "bf16", seed: int = 0, device="cuda") -> torch.nn.Module:
-    """``load_model`` of the segmentation model of ``task``; a checkpoint may
-    carry the reference's ``_cls`` head keys or the released ones."""
+                   dtype: str = "bf16", seed: int = 0, device="cuda",
+                   widths: Optional[Mapping] = None) -> torch.nn.Module:
+    """``load_model`` of the segmentation model of ``task`` (``seg_config``);
+    a checkpoint may carry the reference's ``_cls`` head keys or the
+    released ones."""
     ckpt = None if ckpt_path is None else seg_reference_keys(load_state_dict(ckpt_path))
-    return load_model({"model": seg_config(task, num_group, dtype)}, ckpt, seed, device)
+    return load_model({"model": seg_config(task, num_group, dtype, widths)}, ckpt, seed, device)

@@ -144,9 +144,18 @@ class _SegHead(SegBackbone):
         return torch.log_softmax(self.convs3(h).float(), dim=-1)
 
 
+BACKBONE_WIDTHS = ("trans_dim", "depth", "num_heads", "encoder_dims")
+
+
 def _backbone_kwargs(cfg) -> dict:
-    return dict(num_group=int(cfg.get("num_group", 128)),
-                group_size=int(cfg.get("group_size", 32)), dtype=dtype_from_cfg(cfg))
+    """The backbone's arguments: groups and dtype, and the published widths
+    unless the config narrows them (``BACKBONE_WIDTHS``, ``fetch_idx``)."""
+    kw = dict(num_group=int(cfg.get("num_group", 128)),
+              group_size=int(cfg.get("group_size", 32)), dtype=dtype_from_cfg(cfg))
+    kw.update({k: int(cfg[k]) for k in BACKBONE_WIDTHS if k in cfg})
+    if "fetch_idx" in cfg:
+        kw["fetch_idx"] = tuple(int(i) for i in cfg["fetch_idx"])
+    return kw
 
 
 @MODELS.register_module()

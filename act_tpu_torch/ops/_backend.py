@@ -10,6 +10,14 @@ an edited source is rebuilt), and loaded with ``ctypes``.
 There is no kernel switch: a wrapper picks its path from the tensor's device
 alone. A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises. ``LAUNCHES`` counts the kernel launches of each wrapper.
+
+The kernels of the serving paths (FPS, k-smallest, the gather) launch through
+ops registered with ``torch.library`` (namespace ``act_tpu_torch``): a CUDA
+implementation that launches the kernel, the plain version as the CPU
+implementation, and a fake implementation that gives the output shapes, so
+that ``torch.export`` of a forward on the card keeps each kernel as an
+``act_tpu_torch::*`` node (``engine/export.py``). Importing
+``act_tpu_torch.ops`` registers them; that is all an exported artifact needs.
 """
 from __future__ import annotations
 
@@ -162,6 +170,26 @@ def launch(name: str, *args) -> None:
         msg = _LIBS[name].act_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
     LAUNCHES[name] += 1
+
+
+def custom_op(name: str) -> Callable:
+    """Register the decorated function, the CUDA launch of kernel ``name``,
+    as the op ``act_tpu_torch::<name>``."""
+    return torch.library.custom_op(f"act_tpu_torch::{name}", mutates_args=(),
+                                   device_types="cuda")
+
+
+def register_op(op, cpu_impl: Callable, fake_impl: Callable) -> None:
+    """Give a registered kernel op its CPU implementation (the plain
+    version), its fake implementation (output shapes and dtypes, for
+    tracing), and a backward that passes no gradient: a kernel's output is
+    not differentiated on the card (indices, and gathered coordinates of
+    clouds that take no gradient)."""
+    op.register_kernel("cpu")(cpu_impl)
+    op.register_fake(fake_impl)
+    op.register_autograd(lambda ctx, *grads: (None,) * ctx.n_inputs,
+                         setup_context=lambda ctx, inputs, output: setattr(
+                             ctx, "n_inputs", len(inputs)))
 
 
 def check_cuda_input(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:

@@ -101,6 +101,14 @@ def furthest_point_sample(points: torch.Tensor, n_samples: int,
         start = torch.zeros(B, dtype=torch.int32, device=points.device)
     else:
         start = start_idx.to(torch.int32).expand(B).contiguous()
+    return torch.ops.act_tpu_torch.fps(points, start, n_samples)
+
+
+@_backend.custom_op("fps")
+def _fps_op(points: torch.Tensor, start: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """The registered op ``act_tpu_torch::fps``: the kernel's launch on the
+    card (the plain version on the CPU), (B,) int32 starts."""
+    B, N, _ = points.shape
     out = torch.empty(B, n_samples, dtype=torch.int32, device=points.device)
     if B:
         dev = points.device.index
@@ -108,6 +116,12 @@ def furthest_point_sample(points: torch.Tensor, n_samples: int,
             B, N, _sms(torch.cuda.current_device() if dev is None else dev), _max_clusters)
         _backend.launch("fps", points, start, out, B, N, n_samples, c, threads, ppt)
     return out
+
+
+_backend.register_op(
+    _fps_op, lambda points, start, n_samples: furthest_point_sample_ref(points, n_samples, start),
+    lambda points, start, n_samples: points.new_empty(points.shape[0], n_samples,
+                                                      dtype=torch.int32))
 
 
 def tie_swaps(got: torch.Tensor, want: torch.Tensor) -> int:

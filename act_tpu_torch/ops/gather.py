@@ -47,6 +47,13 @@ def gather_coords(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_points(points, idx)
     _backend.check_cuda_input(points, "gather_coords points", torch.float32)
     _backend.check_cuda_input(idx, "gather_coords idx", torch.int32)
+    return torch.ops.act_tpu_torch.gather(points, idx)
+
+
+@_backend.custom_op("gather")
+def _gather_op(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The registered op ``act_tpu_torch::gather``: the kernel's launch on
+    the card (the plain version on the CPU)."""
     B, N, C = points.shape
     S = idx.numel() // max(B, 1)
     out = torch.empty(*idx.shape, C, dtype=torch.float32, device=points.device)
@@ -54,6 +61,10 @@ def gather_coords(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         aligned = S % 4 == 0 and idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
         _backend.launch("gather", points, idx, out, B, N, S, C, *launch_geometry(B, S, aligned))
     return out
+
+
+_backend.register_op(_gather_op, gather_points,
+                     lambda points, idx: points.new_empty(*idx.shape, points.shape[-1]))
 
 
 def check_gather_cases(fn: Callable, device) -> List[str]:

@@ -28,6 +28,14 @@ def k_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _backend.check_cuda_input(d, "k_smallest d", torch.float32)
     if n > MAX_N:
         raise ValueError(f"the k-smallest kernel takes N <= {MAX_N}, got {n}")
+    return torch.ops.act_tpu_torch.k_smallest(d, k)
+
+
+@_backend.custom_op("k_smallest")
+def _k_smallest_op(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The registered op ``act_tpu_torch::k_smallest``: the kernel's launch
+    on the card (the plain version on the CPU)."""
+    n = d.shape[-1]
     lead = d.shape[:-1]
     rows = d.numel() // n
     vals = torch.empty(*lead, k, dtype=torch.float32, device=d.device)
@@ -35,3 +43,9 @@ def k_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if rows:
         _backend.launch("k_smallest", d, vals, idxs, rows, n, k)
     return vals, idxs
+
+
+_backend.register_op(
+    _k_smallest_op, lambda d, k: tuple(t.contiguous() for t in k_smallest_ref(d, k)),
+    lambda d, k: (d.new_empty(*d.shape[:-1], k),
+                  d.new_empty(*d.shape[:-1], k, dtype=torch.int32)))

@@ -2,8 +2,11 @@
 pretrain (features) and Stage-I dVAE (tokenize, dvae) models.
 
 Stdlib only (http.server), the same contract as ``tools/serve_http.py`` for
-every kind, but run from a config (or a task) and an optional reference
-checkpoint instead of an exported artifact. A pretrain config
+every kind. It serves in one of two modes: from a config (or a task) and an
+optional reference checkpoint, or (``--src``) from an exported artifact
+(``act_tpu_torch/export_model.py``), with no model code, config or
+checkpoint: the artifact's sidecar names its kind, and a part-segmentation
+artifact takes the one-hot as its second input. A pretrain config
 (ACT_PointDistillation or ACT_PointBERT) serves the features kind: the
 student's cls features, clouds of another point count than the config's
 ``npoints`` (else its val split's) resampled by FPS. A Stage-I config (a
@@ -21,6 +24,7 @@ clouds of exactly the config's ``npoints`` points:
   python -m act_tpu_torch.serve_http \
       --config cfgs/autoencoder/act_dvae_with_pretrained_transformer.yaml \
       [--kind tokenize|dvae] [--ckpts ckpt-best.pth] --port 8080   # Stage-I dVAE
+  python -m act_tpu_torch.serve_http --src model.pt2 [--device cuda] --port 8080  # artifact
 
   POST /predict   {"points": [[[x,y,z], ...], ...]}   # (B, N, 3)
       -> classifier:   {"logits": [...], "argmax": [...]}
@@ -160,7 +164,7 @@ def seg_meta(model, task: str, npoint: int) -> dict:
 
 def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080,
           device="cuda", seed: int = 0, task=None, npoint: int = 2048,
-          num_group: int = 128, kind=None) -> ThreadingHTTPServer:
+          num_group: int = 128, kind=None, src=None) -> ThreadingHTTPServer:
     """A server of the classifier of ``config`` (requests resampled to its
     ``npoints`` by FPS); of the features of a pretrain ``config``
     (``build_pretrain_model``: seeded weights or a Stage-II checkpoint;
@@ -168,11 +172,20 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
     Stage-I dVAE ``config``'s ``kind`` ('tokenize', the default, or 'dvae';
     ``load_model``: seeded weights or a Stage-I checkpoint) on clouds of
     exactly its ``npoints``; or, with ``task`` ('partseg' or 'semseg'), of
-    that segmentation model on clouds of exactly ``npoint`` points."""
+    that segmentation model on clouds of exactly ``npoint`` points; or,
+    with ``src``, of an exported artifact (``engine/export.load_exported``,
+    which imports no model code) on ``device``, the one it was exported
+    on, with its sidecar as the meta."""
+    if src is not None:
+        from act_tpu_torch.engine.export import load_exported
+
+        fn = load_exported(src, device=device)
+        return make_server(fn, dict(fn.meta), host, port)
     from act_tpu_torch.engine.runner_pretrain import TOKENIZERS, build_pretrain_model
     from act_tpu_torch.engine.serve import (build_features_fn, build_infer_fn,
-                                            build_recon_fn, build_tokenize_fn, load_config,
-                                            load_model, load_seg_model)
+                                            build_recon_fn, build_tokenize_fn,
+                                            features_npoints, load_config, load_model,
+                                            load_seg_model)
     from act_tpu_torch.ops import resolve_device
 
     if task is not None:
@@ -196,7 +209,7 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
     if cfg.model.NAME in TOKENIZERS:  # a pretrain model: its features
         dev = resolve_device(device)
         model = build_pretrain_model(cfg.model, seed, ckpt_path).to(dev).eval()
-        npoints = int(cfg.get("npoints") or cfg.dataset.val.others.npoints)
+        npoints = features_npoints(cfg)
         meta = {"kind": "features", "model": cfg.model.NAME, "npoints": npoints,
                 "cls_dim": int(cfg.model.transformer_config.cls_dim), "device": str(dev)}
         return make_server(build_features_fn(model, npoints), meta, host, port)
@@ -208,7 +221,12 @@ def serve(config=None, ckpt_path=None, host: str = "127.0.0.1", port: int = 8080
 
 
 def main():
-    p = argparse.ArgumentParser()
+    p = argparse.ArgumentParser(
+        description="Serve a model over HTTP, from a config (--config or --task, with an "
+                    "optional --ckpts) or from an exported artifact (--src).")
+    p.add_argument("--src", default=None,
+                   help="an exported artifact (.pt2 with its .json sidecar, from "
+                        "act_tpu_torch.export_model); no config or checkpoint")
     p.add_argument("--config", default=None,
                    help="finetune YAML (the classifier), pretrain YAML (features) or "
                         "Stage-I YAML (the dVAE)")
@@ -220,15 +238,17 @@ def main():
     p.add_argument("--num_group", type=int, default=128)
     p.add_argument("--ckpts", default=None, help="reference .pth (else seeded weights)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; an artifact's must be the one it was exported on")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     args = p.parse_args()
-    if (args.config is None) == (args.task is None):
-        p.error("give one of --config (a classifier) and --task (segmentation)")
+    if sum(a is not None for a in (args.config, args.task, args.src)) != 1:
+        p.error("give one of --config (a model's YAML), --task (segmentation) and --src "
+                "(an exported artifact)")
     server = serve(args.config, args.ckpts, args.host, args.port, args.device, args.seed,
-                   args.task, args.npoint, args.num_group, args.kind)
-    print(f"serving {args.config or args.task} on "
+                   args.task, args.npoint, args.num_group, args.kind, args.src)
+    print(f"serving {args.config or args.task or args.src} on "
           f"http://{args.host}:{server.server_address[1]}")
     server.serve_forever()
 

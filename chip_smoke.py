@@ -62,6 +62,16 @@ version at the shapes the path gives it:
   loss and backward through both, ``run_steps`` with the EMA of k held to its
   host recomputation, and ``run_net`` with the SVM probe and a resume that
   restores the MoCo queue;
+- the Stage-I tokenizer served (``tokenize`` and ``dvae``), Stage I with the
+  CLIP and BERT teachers and Stage II on the CLIP tokenizer (phases 33-35);
+- t-SNE at ``tsne_scan_hardest.yaml`` (two 384 x 12 PointTransformers, 2048
+  points, seeded weights): both models' features through the kernels and the
+  plain versions, ``tsne_net``, and the embedding of 2882 features on the card
+  against a CPU run (phase 36);
+- every serving forward exported (``engine/export.py``) on the card at B=32
+  and with a symbolic batch, reloaded in a process that imports no model
+  code, bit-equal to its direct call, its kernels in the call's profile,
+  served by ``serve_http --src`` (phase 37);
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -212,6 +222,20 @@ PB_EMA_STEPS, PB_RUN_STEPS = 3, 3
 # at B=1 and TOK_B clouds of 1024 points; a request's launches (group_points'
 # FPS, k=32 kNN and two gathers, then dgcnn_1's k=4 kNN; recon adds dgcnn_2's)
 TOK_B, TOK_HTTP_B = 32, 2
+# phase 36, t-SNE: the YAML, the test batches of tsne_net, the features embedded
+# (ScanObjectNN hardest's test split holds 2882 clouds), the card's final KL
+# against a CPU run's of the same input (two runs of a chaotic descent in other
+# rounding orders end in other local optima: on the H100 80GB HBM3 the two KLs
+# of this input were 0.00685 apart, relative, in every run, each side being
+# repeatable), held within about 3x that
+TSNE_CONFIG = "cfgs/tsne/tsne_scan_hardest.yaml"
+TSNE_BATCHES, TSNE_N, TSNE_KL_RTOL = 2, 2882, 0.02
+# extract_features with logits: the resample (FPS, gather), then group_points
+# (FPS, k-smallest, 2 gathers) in extract_feature and again in the forward
+TSNE_PER_BATCH = {"fps": 3, "k_smallest": 2, "gather": 5}
+# phase 37, the artifacts: the fixed batch, the largest relative difference
+# allowed where an exported graph decomposes an op, request timing iterations
+EXPORT_B, EXPORT_RTOL, EXPORT_ITERS = 32, 1e-5, 20
 TOKENIZE_PER_REQUEST = {"fps": 1, "k_smallest": 2, "gather": 2}
 RECON_PER_REQUEST = {"fps": 1, "k_smallest": 3, "gather": 2}
 # the Stage-I config's teacher swapped (visual_embed_type clip_* selects CLIP's
@@ -2653,12 +2677,446 @@ def _tokenizer(dev, device_ms, kernel_events, measure, tmp):
     return rows, errs, launches
 
 
+def _extract_both(model, batches, npoints, runner_tsne):
+    """``extract_features`` with logits through the kernels and through the
+    plain versions (patched into ``act_tpu_torch.ops``), each run's
+    launches, and the FPS tie swaps between the two paths' resample and
+    group-center picks."""
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    torch.cuda.synchronize()
+    _backend.reset_launches()
+    got = runner_tsne.extract_features(model, batches, npoints, with_logits=True)
+    torch.cuda.synchronize()
+    launches = dict(_backend.LAUNCHES)
+    with patched(ops, furthest_point_sample=ops.furthest_point_sample_ref,
+                 gather_coords=ops.gather_points, group_points=ops.group_points_ref):
+        _backend.reset_launches()
+        want = runner_tsne.extract_features(model, batches, npoints, with_logits=True)
+        if any(_backend.LAUNCHES.values()):
+            fail(f"t-SNE plain path launched kernels: {dict(_backend.LAUNCHES)}")
+    swaps = 0
+    with torch.inference_mode():
+        for b in batches:
+            pts = torch.as_tensor(b[2][0]).to(model.cls_token.device)
+            r = ops.furthest_point_sample_ref(pts, npoints)
+            rs = ops.gather_points(pts, r)
+            for k, want_idx in ((ops.furthest_point_sample(pts, npoints), r),
+                                (ops.furthest_point_sample(rs, model.num_group),
+                                 ops.furthest_point_sample_ref(rs, model.num_group))):
+                n = tie_swaps(k, want_idx)
+                if n < 0:
+                    fail("t-SNE FPS picks differ from the plain version beyond tie swaps")
+                swaps += n
+    return got, want, launches, swaps
+
+
+def tsne(dev, device_ms, kernel_events, measure):
+    """Phase 36, t-SNE at ``tsne_scan_hardest.yaml`` (two 384 x 12
+    PointTransformers, G=128 x M=32, 2048 points, 15 classes, B=32, seeded
+    weights, the synthetic ScanObjectNN test clouds): 36a, both models'
+    ``extract_features`` (the FPS resample 2048 -> 2048, ``extract_feature``,
+    the finetuned logits) through the kernels and through the plain versions,
+    bit-equal unless FPS tie swaps reorder the groups, launches a batch
+    counted, the resample's launch shapes timed; 36b, ``tsne_net`` with 2
+    batches and 2 vote rounds, on those batches labelled with the seeded
+    finetuned model's own predictions, so that every cloud counts as correct
+    and both embeddings and their ``.npz`` files are made; 36c, ``utils/tsne.embed`` on the card at N =
+    ``TSNE_N`` features (the size of ScanObjectNN hardest's test split, from
+    synthetic clouds), timed, run twice (the same embedding), and on the CPU,
+    its final KL within ``TSNE_KL_RTOL`` of the card's. Returns (timing rows
+    by kernel, errors, launches of each run)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tsne_")
+    try:
+        return _tsne(dev, device_ms, kernel_events, measure, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tsne(dev, device_ms, kernel_events, measure, tmp):
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets.synthetic import synthetic_cloud
+    from act_tpu_torch.engine import builder, runner_tsne
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.utils import tsne as tsne_lib
+
+    t_phase = time.perf_counter()
+    cfg = load_config(TSNE_CONFIG)
+    npoints, bs = int(cfg.npoints), int(cfg.total_bs)
+    G, M = int(cfg.model_finetuned.num_group), int(cfg.model_finetuned.group_size)
+    cfg.dataset.test.others.bs = bs
+    _, loader = builder.dataset_builder(cfg.dataset.test, 0)
+    try:
+        batches = [b for _, b in zip(range(TSNE_BATCHES), loader)]
+    finally:
+        loader.close()
+    errs, launches = {}, {}
+    model_p = runner_tsne._build_and_load(cfg.model_pretrained, None, npoints, 1, dev)
+    model_f = runner_tsne._build_and_load(cfg.model_finetuned, None, npoints, 0, dev)
+    print(f"[tsne] {TSNE_CONFIG}: two {sum(p.numel() for p in model_f.parameters())}-parameter "
+          f"models, {len(batches)} test batches of {bs} x {npoints} points", flush=True)
+
+    # -- 36a. features and logits, kernels against the plain path
+    logits = {}
+    for tag, model in (("pretrained", model_p), ("finetuned", model_f)):
+        got, want, n, swaps = _extract_both(model, batches, npoints, runner_tsne)
+        logits[tag] = got[1]
+        launches[f"extract {tag}"] = n
+        check_launches(f"tsne extract_features {tag} (with logits)", n, TSNE_PER_BATCH,
+                       len(batches))
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(got[:2], want[:2]))
+        errs[f"fps tsne {tag}"] = errs[f"gather tsne {tag}"] = errs[f"k_smallest tsne {tag}"] = diff
+        print(f"[check] tsne {tag}: features {got[0].shape} and logits {got[1].shape} through "
+              f"the kernels vs the plain path: bit-equal {same}, max |diff| {diff}, FPS tie "
+              f"swaps {swaps}; launches {n} ({TSNE_PER_BATCH} a batch)", flush=True)
+        if not np.isfinite(got[0]).all() or not np.isfinite(got[1]).all():
+            fail(f"tsne {tag}: features or logits not finite")
+        if not (same or (swaps > 0 and diff <= FEAT_ATOL)):
+            fail(f"tsne {tag}: the kernel path differs from the plain path (tie swaps {swaps})")
+    with torch.inference_mode():
+        clouds = torch.as_tensor(batches[0][2][0]).to(dev).contiguous()
+        rs = ops.gather_points(clouds, ops.furthest_point_sample_ref(clouds, npoints))
+        idx = ops.furthest_point_sample(clouds, npoints)
+        rows = {"fps": [measure(f"({bs}, {npoints}, 3)->{npoints} (t-SNE resample)",
+                                lambda: ops.furthest_point_sample(clouds, npoints),
+                                lambda: ops.furthest_point_sample_ref(clouds, npoints), None,
+                                20, 1, bound_ms(clouds.numel() * 4 + bs * npoints * 4,
+                                                10.0 * bs * (npoints - 1) * npoints), n=3),
+                        measure(f"({bs}, {npoints}, 3)->{G} (t-SNE groups)",
+                                lambda: ops.furthest_point_sample(rs, G),
+                                lambda: ops.furthest_point_sample_ref(rs, G), None, 50, 3,
+                                bound_ms(rs.numel() * 4 + bs * G * 4,
+                                         10.0 * bs * (G - 1) * npoints), n=2)],
+                "gather": [measure(f"{tuple(clouds.shape)} by {tuple(idx.shape)} (t-SNE "
+                                   f"resample), {distinct_rows(idx)} rows read",
+                                   lambda: ops.gather_coords(clouds, idx),
+                                   lambda: ops.gather_points(clouds, idx),
+                                   lambda: torch.gather(clouds, 1, idx.long()[..., None].expand(
+                                       -1, -1, 3)), 200, 200,
+                                   bound_ms(distinct_rows(idx) * 12 + idx.numel() * 16), n=1)]}
+    print_times("tsne ", rows)
+
+    # -- 36b. tsne_net: 2 batches, both models, 2 vote rounds. Seeded weights
+    # classify too few clouds correctly to embed any (OA 7.8 %), so the
+    # batches carry the predictions of the finetuned model that tsne_net
+    # builds (the same seed) as their labels: every cloud is embedded.
+    preds = logits["finetuned"].argmax(-1)
+    relabelled, i = [], 0
+    for b in batches:
+        lab = torch.as_tensor(b[2][1])
+        relabelled.append((b[0], b[1], (b[2][0], torch.as_tensor(
+            preds[i:i + len(lab)], dtype=lab.dtype).reshape(lab.shape))))
+        i += len(lab)
+    args = type("Args", (), dict(experiment_path=tmp, seed=0, ckpts=None, device=dev,
+                                 log_name=None))()
+    torch.cuda.synchronize()
+    _backend.reset_launches()
+    t0 = time.perf_counter()
+    with patched(builder, dataset_builder=lambda node, seed: (
+            None, type("Loader", (), dict(__iter__=lambda self: iter(relabelled),
+                                          close=lambda self: None))())):
+        emb_p, emb_f = runner_tsne.tsne_net(args, cfg, max_batches=TSNE_BATCHES)
+    torch.cuda.synchronize()
+    launches["tsne_net"] = dict(_backend.LAUNCHES)
+    print(f"[tsne] tsne_net ({TSNE_BATCHES} batches labelled with the finetuned model's "
+          f"predictions, 2 vote rounds): {time.perf_counter() - t0:.2f} s, launches "
+          f"{launches['tsne_net']}, embedded "
+          f"{'none' if emb_p is None else (emb_p.shape, emb_f.shape)}", flush=True)
+    for k in SERVE_KERNELS:
+        if launches["tsne_net"][k] <= 0:
+            fail(f"tsne_net launched no {k} kernel")
+    for name, emb in (("pretrained", emb_p), ("finetuned", emb_f)):
+        path = os.path.join(tmp, f"tsne_{name}.npz")
+        if emb is None or emb.shape != (len(preds), 2) or not np.isfinite(emb).all():
+            fail(f"tsne_net {name}: no finite embedding of all {len(preds)} clouds")
+        saved = np.load(path)
+        if not (np.array_equal(saved["embedding"], emb)
+                and np.array_equal(saved["labels"], preds)):
+            fail(f"tsne_net {name}: {path} differs from the embedding returned")
+        print(f"[tsne] {path}: embedding {saved['embedding'].shape}, KL "
+              f"{float(saved['kl']):.6f} after {int(saved['n_iter']) + 1} iterations",
+              flush=True)
+
+    # -- 36c. the card's t-SNE at N = TSNE_N features
+    t0 = time.perf_counter()
+    cl = [synthetic_cloud(i, npoints, 15) for i in range(TSNE_N)]
+    sets = [(torch.from_numpy(np.stack([c[0] for c in cl[i:i + bs]])),
+             torch.tensor([c[1] for c in cl[i:i + bs]])) for i in range(0, TSNE_N, bs)]
+    _backend.reset_launches()
+    feats, labels = runner_tsne.extract_features(model_p, sets, npoints)
+    launches["extract N"] = dict(_backend.LAUNCHES)
+    print(f"[tsne] features of {TSNE_N} synthetic clouds: {feats.shape} in "
+          f"{time.perf_counter() - t0:.2f} s, launches {launches['extract N']}", flush=True)
+    embs, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs.append(tsne_lib.embed(feats, dev))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    on_cpu = tsne_lib.embed(feats, "cpu")
+    cpu_s = time.perf_counter() - t0
+    e = embs[0]
+    same = np.array_equal(embs[0].y, embs[1].y)
+    rel = abs(e.kl - on_cpu.kl) / on_cpu.kl
+    print(f"[time] t-SNE N={TSNE_N} (perplexity {e.perplexity}, {e.n_iter + 1} iterations) on "
+          f"the card: {times[0]:.3f} s, again {times[1]:.3f} s; final KL {e.kl:.6f} (again: "
+          f"same embedding {same}); on the CPU {cpu_s:.1f} s, KL {on_cpu.kl:.6f} "
+          f"({on_cpu.n_iter + 1} iterations); |KL diff| / CPU KL {rel:.5f} (tolerance "
+          f"{TSNE_KL_RTOL})", flush=True)
+    if not (np.isfinite(e.y).all() and same and rel <= TSNE_KL_RTOL):
+        fail("t-SNE on the card: not finite, not repeatable, or its KL off the CPU run's")
+    print(f"[tsne] phase 36 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, errs, launches
+
+
+def export(dev, device_ms, kernel_events, measure):
+    """Phase 37, the serving artifacts: each of the five kinds of
+    ``engine/export.py`` exported on the card from the full-width configs
+    this script serves (the ModelNet classifier on 8192-point clouds, the
+    Stage-II model's features and the Stage-I dVAE's tokens and
+    reconstruction on 1024-point clouds, part and semantic segmentation on
+    2048-point clouds; seeded weights) at B=``EXPORT_B`` and with a symbolic
+    batch (the reconstruction at B=1 and ``EXPORT_B``: a symbolic batch
+    raises, checked), saved, and reloaded in a fresh process that imports no
+    model module (``chip_smoke.py --artifacts``): there each artifact's
+    outputs at B=1 and ``EXPORT_B`` (a fixed batch: its own), its launches,
+    the kernel names in the profile of a call, its request times and one
+    answer of ``serve_http --src``; here the outputs are held bit-equal to
+    the direct serving function's (token ids exactly) and the request times
+    compared. Returns (timing rows by kernel, errors, launches of each
+    artifact's calls)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        return _export_phase(dev, kernel_events, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_phase(dev, kernel_events, tmp):
+    import torch
+    from act_tpu_torch.engine import export as ex
+    from act_tpu_torch.engine.runner_pretrain import build_pretrain_model
+    from act_tpu_torch.engine.serve import (build_features_fn, build_infer_fn, build_recon_fn,
+                                            build_tokenize_fn, features_npoints, load_config,
+                                            load_model, load_seg_model)
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(37)
+    cls_cfg, pre_cfg, ae_cfg = (load_config(c) for c in (CONFIG, PRETRAIN_CONFIG,
+                                                          AUTOENCODER_CONFIG))
+    npts_f = features_npoints(pre_cfg)
+    models = {"classifier": load_model(cls_cfg, seed=0, device=dev),
+              "features": build_pretrain_model(pre_cfg.model, 0).to(dev).eval(),
+              "tokenize": load_model(ae_cfg, seed=0, device=dev)}
+    models["dvae"] = models["tokenize"]
+    models.update({t: load_seg_model(t, seed=0, device=dev) for t in ("partseg", "semseg")})
+    direct = {
+        "classifier": build_infer_fn(models["classifier"], int(cls_cfg.npoints)),
+        "features": build_features_fn(models["features"], npts_f),
+        "tokenize": build_tokenize_fn(models["tokenize"], int(ae_cfg.npoints)),
+        "dvae": build_recon_fn(models["dvae"], int(ae_cfg.npoints)),
+        "partseg": build_infer_fn(models["partseg"], SEG_NPOINT, with_fps=False),
+        "semseg": build_infer_fn(models["semseg"], SEG_NPOINT, with_fps=False),
+    }
+    pth_mib = {}  # each model's state dict saved as a .pth, against its artifacts' size
+    for kind, model in models.items():
+        path = os.path.join(tmp, f"{kind}.pth")
+        torch.save(model.state_dict(), path)
+        pth_mib[kind] = os.path.getsize(path) / 2 ** 20
+        os.remove(path)
+    n_in = {"classifier": N_IN, "features": npts_f, "tokenize": int(ae_cfg.npoints),
+            "dvae": int(ae_cfg.npoints), "partseg": SEG_NPOINT, "semseg": SEG_NPOINT}
+    makers = {
+        "classifier": lambda b: ex.export_classifier(cls_cfg, batch=b, n_in=N_IN, device=dev),
+        "features": lambda b: ex.export_features(pre_cfg, batch=b, device=dev),
+        "tokenize": lambda b: ex.export_dvae_tokenize(ae_cfg, batch=b, device=dev),
+        "dvae": lambda b: ex.export_dvae_recon(ae_cfg, batch=b, device=dev),
+        "partseg": lambda b: ex.export_segmentation("partseg", SEG_NPOINT, batch=b, device=dev),
+        "semseg": lambda b: ex.export_segmentation("semseg", SEG_NPOINT, batch=b, device=dev),
+    }
+    batches = {k: (EXPORT_B, None) for k in makers}
+    batches["dvae"] = (1, EXPORT_B)
+    batches["semseg"] = (None,)
+    try:
+        makers["dvae"](None)
+        fail("export_dvae_recon with a symbolic batch did not raise")
+    except ValueError as e:
+        print(f"[export] dvae with a symbolic batch raises ValueError: {e}", flush=True)
+    inputs = {}
+    for kind, n in n_in.items():
+        x = [torch.randn(EXPORT_B, n, 3, generator=gen)]
+        if kind == "partseg":
+            x.append(torch.eye(16)[torch.arange(EXPORT_B) % 16])
+        inputs[kind] = x
+    torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+    spec, sizes = [], {}
+    for kind, bs in batches.items():
+        for b in bs:
+            name = f"{kind}-{'sym' if b is None else b}"
+            path = os.path.join(tmp, f"{name}.pt2")
+            t0 = time.perf_counter()
+            exported = makers[kind](b)
+            t_export = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            side = ex.save_exported(exported, path)
+            t_save = time.perf_counter() - t0
+            sizes[name] = side["bytes"] / 2 ** 20
+            print(f"[export] {name}: traced in {t_export:.1f} s, saved in {t_save:.1f} s, "
+                  f"{sizes[name]:.1f} MiB (the model's .pth {pth_mib[kind]:.1f} MiB), inputs "
+                  f"{side['in_shapes']} -> {side['out_shape']} {side['out_dtype']}, kernel ops "
+                  f"{side['needs_ops']}", flush=True)
+            if not side["needs_ops"]:
+                fail(f"export {name}: the card's artifact holds no act_tpu_torch kernel op")
+            spec.append({"name": name, "kind": kind, "path": path,
+                         "sizes": [1, EXPORT_B] if b is None else [b]})
+            del exported
+    with open(os.path.join(tmp, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    out = os.path.join(tmp, "loaded.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--artifacts", tmp, out],
+                          cwd=ROOT, timeout=900)
+    if proc.returncode != 0:
+        fail(f"the artifacts' loader process failed (exit {proc.returncode})")
+    with open(out) as f:
+        loaded = json.load(f)
+    outs = torch.load(os.path.join(tmp, "outputs.pt"))
+    errs, launches = {}, {}
+    for item in spec:
+        name, kind, res = item["name"], item["kind"], loaded[item["name"]]
+        for b in item["sizes"]:
+            x = [t[:b].to(dev) for t in inputs[kind]]
+            want = direct[kind](*x)
+            got = outs[f"{name} B={b}"].to(dev)
+            same = got.dtype == want.dtype and torch.equal(got, want)
+            diff = (got.float() - want.float()).abs().max().item()
+            rel = diff / max(want.float().abs().max().item(), 1e-30)
+            for k in SERVE_KERNELS:
+                errs[f"{k} export {name} B={b}"] = diff
+            print(f"[check] export {name} B={b}: artifact vs direct call "
+                  f"{'bit-equal' if same else f'max |diff| {diff:.3g}, relative {rel:.3g}'}",
+                  flush=True)
+            if not same and (kind == "tokenize" or rel > EXPORT_RTOL):
+                fail(f"export {name} B={b}: the artifact differs from the direct call "
+                     f"(graph ops {res['ops']})")
+        launches[name] = res["launches"]
+        for k in SERVE_KERNELS:
+            if res["launches"][k] <= 0 or not res["kernels"].get(k):
+                fail(f"export {name}: kernel {k} not launched or not in the call's profile "
+                     f"({res['launches']}, {res['kernels']})")
+        b = item["sizes"][-1]
+        x = [t[:b].to(dev) for t in inputs[kind]]
+        direct_ms = statistics.median(request_ms(lambda: direct[kind](*x), EXPORT_ITERS))
+        print(f"[time] export {name} B={b}: artifact request median {res['ms']:.3f} ms, device "
+              f"busy {res['busy_ms']:.3f} ms (fresh process, load {res['load_s']:.2f} s); direct "
+              f"call {direct_ms:.3f} ms; ", flush=True)
+        busy_line(kernel_events, f"export {name} B={b}, the direct call", lambda: direct[kind](*x),
+                  direct_ms, iters=2)
+        print(f"[export] {name}: "
+              f"{sizes[name]:.1f} MiB; kernels in the profile {res['kernels']}; launches "
+              f"{res['launches']}; serve_http --src {res['http']}", flush=True)
+    print(f"[export] phase 37 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {}, errs, launches
+
+
+def artifacts_child(tmp: str, out: str) -> None:
+    """The fresh process of phase 37: every artifact of ``tmp/spec.json``
+    through ``load_exported`` (which imports ``act_tpu_torch.ops`` and no
+    model module, checked at the end), its outputs on ``tmp/inputs.pt`` at
+    each batch (to ``tmp/outputs.pt``), its kernel launches, the kernels in
+    the profile of one call, its request median, and one ``serve_http
+    --src`` answer held to the call."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from act_tpu_torch import serve_http
+    from act_tpu_torch.engine.export import load_exported
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.profiling import kernel_events
+
+    dev = _backend.resolve_device("cuda")
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+    names = {"fps": "fps_kernel", "k_smallest": "ksmallest", "gather": "gather_"}
+    res, outs = {}, {}
+    for item in spec:
+        t0 = time.perf_counter()
+        fn = load_exported(item["path"], device=dev)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        for b in item["sizes"]:
+            x = [t[:b].to(dev) for t in inputs[item["kind"]]]
+            outs[f"{item['name']} B={b}"] = fn(*x).cpu()
+        torch.cuda.synchronize()
+        launches = dict(_backend.LAUNCHES)
+        for _ in range(3):  # a window may lose its first records (profiling.py)
+            ev = kernel_events(lambda: fn(*x), 2)
+            kernels = {k: sorted({e.name[:40] for e in ev if v in e.name})
+                       for k, v in names.items()}
+            if all(kernels.values()):
+                break
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / 2
+        ms = statistics.median(request_ms(lambda: fn(*x), EXPORT_ITERS))
+        server = serve_http.serve(src=item["path"], port=0, device=dev)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            hb = 2 if len(item["sizes"]) > 1 else item["sizes"][0]  # a symbolic batch: 2
+            body = {"points": inputs[item["kind"]][0][:hb].tolist()}
+            if len(x) > 1:
+                body["cls_label"] = x[1][:len(body["points"])].argmax(-1).tolist()
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            with urllib.request.urlopen(urllib.request.Request(
+                    url, data=json.dumps(body).encode()), timeout=300) as r:
+                code, answer = r.status, json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        pts = torch.tensor(body["points"]).to(dev)
+        extra = (torch.eye(16).to(dev)[torch.tensor(body["cls_label"])],) if len(x) > 1 else ()
+        want = fn(pts, *extra).cpu()
+        key = {"classifier": "logits", "features": "features", "tokenize": "tokens",
+               "dvae": "recon"}.get(item["kind"], "labels")
+        got = torch.tensor(answer[key])
+        want = want.argmax(-1) if key == "labels" else want.to(got.dtype)
+        http = f"{code}, {'equal to the call' if torch.equal(got, want) else 'DIFFERS'}"
+        if code != 200 or not torch.equal(got, want):
+            fail(f"serve_http --src {item['name']}: {http}")
+        graph_ops = sorted({str(n.target) for n in fn.exported.graph.nodes
+                            if n.op == "call_function"})
+        res[item["name"]] = dict(load_s=load_s, launches=launches, kernels=kernels, ms=ms,
+                                 busy_ms=busy, http=http, ops=graph_ops)
+    models = sorted(m for m in sys.modules if m.startswith(
+        ("act_tpu_torch.models", "act_tpu_torch.engine.serve", "act_tpu_torch.engine.runner")))
+    if models:
+        fail(f"loading the artifacts imported model modules: {models}")
+    torch.save(outs, os.path.join(tmp, "outputs.pt"))
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
 # the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
 # where the profiler's windows are whole
-CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer"}
+CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
+                "--export": "export"}
 
 
-def in_child(flag):
+def in_child(flag, timeout=600):
     """The phases of ``flag`` in a child process (``chip_smoke.py FLAG OUT``):
     late windows of a long process come back incomplete, and heavy windows
     would cost the later phases theirs. The child loads the kernels this
@@ -2672,7 +3130,7 @@ def in_child(flag):
     os.close(fd)
     try:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, out],
-                              cwd=ROOT, timeout=600)
+                              cwd=ROOT, timeout=timeout)
         if proc.returncode != 0:
             fail(f"the {CHILD_PHASES[flag]} phases failed (exit {proc.returncode})")
         with open(out) as f:
@@ -2948,6 +3406,11 @@ def main() -> None:
     # -- 33-35. the dVAE tokenizer served, the CLIP and BERT teachers, a process of their own
     tk_rows, tk_errs, tk_launches = in_child("--tokenizer")
     errs.update(tk_errs)
+    # -- 36. t-SNE, and 37. the exported artifacts, each in a process of its own
+    ts_rows, ts_errs, ts_launches = in_child("--tsne")
+    errs.update(ts_errs)
+    ex_rows, ex_errs, ex_launches = in_child("--export", timeout=1000)
+    errs.update(ex_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -2970,6 +3433,8 @@ def main() -> None:
             "launches_seg": {tag: n[kernel] for tag, n in seg_launches.items()},
             "launches_pointbert": {tag: n[kernel] for tag, n in pb_launches.items()},
             "launches_tokenizer": {tag: n[kernel] for tag, n in tk_launches.items()},
+            "launches_tsne": {tag: n[kernel] for tag, n in ts_launches.items()},
+            "launches_export": {tag: n[kernel] for tag, n in ex_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -2988,7 +3453,9 @@ def main() -> None:
                                                 ("chain", chain_rows.get(kernel, [])),
                                                 ("segmentation", seg_rows.get(kernel, [])),
                                                 ("pointbert", pb_rows.get(kernel, [])),
-                                                ("tokenizer", tk_rows.get(kernel, [])))
+                                                ("tokenizer", tk_rows.get(kernel, [])),
+                                                ("tsne", ts_rows.get(kernel, [])),
+                                                ("export", ex_rows.get(kernel, [])))
                            for r in group],
         }
 
@@ -3006,5 +3473,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in CHILD_PHASES:
         child(sys.argv[1], sys.argv[2])
+    elif sys.argv[1:2] == ["--artifacts"]:
+        artifacts_child(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -34,6 +34,8 @@ from act_tpu_torch.kernel_sweep import CHAMFER_SHAPES
 from act_tpu_torch.ops import chamfer as chamfer_mod
 from act_tpu_torch.ops.reference import pair_distance
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 
 def t(a):
     return torch.from_numpy(np.array(a))

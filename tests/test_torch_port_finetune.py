@@ -64,6 +64,8 @@ from act_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_port_model import RNGS, perturb
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 TRANSFERS = ("full", "linear", "mlp-3", "side", "bit-fit")
 ATOL = 1e-5
 N_PTS, B, CLS = 256, 4, 10

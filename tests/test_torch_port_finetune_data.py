@@ -46,6 +46,8 @@ from tests.test_torch_port_finetune import N_PTS, jax_model, port_model, tiny_cf
 from tests.test_torch_port_stage2 import jax_variables
 from tests.test_torch_port_stage2 import tiny_cfg as distill_cfg
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 NPOINTS = 128  # the resample target of the small runs: FPS 256 -> 128
 
 DATASET_NODES = {

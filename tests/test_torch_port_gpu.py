@@ -936,3 +936,55 @@ def test_pointbert_ema_matches_host_recomputation(cuda):
         ulp = torch.from_numpy(np.spacing(host.abs().numpy()))
         assert ((p.detach().cpu() - host).abs() <= ulp).all(), n
     assert int(model.queue_ptr) == 4
+
+
+@pytest.mark.parametrize("op", ["fps", "k_smallest", "gather"])
+def test_kernel_ops_opcheck_on_the_card(cuda, op):
+    """``torch.library.opcheck`` of each registered kernel op on CUDA
+    tensors: the fake implementation's shapes, dtypes and strides against
+    the kernel's outputs, the schema, and a symbolic trace."""
+    pts = cloud(70, 3, 50, 3, device=cuda)
+    args = {"fps": (pts, torch.tensor([0, 4, 49], dtype=torch.int32, device=cuda), 9),
+            "k_smallest": (cloud(71, 3, 5, 50, device=cuda), 4),
+            "gather": (pts, torch.randint(0, 50, (3, 7, 2), device=cuda).int())}[op]
+    torch.library.opcheck(getattr(torch.ops.act_tpu_torch, op), args)
+
+
+def test_small_classifier_artifact_keeps_the_kernels(cuda, tmp_path):
+    """A small classifier exported on the card with a symbolic batch holds
+    the three kernel ops, reloads through ``load_exported``, launches each
+    kernel, and equals the direct serving function bit for bit at B=1 and
+    3; a fixed batch of 3 too."""
+    from act_tpu_torch.engine import export as ex
+
+    cfg = ConfigDict(dict(npoints=64, model=dict(
+        NAME="PointTransformer", embed_dim=48, depth=2, cls_dim=10, num_heads=3,
+        group_size=8, num_group=16, encoder_dims=48, transfer_type="mlp-3", dtype="bf16")))
+    infer = build_infer_fn(load_model(cfg, seed=0, device=cuda), 64)
+    for batch in (None, 3):
+        dst = str(tmp_path / f"cls-{batch}.pt2")
+        side = ex.save_exported(ex.export_classifier(cfg, batch=batch, n_in=100, device=cuda),
+                                dst)
+        assert side["needs_ops"] and side["device"] == "cuda"
+        art = ex.load_exported(dst)
+        for b in ((1, 3) if batch is None else (3,)):
+            x = cloud(72 + b, b, 100, 3, device=cuda)
+            _backend.reset_launches()
+            got = art(x)
+            torch.cuda.synchronize()
+            assert all(_backend.LAUNCHES[k] > 0 for k in ("fps", "k_smallest", "gather"))
+            assert torch.equal(got, infer(x))
+
+
+def test_tsne_embed_on_the_card(cuda):
+    """``utils/tsne.embed`` on the card: finite, the same embedding twice,
+    its final KL within 5 % of a CPU run's on the same features."""
+    from act_tpu_torch.utils import tsne
+
+    rng = np.random.default_rng(3)
+    feats = (rng.normal(size=(6, 64))[rng.integers(0, 6, 300)] * 3
+             + rng.normal(size=(300, 64))).astype(np.float32)
+    a, b = tsne.embed(feats, cuda), tsne.embed(feats, cuda)
+    assert np.isfinite(a.y).all() and np.array_equal(a.y, b.y)
+    cpu = tsne.embed(feats, "cpu")
+    assert abs(a.kl - cpu.kl) <= 0.05 * cpu.kl

@@ -21,6 +21,8 @@ from act_tpu_torch.ops import _backend, sampling
 
 from tests.test_torch_port_ops import interpret  # noqa: F401 (a fixture)
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 SEED_WORDS = np.array([123456789, 2 ** 32 - 5], np.uint32)  # the second wraps negative
 
 

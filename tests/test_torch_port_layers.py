@@ -24,6 +24,8 @@ from act_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_port_stage2 import RNGS, close, jax_variables, japply, t, tiny_cfg
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 
 def test_graph_feature_idx_matches_jax(rng):
     coor = rng.normal(size=(3, 40, 3)).astype(np.float32)

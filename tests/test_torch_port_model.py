@@ -31,6 +31,8 @@ from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.models import common
 from act_tpu_torch.utils.config import ConfigDict
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 KEY = jax.random.PRNGKey(0)
 RNGS = dict(params=KEY, dropout=KEY, droppath=KEY)
 DTYPES = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}

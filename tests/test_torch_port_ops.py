@@ -21,6 +21,18 @@ from act_tpu.ops.topk import k_smallest_pallas
 from act_tpu_torch import ops
 from act_tpu_torch.ops import _backend
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a module's tests run, then the count
+    before: the suite runs 6 worker processes on the machine's cores, and 8
+    threads each oversubscribe them (small CPU ops then wait on each other).
+    Modules import it to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 @pytest.fixture
 def interpret():

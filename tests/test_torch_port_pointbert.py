@@ -51,6 +51,8 @@ from tests.test_torch_port_stage1_run import shapenet_node
 from tests.test_torch_port_stage2 import RNGS, japply
 from tests.test_torch_port_stage2_run import probe_node
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = 1e-5
 BS, NPTS = 4, 128
 # the tokenizer tensors of the reference layout that the JAX PointBERT never

@@ -61,6 +61,8 @@ from tests.test_torch_fullgraph import TorchPartSeg, TorchSemSeg
 from tests.test_torch_port_finetune import Pins
 from tests.test_torch_port_model import RNGS, perturb
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 B, N, G, M = 2, 128, 16, 8
 TASKS = {"partseg": (JPartSeg, 50), "semseg": (JSemSeg, 13)}
 LABELS = [2, 9]

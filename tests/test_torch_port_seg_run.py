@@ -38,6 +38,8 @@ from act_tpu_torch.engine.serve import build_infer_fn, load_seg_model
 
 from tests.test_torch_port_seg import jax_variables, model_cfg, port_model
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 NPOINT, G = 128, 16
 
 

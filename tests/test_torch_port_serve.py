@@ -12,6 +12,8 @@ from act_tpu_torch import serve_http
 from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.utils.config import ConfigDict
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 NPOINTS = 128
 MODEL = dict(NAME="PointTransformer", embed_dim=48, depth=2, cls_dim=10,
              num_heads=3, group_size=8, num_group=16, encoder_dims=48,

@@ -58,6 +58,8 @@ from act_tpu_torch.utils.metrics import Metrics
 from tests.test_torch_port_stage2 import RNGS, close, jax_variables, japply, t, tiny_cfg
 from tests.test_torch_port_train import flat_np
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = 1e-5
 VIT_CFG = "cfgs/autoencoder/act_dvae_with_pretrained_transformer.yaml"
 PLAIN_CFG = "cfgs/autoencoder/pointbert_dvae.yaml"

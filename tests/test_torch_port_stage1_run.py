@@ -37,10 +37,13 @@ from act_tpu_torch.datasets.io import IO
 from act_tpu_torch.engine import builder, weights
 from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine import runner_autoencoder as runner
+from act_tpu_torch.engine import serve
 from act_tpu_torch.utils import parser
 from act_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_port_stage1 import build, jax_model, smoke_cfg
+
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
 
 N_FILE = 256  # points a file of the small trees
 TREE = {"test": {"02691156": 3, "02828884": 1, "04379243": 2},
@@ -326,8 +329,8 @@ def test_validate_table_matches_jax_with_unequal_categories(tmp_path, rng, monke
                         lambda key, shape, minval, maxval: jnp.full(shape, 0.5, jnp.float32))
     monkeypatch.setattr(jrunner, "_RECON_STEP_CACHE", {})
     monkeypatch.setattr(jrunner, "AverageMeter", RecordingMeter)
-    monkeypatch.setattr(model, "forward", lambda *a, **kw: type(model).forward(
-        model, *a, **kw, gumbel_u=torch.full((1, G, V), 0.5)))
+    monkeypatch.setattr(serve, "recon_uniforms",
+                        lambda model, batch, device: torch.full((batch, G, V), 0.5))
     RecordingMeter.made = []
 
     class State:

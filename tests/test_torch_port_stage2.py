@@ -33,6 +33,8 @@ from tests.test_torch_fullgraph import TorchDistill
 from tests.test_torch_fullgraph import tiny_distill_cfg as fullgraph_cfg
 from tests.test_torch_port_model import perturb
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = 1e-5
 BF16_ATOL = 0.005
 KEY = jax.random.PRNGKey(0)

@@ -45,6 +45,8 @@ from tests.test_torch_port_stage1 import smoke_cfg
 from tests.test_torch_port_stage1_run import fixed_draws, shapenet_node, write_tree  # noqa: F401
 from tests.test_torch_port_stage2 import RNGS, jax_variables
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 FEW_SHOT = {"NAME": "ModelNetFewShot", "DATA_PATH": "data/absent", "N_POINTS": 256,
             "way": 5, "shot": 10, "fold": 0}  # 50 train and 100 test clouds
 PROBE_NPOINTS = 128  # the probe resamples the 256-point clouds by FPS

@@ -12,7 +12,6 @@ are JAX's sown ``gumbel_u`` replayed. Token ids compare exactly, the
 reconstruction at atol 1e-5 (f32, sum order only); then ``serve_http``'s
 ``tokenize`` and ``dvae`` kinds over a local socket.
 """
-import functools
 import json
 import threading
 import urllib.error
@@ -27,11 +26,14 @@ import torch
 from act_tpu import ops as jops
 
 from act_tpu_torch import serve_http
+from act_tpu_torch.engine import serve
 from act_tpu_torch.engine.serve import build_recon_fn, build_tokenize_fn, load_model
 
 from tests.test_torch_port_stage1 import JViT, build, jcfg, smoke_cfg
 from tests.test_torch_port_stage2 import close, t
 from tests.test_torch_port_teachers import drawn_variables
+
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
 
 N_PTS = 128
 
@@ -75,7 +77,7 @@ def test_recon_matches_jax(dvae, monkeypatch):
     own = recon(pts)
     assert torch.equal(recon(pts), own)
     with monkeypatch.context() as m:
-        m.setattr(model, "forward", functools.partial(model.forward, gumbel_u=u))
+        m.setattr(serve, "recon_uniforms", lambda model, batch, device: u)
         got = recon(pts)
     G, M = int(cfg.model.num_group), int(cfg.model.group_size)
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, G * M, 3)

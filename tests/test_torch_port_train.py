@@ -47,6 +47,8 @@ from act_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_port_stage2 import jax_variables
 
+from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = 1e-5
 
 
