@@ -7,5 +7,8 @@ version. It serves the finetuned PointTransformer classifier
 (``engine/serve.py``, ``serve_http.py``) and trains Stage I, Stage II and the
 finetune (``engine/runner_*.py``; the CLIs ``main_autoencoder.py`` and
 ``main.py``); it embeds features by t-SNE (``main_tsne.py``) and exports the
-serving forwards as self-contained artifacts (``export_model.py``).
+serving forwards as self-contained artifacts (``export_model.py``). The three
+trainers run over several processes and cards (``parallel/``, launched by
+``torch.distributed.run``) and stop at a step boundary on SIGTERM with a
+checkpoint that ``--resume`` continues inside the epoch (``engine/preemption.py``).
 """

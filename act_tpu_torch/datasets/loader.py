@@ -1,13 +1,15 @@
 """Host-side batch loader: numpy collation, a prefetch thread and a forked
 worker pool.
 
-Counterpart of ``act_tpu/datasets/loader.py:27-50, 66-204`` without its
-replicas (one process on one card). The sample order of an epoch is
-``default_rng(seed + epoch).permutation`` when shuffled, ``drop_last`` leaves
-out the last partial batch, ``set_epoch(epoch, start_batch)`` starts the
-epoch at a later batch, and a dataset's ``get_batch(indices)`` builds a
-batch in one pass where it has one. So both packages batch the same samples
-in the same order.
+Counterpart of ``act_tpu/datasets/loader.py:27-50, 66-204``. The sample
+order of an epoch is ``default_rng(seed + epoch).permutation`` when
+shuffled; over ``num_replicas`` ranks the order is padded with its own head
+to a multiple of the rank count and rank r takes ``idx[r::R]``, so every
+rank has the same number of batches. ``drop_last`` leaves out the last
+partial batch, ``set_epoch(epoch, start_batch)`` starts the epoch at a later
+batch, and a dataset's ``get_batch(indices)`` builds a batch in one pass
+where it has one. So both packages batch the same samples in the same
+order.
 
 ``prefetch`` batches are built ahead on a thread. With ``num_workers > 0``
 batches come from a pool of forked processes, in order, each worker with a
@@ -70,12 +72,16 @@ def default_collate(samples: List[Any]):
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, prefetch: int = 2,
-                 num_workers: int = 0):
+                 num_workers: int = 0, num_replicas: int = 1, rank: int = 0):
+        if not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} of {num_replicas} replicas")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_replicas = int(num_replicas)
+        self.rank = int(rank)
         self.prefetch = prefetch
         self.num_workers = int(num_workers)
         self.epoch = 0
@@ -90,12 +96,40 @@ class DataLoader:
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
-        if self.shuffle:
-            return np.random.default_rng(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+        idx = (np.random.default_rng(self.seed + self.epoch).permutation(n) if self.shuffle
+               else np.arange(n))
+        if self.num_replicas > 1:
+            pad = (-n) % self.num_replicas
+            if pad:
+                idx = np.concatenate([idx, idx[:pad]])
+            idx = idx[self.rank::self.num_replicas]
+        return idx
+
+    def rng_state(self):
+        """The state of the dataset's item draws (its numpy ``rng``: ModelNet's
+        row shuffle, ShapeNet's subsample) when this process builds the
+        batches, else None (forked workers draw from their own)."""
+        rng = getattr(self.dataset, "rng", None)
+        if self.num_workers > 0 or not isinstance(rng, np.random.Generator):
+            return None
+        return rng.bit_generator.state
+
+    def set_rng_state(self, state) -> None:
+        """Put back what ``rng_state`` returned (None leaves the draws as they are)."""
+        if state is not None:
+            self.dataset.rng.bit_generator.state = state
+
+    def num_samples(self) -> int:
+        """The rank's share of the samples (padded repeats included)."""
+        return -(-len(self.dataset) // self.num_replicas)
+
+    def num_real(self) -> int:
+        """The rank's samples that are not padded repeats: they come first,
+        so an unshuffled rank holds ``range(rank, n, R)`` and then its repeat."""
+        return len(range(self.rank, len(self.dataset), self.num_replicas))
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self.num_samples()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -112,7 +146,8 @@ class DataLoader:
             ctx = mp.get_context("fork")  # workers inherit the file lists; numpy only
             self._pool = ProcessPoolExecutor(
                 max_workers=self.num_workers, mp_context=ctx, initializer=_init_worker,
-                initargs=(self.dataset, ctx.Value("i", 0), self.seed + 7919))
+                initargs=(self.dataset, ctx.Value("i", 0),
+                          self.seed + 7919 * (self.rank + 1)))
         return self._pool
 
     def close(self) -> None:

@@ -1,13 +1,16 @@
 """Batch point-cloud augmentations, drawn from an explicit generator.
 
 Counterpart of ``act_tpu/datasets/transforms.py:21-48``; same ranges as the
-reference (datasets/data_transforms.py:6-34).
+reference (datasets/data_transforms.py:6-34). Over several ranks each
+cloud's draw is its row of the global batch's (``parallel.rand_local``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from act_tpu_torch.parallel.mesh import rand_local
 
 
 def scale_and_translate(pc: torch.Tensor, generator: torch.Generator,
@@ -16,7 +19,7 @@ def scale_and_translate(pc: torch.Tensor, generator: torch.Generator,
     """Per-cloud anisotropic scale U(2/3, 3/2) and shift U(-0.2, 0.2) on each
     axis (PointcloudScaleAndTranslate, the pretrain default). pc (B, N, 3)."""
     B = pc.shape[0]
-    u = torch.rand(2, B, 1, 3, generator=generator, device=pc.device, dtype=pc.dtype)
+    u = rand_local((2, B, 1, 3), generator, dim=1, dtype=pc.dtype, device=pc.device)
     scale = scale_low + (scale_high - scale_low) * u[0]
     shift = -translate_range + 2.0 * translate_range * u[1]
     return pc * scale + shift
@@ -34,5 +37,5 @@ def rotate_y_by(pc: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
 def rotate_y(pc: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Per-cloud rotation about y by an angle U(0, 2 pi) (PointcloudRotate,
     the finetune default). pc (B, N, 3)."""
-    u = torch.rand(pc.shape[0], generator=generator, device=pc.device)
+    u = rand_local((pc.shape[0],), generator, device=pc.device)
     return rotate_y_by(pc, u * (2 * math.pi))

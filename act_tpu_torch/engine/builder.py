@@ -17,7 +17,8 @@ freezing of ``act_tpu/engine/runner_autoencoder.py:130-143`` for each teacher ar
   convention) for the epoch, what the JAX package's ``apply_bn_ratio``
   retargets its fixed-momentum update to;
 - ``dataset_builder`` makes the (dataset, loader) of a config node, shuffled
-  and without the last partial batch for ``subset: train``; workers for real data.
+  and without the last partial batch for ``subset: train``; workers for real data;
+  each rank its share of the global batch.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from act_tpu_torch.datasets.loader import DataLoader
 from act_tpu_torch.models.common import BatchNorm
 from act_tpu_torch.models.point_transformer import trainable
 from act_tpu_torch.models.teacher import TEACHER_LAYOUT
+from act_tpu_torch.parallel import process_count, process_index
 from act_tpu_torch.utils.misc import bn_momentum_schedule
 
 FROZEN_KEEP_F32 = ("norm", "ln_", "bn", "gn")
@@ -168,12 +170,17 @@ def dataset_builder(dataset_cfg, seed: int = 0, num_workers: int = 0):
     datasets' items are many small numpy calls (the ShapeNet ``.npy`` reads,
     the in-memory ModelNet pickles' normalise and shuffle), and a thread
     running them holds the interpreter lock that the step's eager kernel
-    launches wait on (``python -m act_tpu_torch.loader_sweep``; PERF.md §6)."""
+    launches wait on (``python -m act_tpu_torch.loader_sweep``; PERF.md §6).
+
+    The configs' batch sizes are global: over R ranks each rank loads
+    ``bs // R`` clouds a batch (at least 1) from its share of the index space
+    (``DataLoader(num_replicas=R, rank=r)``)."""
     dataset = build_dataset_from_cfg(dataset_cfg)
     node = dataset_cfg.others if "others" in dataset_cfg else dataset_cfg
     shuffle = node.subset == "train"
     workers = 0 if getattr(dataset, "synthetic", False) else int(num_workers)
-    loader = DataLoader(dataset, batch_size=int(node.bs), shuffle=shuffle,
+    R = process_count()
+    loader = DataLoader(dataset, batch_size=max(int(node.bs) // R, 1), shuffle=shuffle,
                         drop_last=shuffle, seed=seed, prefetch=2 if workers else 0,
-                        num_workers=workers)
+                        num_workers=workers, num_replicas=R, rank=process_index())
     return dataset, loader

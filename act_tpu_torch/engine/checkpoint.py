@@ -10,7 +10,14 @@ reference layout ``{base_model, optimizer, epoch, metrics, best_metrics}``
 ``step``, named ``ckpt-last.pth``, ``ckpt-best.pth``, ``ckpt-best_vote.pth``,
 ``ckpt-epoch-NNN.pth`` in the experiment directory. Frozen weights stored in
 bf16 are saved and restored in bf16. The save is synchronous and prints its
-size and host seconds.
+size and host seconds. Over several ranks only rank 0 writes, and every rank
+waits for it (``parallel.barrier``). A preemption save carries a
+``data_iter`` cursor ``{epoch, next_batch}``, and ``resume_state`` then
+re-enters the interrupted epoch at that batch; it also carries the state of
+the loaders' dataset draws (``DataLoader.rng_state``, one set a rank), which
+the resume puts back on each rank, so a resumed run's items are those of an
+uninterrupted one where batches are built in process (the JAX package
+restarts them).
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from act_tpu_torch.parallel import (all_gather_objects, barrier, is_main_process,
+                                    process_count, process_index)
+
 STUDENT_PREFIXES = ("ACT_encoder.", "base_model.")
 
 
@@ -30,36 +40,69 @@ def ckpt_path(experiment_path: str, prefix: str) -> str:
 
 def save_checkpoint(model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
                     epoch: int, metrics: Optional[Dict], best_metrics: Optional[Dict],
-                    prefix: str, experiment_path: str) -> str:
-    """Write ``{experiment_path}/{prefix}.pth``; returns its path."""
-    os.makedirs(experiment_path, exist_ok=True)
+                    prefix: str, experiment_path: str,
+                    data_iter: Optional[Dict[str, int]] = None,
+                    loaders: Optional[Dict] = None) -> str:
+    """Write ``{experiment_path}/{prefix}.pth`` on rank 0, then wait for it
+    on every rank; returns its path. ``data_iter={'epoch': e, 'next_batch':
+    k}`` marks a mid-epoch (preemption) save (``checkpoint.py:68-115``), with
+    the draw states of the named ``loaders``."""
     path = ckpt_path(experiment_path, prefix)
-    t0 = time.perf_counter()
-    torch.save({"base_model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": int(step), "epoch": int(epoch), "metrics": dict(metrics or {}),
-                "best_metrics": dict(best_metrics or {})}, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    print(f"Saved checkpoint at {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
-          f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    draws = None
+    if data_iter:  # every rank's draw states, gathered before rank 0 writes
+        draws = all_gather_objects({k: s for k, s in ((k, ld.rng_state()) for k, ld in
+                                                      (loaders or {}).items())
+                                    if s is not None})
+    if is_main_process():
+        os.makedirs(experiment_path, exist_ok=True)
+        t0 = time.perf_counter()
+        payload = {"base_model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                   "step": int(step), "epoch": int(epoch), "metrics": dict(metrics or {}),
+                   "best_metrics": dict(best_metrics or {})}
+        if data_iter:
+            payload["data_iter"] = {k: int(v) for k, v in data_iter.items()}
+            payload["dataset_rng"] = draws
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        print(f"Saved checkpoint at {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+              f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    barrier()
     return path
 
 
 def resume_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                 experiment_path: str) -> Tuple[int, int, Optional[Dict]]:
+                 experiment_path: str, loaders: Optional[Dict] = None
+                 ) -> Tuple[int, int, Optional[Dict], int]:
     """Load ckpt-last into ``model`` (strict) and ``optimizer`` (reference
-    resume_model, tools/builder.py:97-131). Returns (start epoch, step,
-    best metrics); (0, 0, None) when there is no ckpt-last."""
+    resume_model, tools/builder.py:97-131; ``checkpoint.py:145-205``).
+    Returns (start epoch, step, best metrics, start batch); (0, 0, None, 0)
+    when there is no ckpt-last. A cursor (a preemption save) makes the
+    start epoch the interrupted one and the start batch its ``next_batch``,
+    and puts this rank's saved draw states back into the named ``loaders``
+    (when the run has as many ranks as the one saved); an epoch-end save
+    starts the next epoch at batch 0."""
     path = ckpt_path(experiment_path, "ckpt-last")
     if not os.path.exists(path):
         print(f"[RESUME] no checkpoint at {path}", flush=True)
-        return 0, 0, None
+        return 0, 0, None, 0
     dev = next(model.parameters()).device
     payload = torch.load(path, map_location=dev, weights_only=True)
     model.load_state_dict(payload["base_model"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
-    start_epoch = int(payload["epoch"]) + 1
-    print(f"[RESUME] resumed at epoch {start_epoch}", flush=True)
-    return start_epoch, int(payload["step"]), payload.get("best_metrics")
+    start_batch = int((payload.get("data_iter") or {}).get("next_batch", 0))
+    if start_batch > 0:
+        start_epoch = int(payload["epoch"])
+        draws = payload.get("dataset_rng") or []
+        if len(draws) == process_count():
+            for name, state in draws[process_index()].items():
+                if loaders and name in loaders:
+                    loaders[name].set_rng_state(state)
+        print(f"[RESUME] resumed mid-epoch {start_epoch} at batch {start_batch} "
+              "(preemption checkpoint)", flush=True)
+    else:
+        start_epoch = int(payload["epoch"]) + 1
+        print(f"[RESUME] resumed at epoch {start_epoch}", flush=True)
+    return start_epoch, int(payload["step"]), payload.get("best_metrics"), start_batch
 
 
 def load_params_into(model: nn.Module, path: str) -> None:

@@ -16,7 +16,14 @@ and ``test_net`` evaluate a checkpoint; ``test_net`` also writes the ground
 truth and the reconstruction of the first clouds as text files (the JAX
 runner's rendered ``.jpg`` files need matplotlib and are not written).
 ``run_autoencoder_steps`` takes train steps on given batches or on the
-synthetic clouds, without loader or checkpoints.
+synthetic clouds, without loader or checkpoints. Over several ranks
+(``act_tpu_torch.parallel``) each rank trains on its share of the global
+batch, only rank 0 writes checkpoints, and ``validate`` gathers every
+rank's per-cloud metrics and taxonomies (without the loader's padded
+repeats, back in the dataset's order) before the table, so the table is the
+one-rank table over the same clouds; the JAX runner builds each process's
+table from its own shard (ROADMAP.md §3, fault (d)). ``run_net`` polls the
+preemption guard (``engine/preemption.py``) after every step.
 
   python -m act_tpu_torch.engine.runner_autoencoder \\
       --config cfgs/autoencoder/act_dvae_with_pretrained_transformer.yaml --steps 3
@@ -40,11 +47,13 @@ from torch import nn
 
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine import checkpoint as ckpt_lib
+from act_tpu_torch.engine.preemption import GUARD
 from act_tpu_torch.engine.serve import load_config, recon_forward
 from act_tpu_torch.engine.train_state import (autoencoder_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
-from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
+                                    process_count, process_index, reduce_mean_scalar)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AverageMeter
 from act_tpu_torch.utils.metrics import Metrics
@@ -176,8 +185,9 @@ def run_autoencoder_steps(config, steps: int, *, batches: Optional[Iterable] = N
     steps an epoch as the JAX runner does on those clouds. Every step ends in
     a device synchronize, so its host time is the step's time."""
     cfg = load_config(config)
-    dev = resolve_device(device)
+    dev = local_device(device)
     model = prepare_model(cfg, seed, dev)
+    broadcast_module(model)
     optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
     clip = cfg.get("grad_norm_clip", None)
     temps = [get_temp(cfg, start_itr + i) for i in range(steps)]
@@ -229,7 +239,13 @@ def validate(model: nn.Module, batches: Iterable, consider_metric: str = "CDL1",
     of its whole fine reconstruction against it
     (``runner_autoencoder.py:307-337``). Prints the per-taxonomy table.
     Returns (the Overall metrics, the mean of the category means, with the
-    table as ``.table``; each cloud's [F-Score, CDL1, CDL2])."""
+    table as ``.table``; each cloud's [F-Score, CDL1, CDL2]).
+
+    Over several ranks each rank measures its share of a ``DataLoader``;
+    the per-cloud rows and taxonomies of every rank are gathered, the
+    padded repeats left out (``DataLoader.num_real``), and put back in the
+    order of the index space (rank r's j-th cloud is position j*R + r), so
+    the table and the rows are those of one rank over the same clouds."""
     model.eval()
     dev = next(model.parameters()).device
     taxonomies, per_cloud = [], []
@@ -242,6 +258,8 @@ def validate(model: nn.Module, batches: Iterable, consider_metric: str = "CDL1",
                 fine = recon_forward(model, cloud[None])
                 per_cloud.append(Metrics.get(fine[0], cloud))
                 taxonomies.append(t)
+    if process_count() > 1:
+        taxonomies, per_cloud = _gather_clouds(batches, taxonomies, per_cloud)
     table, overall = category_table(taxonomies, per_cloud)
     print_log("============================ TEST RESULTS ============================",
               logger=logger)
@@ -254,12 +272,26 @@ def validate(model: nn.Module, batches: Iterable, consider_metric: str = "CDL1",
     return metrics, per_cloud
 
 
+def _gather_clouds(loader, taxonomies: List[str], per_cloud: List[List[float]]
+                   ) -> Tuple[List[str], List[List[float]]]:
+    """Every rank's clouds of ``validate`` without padded repeats, in the
+    order of the loader's index space."""
+    R, r = process_count(), process_index()
+    keep = min(len(per_cloud), loader.num_real())
+    pos = gather_concat(np.arange(keep, dtype=np.int64) * R + r)
+    rows = gather_concat(np.asarray(per_cloud[:keep], dtype=np.float64).reshape(keep, -1))
+    tax = gather_concat(np.asarray(taxonomies[:keep], dtype=object))
+    order = np.argsort(pos, kind="stable")
+    return [str(tax[i]) for i in order], [[float(v) for v in rows[i]] for i in order]
+
+
 @dataclass
 class AutoencoderResult:
     """What ``run_net`` returns: the final model and optimizer, the best
     validation metrics, the train step and anneal iteration reached, the
     temperature and KLD weight of each step taken and the mean losses
-    (x1000: recon, KLD) of each epoch run."""
+    (x1000: recon, KLD) of each epoch run, and whether a preemption stopped
+    the run."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     best_metrics: Optional[Metrics]
@@ -268,6 +300,7 @@ class AutoencoderResult:
     temps: List[float] = field(default_factory=list)
     kld_weights: List[float] = field(default_factory=list)
     epoch_losses: List[List[float]] = field(default_factory=list)
+    preempted: bool = False
 
 
 def _loaders(cfg, seed: int, num_workers: int, subsets):
@@ -291,26 +324,35 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     ``n_itr`` (``start_epoch * len(train_loader)`` after a resume, one more
     each step), the lr schedule at ``len(train_loader)`` steps an epoch;
     then ``validate`` (``max_val`` clouds, default all), ckpt-best when the
-    metrics are better, and ckpt-last, in ``experiment_path``."""
+    metrics are better, and ckpt-last, in ``experiment_path``. Once
+    ``preemption.GUARD`` is set (checked after every step) it writes
+    ckpt-last with the loader's cursor and returns with ``preempted`` set;
+    ``resume`` re-enters that epoch at that batch, the anneals at
+    ``start_epoch * len(train_loader) + start_batch``."""
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
-    dev = resolve_device(device)
+    dev = local_device(device)
     train_loader, val_loader = _loaders(cfg, seed, num_workers, ("train", "val"))
     epoch_steps = max(len(train_loader), 1)
     model = prepare_model(cfg, seed, dev, logger)
     optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
     bnm = builder.build_bnm_schedule(cfg)
     clip = cfg.get("grad_norm_clip", None)
-    start_epoch, step, best = 0, 0, None
+    named = {"train": train_loader, "val": val_loader}
+    start_epoch, start_batch, step, best = 0, 0, 0, None
     if resume:
-        start_epoch, step, best_d = ckpt_lib.resume_state(model, optimizer, experiment_path)
+        start_epoch, step, best_d, start_batch = ckpt_lib.resume_state(model, optimizer,
+                                                                       experiment_path, named)
         best = Metrics(cfg.consider_metric, best_d) if best_d else None
-    n_itr = start_epoch * epoch_steps
+    broadcast_module(model)
+    n_itr = start_epoch * epoch_steps + start_batch
     res = AutoencoderResult(model, optimizer, best, step, n_itr)
+    n_step = 0
     try:
         for epoch in range(start_epoch, int(cfg.max_epoch)):
-            train_loader.set_epoch(epoch)
+            first = start_batch if epoch == start_epoch else 0
+            train_loader.set_epoch(epoch, first)
             if bnm is not None:
                 builder.set_bn_momentum(model, bnm(epoch))
             pending, t0 = [], time.time()
@@ -324,12 +366,25 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                 res.kld_weights.append(kldw)
                 res.step += 1
                 res.n_itr += 1
+                n_step += 1
+                if GUARD.check(n_step):
+                    ckpt_lib.save_checkpoint(
+                        model, optimizer, res.step, epoch, None,
+                        res.best_metrics.state_dict() if res.best_metrics else None,
+                        "ckpt-last", experiment_path,
+                        data_iter={"epoch": epoch, "next_batch": first + idx + 1},
+                        loaders=named)
+                    print_log(f"[PREEMPT] saved mid-epoch checkpoint at epoch {epoch} batch "
+                              f"{first + idx + 1}; exiting gracefully", logger=logger)
+                    res.preempted = True
+                    return res
                 if max_steps and idx + 1 >= max_steps:
                     break
             meters = AverageMeter(["Loss1", "Loss2"])
             for recon, kld in pending:  # one host fetch an epoch, not one a step
                 meters.update([float(recon) * 1000, float(kld) * 1000])
-            res.epoch_losses.append([meters.avg(0), meters.avg(1)])
+            res.epoch_losses.append([reduce_mean_scalar(meters.avg(0)),
+                                     reduce_mean_scalar(meters.avg(1))])
             print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.1f}s "
                       f"Losses(x1000)={[f'{v:.4f}' for v in res.epoch_losses[-1]]} "
                       f"steps={len(pending)} n_itr={res.n_itr} lr={schedule(res.step):.6f}",
@@ -356,6 +411,7 @@ def _eval_model(cfg, ckpts, seed: int, dev, logger=None) -> nn.Module:
     model = prepare_model(cfg, seed, dev, logger)
     if ckpts:
         ckpt_lib.load_params_into(model, ckpts)
+    broadcast_module(model)
     return model
 
 
@@ -364,7 +420,7 @@ def validate_net(config, *, ckpts=None, seed: int = 0, device="cuda",
     """``--val``: the metrics of ``ckpts`` over the val split at B=1
     (``runner_autoencoder.py:340-352``)."""
     cfg = load_config(config)
-    dev = resolve_device(device)
+    dev = local_device(device)
     (loader,) = _loaders(cfg, seed, 0, ("val",))
     return validate(_eval_model(cfg, ckpts, seed, dev, logger), loader,
                     cfg.consider_metric, max_batches, logger)[0]
@@ -377,7 +433,7 @@ def test_net(config, *, ckpts=None, seed: int = 0, device="cuda",
     first ``max_dumps`` reconstructions written to ``experiment_path/vis``
     (``runner_autoencoder.py:355-370``)."""
     cfg = load_config(config)
-    dev = resolve_device(device)
+    dev = local_device(device)
     (loader,) = _loaders(cfg, seed, 0, ("test",))
     model = _eval_model(cfg, ckpts, seed, dev, logger)
     metrics = validate(model, loader, cfg.consider_metric, max_batches, logger)[0]

@@ -9,9 +9,13 @@ lr. Validation resamples by FPS to ``npoints`` and reports the overall
 accuracy (OA) and the balanced accuracy (mAcc); the vote sums the softmax
 of 10 resampled, scaled and shifted copies of each batch. Checkpoints are
 ``torch.save`` files in the reference layout (``engine/checkpoint.py``).
-Not ported: the TPU workarounds (``--h2d_dtype i16``, ``--scan_steps``, the
-kernel mesh, TP sharding), the preemption guard and the cross-process
-gather (one process on one card).
+Over several ranks (``act_tpu_torch.parallel``) every rank trains on its
+share of each global batch, validation, the vote and the test gather the
+predictions and labels in rank order (padded repeats included, as in JAX),
+the epoch's loss is the ranks' mean, and only rank 0 writes checkpoints.
+``run_net`` polls the preemption guard (``engine/preemption.py``) after
+every step. Not ported: the TPU workarounds (``--h2d_dtype i16``,
+``--scan_steps``, the kernel mesh, TP sharding).
 
   python -m act_tpu_torch.engine.runner_finetune \\
       --config cfgs/finetune_classification/full/finetune_modelnet.yaml --steps 3
@@ -40,10 +44,12 @@ from act_tpu_torch import ops
 from act_tpu_torch.datasets.transforms import rotate_y, scale_and_translate
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine import checkpoint as ckpt_lib
+from act_tpu_torch.engine.preemption import GUARD
 from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_state_dict
 from act_tpu_torch.engine.train_state import finetune_step, step_rngs
 from act_tpu_torch.models import MODELS
-from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
+                                    reduce_mean_scalar)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter, balanced_accuracy
 
@@ -103,7 +109,7 @@ def build_state(cfg, epoch_steps: int, seed: int = 0, device="cuda",
     lifted, merged by name and shape) where given; the parameters that
     ``transfer_type`` does not train frozen and left out of AdamW; the lr
     schedule at ``epoch_steps`` steps an epoch; on ``device``."""
-    dev = resolve_device(device)
+    dev = local_device(device)
     with torch.device("meta"):
         model = MODELS.build(cfg.model)
     model = model.to_empty(device="cpu")
@@ -165,7 +171,7 @@ def run_finetune_steps(config, steps: int, *, batches: Optional[Iterable] = None
     ``start_step``. Every step ends in a device synchronize, so its host time
     is the step's time."""
     cfg = finetune_config(config)
-    dev = resolve_device(device)
+    dev = local_device(device)
     (train_loader,) = loaders(cfg, seed, ("train",))
     if batches is None:
         def from_loader():
@@ -173,7 +179,11 @@ def run_finetune_steps(config, steps: int, *, batches: Optional[Iterable] = None
                 train_loader.set_epoch(epoch)
                 yield from train_loader
         batches = from_loader()
-    st = state or build_state(cfg, max(len(train_loader), 1), seed, dev)
+    if state is None:
+        st = build_state(cfg, max(len(train_loader), 1), seed, dev)
+        broadcast_module(st.model)
+    else:
+        st = state
     losses, accs, step_ms = [], [], []
     for i, batch in zip(range(steps), batches):
         pts, labels = _to_device(batch, dev)
@@ -189,7 +199,7 @@ def run_finetune_steps(config, steps: int, *, batches: Optional[Iterable] = None
 
 def _model_device(model: nn.Module, device) -> torch.device:
     """``device`` resolved (the card unless "cpu"), and the model on it."""
-    dev = resolve_device(device)
+    dev = local_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"the model is on {next(model.parameters()).device}, not {dev}")
     return next(model.parameters()).device
@@ -199,7 +209,8 @@ def predict(model: nn.Module, loader: Iterable, npoints: int, device="cuda"
             ) -> Tuple[np.ndarray, np.ndarray]:
     """The eval protocol's logits: each batch resampled by FPS to ``npoints``
     (``runner_finetune.py:153-156``), then the eval forward, on ``device``
-    (the model's). Returns (f32 logits (n, cls_dim), labels (n,))."""
+    (the model's). Returns (f32 logits (n, cls_dim), labels (n,)), every
+    rank's in rank order (``runner_finetune.py:299-308``)."""
     dev = _model_device(model, device)
     model.eval()
     infer = build_infer_fn(model, npoints)
@@ -208,7 +219,7 @@ def predict(model: nn.Module, loader: Iterable, npoints: int, device="cuda"
         pts, label = _to_device(batch, dev)
         logits.append(infer(pts).float().cpu().numpy())
         labels.append(label.cpu().numpy())
-    return np.concatenate(logits), np.concatenate(labels)
+    return gather_concat(np.concatenate(logits)), gather_concat(np.concatenate(labels))
 
 
 def validate(model: nn.Module, loader: Iterable, npoints: int, device="cuda",
@@ -248,7 +259,8 @@ def validate_vote(model: nn.Module, loader: Iterable, npoints: int, seed: int = 
                   logger=None) -> float:
     """OA (%) of the vote over ``loader`` on ``device`` (the model's)
     (reference validate_vote, runner_finetune.py:300-365), batch i's draws
-    from ``vote_generator(seed, vote_round, i)``."""
+    from ``vote_generator(seed, vote_round, i)``; the predictions of every
+    rank in rank order (``runner_finetune.py:365-381``)."""
     dev = _model_device(model, device)
     model.eval()
     preds, labels = [], []
@@ -258,7 +270,8 @@ def validate_vote(model: nn.Module, loader: Iterable, npoints: int, seed: int = 
             gen = vote_generator(seed, vote_round, i, dev)
             preds.append(vote_logits(model, pts, npoints, gen, times).argmax(-1).cpu().numpy())
             labels.append(label.cpu().numpy())
-    preds, labels = np.concatenate(preds), np.concatenate(labels)
+    preds = gather_concat(np.concatenate(preds))
+    labels = gather_concat(np.concatenate(labels))
     acc = float((preds == labels).mean()) * 100.0 if len(preds) else 0.0
     print_log(f"[VOTE] acc = {acc:.4f} ({times} votes)", logger)
     return acc
@@ -283,6 +296,7 @@ class FinetuneResult:
     epoch_loss: List[float]
     epoch_acc: List[float]
     steps: int
+    preempted: bool = False
 
 
 def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
@@ -295,60 +309,81 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     an epoch), each followed by a validation with ckpt-best, the vote
     behind its gate with ckpt-best_vote, and ckpt-last (the reference
     runner's cadence). ``ckpts`` starts from pretrained weights;
-    ``resume`` continues from the ckpt-last of ``experiment_path``; ``way``,
-    ``shot``, ``fold`` pick a few-shot split (``finetune_config``);
-    ``num_workers`` forked workers load real data; the run's lines go to
-    ``logger`` (``utils/logger.print_log``)."""
+    ``resume`` continues from the ckpt-last of ``experiment_path``, inside
+    the interrupted epoch after a preemption save; ``way``, ``shot``,
+    ``fold`` pick a few-shot split (``finetune_config``); ``num_workers``
+    forked workers load real data; the run's lines go to ``logger``
+    (``utils/logger.print_log``). Once ``preemption.GUARD`` is set (checked
+    after every step) it writes ckpt-last with the loader's cursor and
+    returns with ``preempted`` set."""
     cfg = finetune_config(config, way, shot, fold)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
-    dev = resolve_device(device)
+    dev = local_device(device)
     train_loader, val_loader = loaders(cfg, seed, num_workers=num_workers)
     try:
+        named = {"train": train_loader, "val": val_loader}
         st = build_state(cfg, max(len(train_loader), 1), seed, dev, None if resume else ckpts)
-        start_epoch, step, best = 0, 0, AccMetric(0.0)
+        start_epoch, start_batch, step, best = 0, 0, 0, AccMetric(0.0)
         if resume:
-            start_epoch, step, best_d = ckpt_lib.resume_state(st.model, st.optimizer,
-                                                              experiment_path)
+            start_epoch, step, best_d, start_batch = ckpt_lib.resume_state(
+                st.model, st.optimizer, experiment_path, named)
             if best_d:
                 best = AccMetric(best_d.get("acc", 0.0))
-        epoch_loss, epoch_acc = [], []
+        broadcast_module(st.model)
+        res = FinetuneResult(st, best, [], [], step)
+        n_step = 0
         for epoch in range(start_epoch, int(cfg.max_epoch)):
-            train_loader.set_epoch(epoch)
+            first = start_batch if epoch == start_epoch else 0
+            train_loader.set_epoch(epoch, first)
             if st.bnm is not None:
                 builder.set_bn_momentum(st.model, st.bnm(epoch))
             meters, pending, t0 = AverageMeter(["loss", "acc"]), [], time.time()
             for idx, batch in enumerate(train_loader):
                 pts, labels = _to_device(batch, dev)
-                pending.append(train_step(st, pts, labels, step, seed))
-                step += 1
+                pending.append(train_step(st, pts, labels, res.steps, seed))
+                res.steps += 1
+                n_step += 1
+                if GUARD.check(n_step):
+                    ckpt_lib.save_checkpoint(
+                        st.model, st.optimizer, res.steps, epoch, None,
+                        res.best_metrics.state_dict(), "ckpt-last", experiment_path,
+                        data_iter={"epoch": epoch, "next_batch": first + idx + 1},
+                        loaders=named)
+                    print_log(f"[PREEMPT] saved mid-epoch checkpoint at epoch {epoch} batch "
+                              f"{first + idx + 1}; exiting gracefully", logger)
+                    res.preempted = True
+                    return res
                 if max_steps and idx + 1 >= max_steps:
                     break
             for loss, acc in pending:  # one host fetch an epoch, not one a step
                 meters.update([float(loss), float(acc)])
-            epoch_loss.append(meters.avg(0))
-            epoch_acc.append(meters.avg(1))
-            print_log(f"[Epoch {epoch}] time={time.time() - t0:.1f}s loss={meters.avg(0):.4f} "
-                      f"acc={meters.avg(1):.2f} lr={st.schedule(step):.6f}", logger)
+            loss, acc = reduce_mean_scalar(meters.avg(0)), reduce_mean_scalar(meters.avg(1))
+            res.epoch_loss.append(loss)
+            res.epoch_acc.append(acc)
+            print_log(f"[Epoch {epoch}] time={time.time() - t0:.1f}s loss={loss:.4f} "
+                      f"acc={acc:.2f} lr={st.schedule(res.steps):.6f}", logger)
             acc = validate(st.model, val_loader, st.npoints, dev, logger)
-            better = acc.better_than(best)
+            better = acc.better_than(res.best_metrics)
             if better:
-                best = acc
-                ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, acc.state_dict(),
-                                         best.state_dict(), "ckpt-best", experiment_path)
+                res.best_metrics = acc
+                ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch,
+                                         acc.state_dict(), acc.state_dict(), "ckpt-best",
+                                         experiment_path)
             if vote and (acc.acc > VOTE_ALWAYS or (better and acc.acc > VOTE_IF_BETTER)):
                 vote_acc = validate_vote(st.model, val_loader, st.npoints, seed, device=dev,
                                          logger=logger)
-                if vote_acc > best.acc:
-                    ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch,
-                                             {"acc": vote_acc}, best.state_dict(),
+                if vote_acc > res.best_metrics.acc:
+                    ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch,
+                                             {"acc": vote_acc}, res.best_metrics.state_dict(),
                                              "ckpt-best_vote", experiment_path)
-            ckpt_lib.save_checkpoint(st.model, st.optimizer, step, epoch, None,
-                                     best.state_dict(), "ckpt-last", experiment_path)
+            ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch, None,
+                                     res.best_metrics.state_dict(), "ckpt-last",
+                                     experiment_path)
     finally:
         train_loader.close()
         val_loader.close()
-    return FinetuneResult(st, best, epoch_loss, epoch_acc, step)
+    return res
 
 
 def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = False,
@@ -357,10 +392,11 @@ def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = F
     """Test OA of the weights in ``ckpts`` (``runner_finetune.py:387-423``);
     with ``vote`` also the best of ``rounds`` vote rounds as ``.vote``."""
     cfg = finetune_config(config, way)
-    dev = resolve_device(device)
+    dev = local_device(device)
     (test_loader,) = loaders(cfg, seed, ("test",), num_workers)
     try:
         st = build_state(cfg, 1, seed, dev, ckpts)
+        broadcast_module(st.model)
         acc = validate(st.model, test_loader, st.npoints, dev, logger)
         print_log(f"[TEST] OA = {acc.acc:.4f}", logger)
         if vote:

@@ -17,8 +17,14 @@ without loader or checkpoints. For ACT_PointBERT (``runner_pretrain.py:170-192,
 234-238``) the k encoder starts as a copy of the q encoder and is frozen
 beside the tokenizer (only the tokenizer is stored in bf16), every step ends
 in the EMA of k at ``model.m``, and the checkpoints carry the MoCo queue and
-its pointer (buffers of the model's state dict). Not ported: the TPU
-workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
+its pointer (buffers of the model's state dict). Over several ranks
+(``act_tpu_torch.parallel``) ACT_PointDistillation trains on each rank's
+share of the global batch, the probe's features are gathered in rank order,
+the epoch's loss is the ranks' mean and only rank 0 writes checkpoints;
+ACT_PointBERT raises there (its mixup pairs clouds across the global batch
+and its queue takes the global batch's keys). ``run_net`` polls the
+preemption guard (``engine/preemption.py``) after every step. Not ported:
+the TPU workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
 
   python -m act_tpu_torch.engine.runner_pretrain \\
       --config cfgs/pretrain/pretrain_act_distill.yaml --steps 3
@@ -42,12 +48,14 @@ from act_tpu_torch import ops
 from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.engine import builder
 from act_tpu_torch.engine import checkpoint as ckpt_lib
+from act_tpu_torch.engine.preemption import GUARD
 from act_tpu_torch.engine.serve import (Checkpoint, build_features_fn, load_config,
                                         load_state_dict)
 from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
-from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
+                                    process_count, reduce_mean_scalar)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter
 from act_tpu_torch.utils.svm import LinearSVC
@@ -123,6 +131,15 @@ def copy_query_encoder(model: nn.Module) -> nn.Module:
     return model
 
 
+def check_ranks(model_cfg) -> None:
+    """Raise for ACT_PointBERT over several ranks (not ported)."""
+    if is_pointbert(model_cfg) and process_count() > 1:
+        raise NotImplementedError(
+            "ACT_PointBERT over several ranks is not ported: its flipped-batch mixup pairs "
+            "clouds across ranks (act_tpu/models/act.py:516-525) and its MoCo enqueue takes "
+            "the global batch's keys (act.py:610-619)")
+
+
 def ema_momentum(cfg) -> Optional[float]:
     """The EMA momentum of the config's train step: ``model.m`` for
     ACT_PointBERT, else None."""
@@ -140,8 +157,10 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     clouds. Every step ends in a device synchronize, so its host time is
     the step's time. An ACT_PointBERT step's loss is the sum of its three."""
     cfg = load_config(config)
-    dev = resolve_device(device)
+    check_ranks(cfg.model)
+    dev = local_device(device)
     model = freeze_tokenizer(build_pretrain_model(cfg.model, seed, state_dict), cfg).to(dev)
+    broadcast_module(model)
     optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
     clip, m = cfg.get("grad_norm_clip", None), ema_momentum(cfg)
     losses, step_ms = timed_steps(
@@ -232,7 +251,7 @@ def probe_features(model: nn.Module, loader: Iterable, npoints: int
     resampled by FPS + gather to ``npoints`` when it has another point
     count, then ``forward_eval`` in eval mode (``build_features_fn``); the model's
     mode is restored afterwards. Returns (f32 features (n, cls_dim), labels
-    (n,))."""
+    (n,)), every rank's in rank order (``runner_pretrain.py:436-440``)."""
     was_training = model.training
     features = build_features_fn(model.eval(), npoints)
     feats, labels = [], []
@@ -242,7 +261,7 @@ def probe_features(model: nn.Module, loader: Iterable, npoints: int
             labels.append(np.asarray(label).reshape(-1))
     finally:
         model.train(was_training)
-    return np.concatenate(feats), np.concatenate(labels)
+    return gather_concat(np.concatenate(feats)), gather_concat(np.concatenate(labels))
 
 
 def validate(model: nn.Module, extra_train_loader: Iterable, test_loader: Iterable,
@@ -282,13 +301,14 @@ def is_snapshot_epoch(epoch: int) -> bool:
 class PretrainResult:
     """What ``run_net`` returns: the final model and optimizer, the best
     probe accuracy, the train step reached, each epoch's mean loss and each
-    probe's accuracy."""
+    probe's accuracy, and whether a preemption stopped the run."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     best_metrics: AccMetric
     step: int
     epoch_loss: List[float] = field(default_factory=list)
     probes: List[AccMetric] = field(default_factory=list)
+    preempted: bool = False
 
 
 def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
@@ -305,11 +325,15 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     on its accuracy, ckpt-last, and ``ckpt-epoch-NNN`` every 25 epochs from
     epoch 250, in ``experiment_path``. ACT_PointBERT's steps end in the EMA
     of its k encoder, and its checkpoints carry the queue and its pointer,
-    which ``resume`` restores with the weights."""
+    which ``resume`` restores with the weights. Once ``preemption.GUARD`` is
+    set (checked after every step) it writes ckpt-last with the loader's
+    cursor and returns with ``preempted`` set; ``resume`` re-enters that
+    epoch at that batch."""
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
-    dev = resolve_device(device)
+    check_ranks(cfg.model)
+    dev = local_device(device)
     cfg.dataset.train.others.bs = int(cfg.total_bs)
     train_set, train_loader = builder.dataset_builder(cfg.dataset.train, seed, num_workers)
     probe = "val" in cfg.dataset and "extra_train" in cfg.dataset
@@ -325,20 +349,27 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
     bnm = builder.build_bnm_schedule(cfg)
     clip, m = cfg.get("grad_norm_clip", None), ema_momentum(cfg)
-    start_epoch, step, best = 0, 0, AccMetric(0.0)
+    named = {"train": train_loader}
+    if probe:
+        named.update(val=val_loader, extra_train=extra_loader)
+    start_epoch, start_batch, step, best = 0, 0, 0, AccMetric(0.0)
     if resume:
-        start_epoch, step, best_d = ckpt_lib.resume_state(model, optimizer, experiment_path)
+        start_epoch, step, best_d, start_batch = ckpt_lib.resume_state(model, optimizer,
+                                                                       experiment_path, named)
         if best_d:
             best = AccMetric(best_d.get("acc", 0.0))
     elif start_ckpts:
         ckpt_lib.load_params_into(model, start_ckpts)
+    broadcast_module(model)
     transform = pretrain_transform(train_set, npoints)
     res = PretrainResult(model, optimizer, best, step)
     print_log(f"[PRETRAIN] {cfg.model.NAME}: {epoch_steps} steps/epoch, "
               f"{int(cfg.max_epoch)} epochs", logger=logger)
     try:
+        n_step = 0
         for epoch in range(start_epoch, int(cfg.max_epoch)):
-            train_loader.set_epoch(epoch)
+            first = start_batch if epoch == start_epoch else 0
+            train_loader.set_epoch(epoch, first)
             if bnm is not None:
                 builder.set_bn_momentum(model, bnm(epoch))
             pending, t0 = [], time.time()
@@ -349,14 +380,25 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                                              step_rngs(seed, res.step, dev), transform, clip,
                                              m))
                 res.step += 1
+                n_step += 1
+                if GUARD.check(n_step):
+                    ckpt_lib.save_checkpoint(
+                        model, optimizer, res.step, epoch, None,
+                        res.best_metrics.state_dict(), "ckpt-last", experiment_path,
+                        data_iter={"epoch": epoch, "next_batch": first + idx + 1},
+                        loaders=named)
+                    print_log(f"[PREEMPT] saved mid-epoch checkpoint at epoch {epoch} batch "
+                              f"{first + idx + 1}; exiting gracefully", logger=logger)
+                    res.preempted = True
+                    return res
                 if max_steps and idx + 1 >= max_steps:
                     break
             meters = AverageMeter(["Loss"])
             for loss in pending:  # one host fetch an epoch, not one a step
                 meters.update([float(loss)])
-            res.epoch_loss.append(meters.avg(0))
+            res.epoch_loss.append(reduce_mean_scalar(meters.avg(0)))
             print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.3f}s "
-                      f"Loss={meters.avg(0):.4f} steps={len(pending)} "
+                      f"Loss={res.epoch_loss[-1]:.4f} steps={len(pending)} "
                       f"lr={schedule(res.step):.6f}", logger=logger)
             if probe:
                 metric = validate(model, extra_loader, val_loader, val_npoints, epoch, logger)

@@ -10,6 +10,9 @@ included), backward, then AdamW at the scheduled lr (and, for ACT_PointBERT,
 the EMA of the k encoder). Every random draw of a
 step comes from one generator per named stream, seeded from (seed, step,
 stream), on the step's device. ``timed_steps`` is the trainers' step loop.
+Over several ranks a step is the one-process step on the global batch: the
+gradients are averaged before the clip, BatchNorm takes global statistics
+and each draw is the rank's rows of the global draw (``act_tpu_torch.parallel``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from act_tpu_torch.datasets.synthetic import SYNTHETIC_LEN, synthetic_batch
 from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.models.point_transformer import get_loss_acc
 from act_tpu_torch.models.segmentation import nll_seg_loss
+from act_tpu_torch.parallel import all_reduce_mean
 
 STREAMS = ("gumbel", "mask", "dropout", "droppath", "augment")
 
@@ -167,16 +171,22 @@ def seg_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 def _update(optimizer: torch.optim.Optimizer, lr: float,
             grad_norm_clip: Optional[float]) -> None:
-    """Clip (when set) and take the AdamW step at ``lr``.
+    """Average the gradients over the ranks, clip (when set) and take the
+    AdamW step at ``lr``.
 
     A trainable parameter that the loss does not reach (the student's unused
     ``cls_head``) gets a zero gradient, so AdamW still decays it, as optax
-    does with the zero gradients JAX gives it."""
+    does with the zero gradients JAX gives it. Under a process group the
+    gradients are all-reduced (SUM, then / R, one flattened bucket a dtype;
+    no ``DistributedDataParallel`` wrapper, so state-dict keys keep their
+    layout) before the clip, which then clips the global gradient as JAX
+    does."""
     for group in optimizer.param_groups:
         group["lr"] = lr
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    all_reduce_mean([p.grad for g in optimizer.param_groups for p in g["params"]])
     if grad_norm_clip:
         torch.nn.utils.clip_grad_norm_(
             [p for g in optimizer.param_groups for p in g["params"]], grad_norm_clip)

@@ -12,6 +12,12 @@ The same flags, configs and experiment directory as the JAX CLI
 ``--start_ckpts``) and runs ``engine/runner_finetune.run_net``; ``--test``
 runs ``runner_finetune.test_net``. The run is on the card unless
 ``--device cpu`` is given.
+
+On N cards: ``python -m torch.distributed.run --nproc_per_node=N -m
+act_tpu_torch.main ...`` (one process a card, NCCL; the configs' batch sizes
+are global). A SIGTERM makes the trainer write ckpt-last with its position
+in the epoch at the next step boundary and exit 0 after a ``[PREEMPT]``
+line; ``--resume`` continues inside that epoch.
 """
 from __future__ import annotations
 
@@ -19,24 +25,41 @@ import os
 import time
 from typing import List, Optional
 
+from act_tpu_torch.engine.preemption import GUARD
+from act_tpu_torch.parallel import destroy_distributed, initialize_distributed
 from act_tpu_torch.utils.logger import get_root_logger, print_log
 from act_tpu_torch.utils.parser import get_args, get_config
 
 
 def setup(argv: Optional[List[str]] = None):
-    """Parse the flags, open the run's log file in its experiment directory
-    and load the config. Returns (args, config, logger)."""
+    """Parse the flags, install the preemption guard (SIGTERM), join the
+    process group of torchrun's environment (``nccl`` on the card, ``gloo``
+    with ``--device cpu``; none without torchrun), open the run's log file in
+    its experiment directory and load the config. Returns (args, config,
+    logger)."""
     args = get_args(argv)
+    GUARD.install()
+    initialize_distributed(args.device)
     log_file = os.path.join(args.experiment_path, f"{time.strftime('%Y%m%d_%H%M%S')}.log")
     logger = get_root_logger(log_file=log_file, name=args.log_name)
     config = get_config(args)
     for key, val in vars(args).items():
         print_log(f"args.{key} : {val}", logger=logger)
+    if args.sync_bn:
+        print_log("[ARGS] --sync_bn: BatchNorm statistics are global over the ranks by "
+                  "construction; the flag changes nothing", logger=logger)
     return args, config, logger
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args, config, logger = setup(argv)
+    try:
+        run(args, config, logger)
+    finally:
+        destroy_distributed()
+
+
+def run(args, config, logger) -> None:
     if args.test:
         from act_tpu_torch.engine import runner_finetune
         runner_finetune.test_net(config, ckpts=args.ckpts, seed=args.seed, device=args.device,

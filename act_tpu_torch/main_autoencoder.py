@@ -10,7 +10,9 @@ the experiment directory's ckpt-last), or evaluates ``--ckpts`` on the val
 split (``--val``) or on the test split with the reconstruction dump
 (``--test``). The flags and the experiment directory are those of
 ``act_tpu_torch/utils/parser.py``. The run is on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given. On N cards and under SIGTERM it behaves as
+``act_tpu_torch/main.py`` says (``torch.distributed.run``, ``[PREEMPT]``,
+``--resume``).
 """
 from __future__ import annotations
 
@@ -18,10 +20,18 @@ from typing import List, Optional
 
 from act_tpu_torch.engine import runner_autoencoder
 from act_tpu_torch.main import setup
+from act_tpu_torch.parallel import destroy_distributed
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args, config, logger = setup(argv)
+    try:
+        run(args, config, logger)
+    finally:
+        destroy_distributed()
+
+
+def run(args, config, logger) -> None:
     if args.test:
         runner_autoencoder.test_net(config, ckpts=args.ckpts, seed=args.seed,
                                     device=args.device, experiment_path=args.experiment_path,

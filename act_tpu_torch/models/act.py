@@ -31,6 +31,7 @@ from act_tpu_torch.models.common import (Dense, GroupEncoder, LayerNorm, PosEmbe
                                          trunc_normal_)
 from act_tpu_torch.models.dvae import stage_two_tokenizer
 from act_tpu_torch.models.teacher import init_teacher_prompts
+from act_tpu_torch.parallel.mesh import rand_local, randint_local
 from act_tpu_torch.utils.config import as_cfg
 
 
@@ -42,7 +43,7 @@ def random_mask(generator: torch.Generator, batch: int, num_group: int,
                 num_mask: int) -> torch.Tensor:
     """(B, G) bool with exactly ``num_mask`` True per row, uniformly at random
     (reference _mask_center_rand, models/act.py:244-267)."""
-    scores = torch.rand(batch, num_group, generator=generator, device=generator.device)
+    scores = rand_local((batch, num_group), generator)
     return torch.argsort(torch.argsort(scores, dim=-1), dim=-1) < num_mask
 
 
@@ -51,7 +52,7 @@ def block_mask(generator: torch.Generator, center: torch.Tensor, num_mask: int
     """Mask the ``num_mask`` groups nearest to a random seed group
     (reference _mask_center_block, models/act.py:215-242)."""
     B, G, _ = center.shape
-    seed_idx = torch.randint(0, G, (B,), generator=generator, device=generator.device)
+    seed_idx = randint_local(G, (B,), generator)
     seed = center[torch.arange(B, device=center.device), seed_idx][:, None, :]
     d = torch.sum((center - seed) ** 2, dim=-1)
     return torch.argsort(torch.argsort(d, dim=-1), dim=-1) < num_mask
@@ -63,7 +64,7 @@ def bernoulli_ratio_mask(generator: torch.Generator, batch: int, num_group: int,
     group masked with that probability (``act.py:59-67``; the reference
     MaskTransformer's per-batch ratio). The count varies."""
     ratio = lo + (hi - lo) * torch.rand((), generator=generator, device=generator.device)
-    return torch.rand(batch, num_group, generator=generator, device=generator.device) < ratio
+    return rand_local((batch, num_group), generator) < ratio
 
 
 def split_by_mask(mask: torch.Tensor, num_mask: int
@@ -250,7 +251,7 @@ class MaskTransformer(nn.Module):
             return tokens, mask
         B, G, C = tokens.shape
         g = rng(rngs, "mask")
-        replace = (torch.rand(B, G, generator=g, device=g.device) < self.replace_pob) & ~mask
+        replace = (rand_local((B, G), g) < self.replace_pob) & ~mask
         perm = torch.randperm(B * G, generator=g, device=g.device)
         shuffled = tokens.detach().reshape(B * G, C)[perm].reshape(B, G, C)
         w = replace[:, :, None].to(tokens.dtype)
@@ -474,8 +475,8 @@ class ACT_PointBERT(nn.Module):
         B, G = center.shape[:2]
         if draws is None:
             g = rng(rngs, "mask")
-            ratio = torch.rand(B, generator=g, device=g.device)
-            mm = (torch.rand(B, G, generator=g, device=g.device) < ratio[:, None]
+            ratio = rand_local((B,), g)
+            mm = (rand_local((B, G), g) < ratio[:, None]
                   ).to(center.dtype)
         else:
             ratio, mm = draws

@@ -16,7 +16,9 @@ attention softmax run in f32; Batch/GroupNorm emit the compute dtype. In
 training mode (``module.train()``) BatchNorm uses batch statistics and updates
 its running statistics as flax does (momentum 0.9, biased variance), and
 dropout and drop path draw from the generators passed as ``rngs``
-(``{'dropout': ..., 'droppath': ...}``); nothing uses the global RNG.
+(``{'dropout': ..., 'droppath': ...}``); nothing uses the global RNG. Over
+several ranks BatchNorm takes the global batch's statistics and each draw is
+the rank's rows of the global batch's draw (``parallel.rand_local``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from act_tpu_torch import ops
+from act_tpu_torch.parallel import all_reduce_sum, process_count, rand_local
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
 Rngs = Optional[Mapping[str, torch.Generator]]
@@ -124,6 +127,20 @@ def _fast_stats(x32: torch.Tensor, dims, keepdim: bool = False
     return mean, var
 
 
+def _global_stats(x32: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_fast_stats`` over the global batch of every rank: the sums of x and
+    x^2 and the count, all-reduced in f32 in one tensor by a differentiable
+    all-reduce (its backward sums the ranks' gradients), then flax's
+    E[x^2] - E[x]^2. One process takes ``_fast_stats`` itself."""
+    if process_count() == 1:
+        return _fast_stats(x32, dims)
+    count = x32.new_full((1,), float(math.prod(x32.shape[d] for d in dims)))
+    sums = all_reduce_sum(torch.cat([x32.sum(dims), x32.square().sum(dims), count]))
+    C = x32.shape[-1]
+    mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+    return mean, torch.clamp_min(sq - mean.square(), 0.0)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis with flax's arithmetic, in f32, emitted in
     the compute dtype (else the promoted type of x and the parameters).
@@ -131,7 +148,11 @@ class BatchNorm(nn.BatchNorm1d):
     Training mode normalizes with the statistics over every other axis and
     updates the running ones as ``0.9 * running + 0.1 * batch`` with the
     biased batch variance (flax ``BatchNorm(momentum=0.9)``; torch's own
-    train mode would update with the unbiased one)."""
+    train mode would update with the unbiased one). Over several ranks the
+    statistics are those of the global batch (``_global_stats``), what the
+    JAX package's BatchNorm computes on a batch-sharded mesh; so
+    ``--sync_bn`` has nothing to add. ``torch.nn.SyncBatchNorm`` is not
+    used: it refuses CPU tensors and takes another variance formula."""
 
     def __init__(self, num_features: int, dtype: Optional[torch.dtype] = None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -141,7 +162,7 @@ class BatchNorm(nn.BatchNorm1d):
         out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         x32 = x.to(torch.float32)
         if self.training:
-            mean, var = _fast_stats(x32, tuple(range(x.dim() - 1)))
+            mean, var = _global_stats(x32, tuple(range(x.dim() - 1)))
             with torch.no_grad():
                 m = 1.0 - self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -196,8 +217,7 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                       generator=rng(rngs, "droppath"), device=x.device)
+        u = rand_local((x.shape[0],) + (1,) * (x.dim() - 1), rng(rngs, "droppath"))
         return torch.where(u < keep, x / scalar(keep, x), scalar(0.0, x))
 
 
@@ -212,7 +232,7 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, rngs: Rngs = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        u = torch.rand(x.shape, generator=rng(rngs, "dropout"), device=x.device)
+        u = rand_local(x.shape, rng(rngs, "dropout"))
         return torch.where(u >= self.rate, x / scalar(1.0 - self.rate, x), scalar(0.0, x))
 
 

@@ -27,6 +27,7 @@ from act_tpu_torch.models.common import (DGCNN, FoldingDecoder, GroupEncoder, Rn
                                          init_weights, rng)
 from act_tpu_torch.models.teacher import (add_teacher, init_teacher_prompts, teacher_arch,
                                           teacher_forward)
+from act_tpu_torch.parallel.mesh import rand_local
 from act_tpu_torch.utils.config import as_cfg
 
 
@@ -110,8 +111,7 @@ class _DVAEBase(nn.Module):
         logits = self.encode_logits(neighborhood, center)
         if gumbel_u is None:
             g = rng(rngs, "gumbel")
-            gumbel_u = torch.clamp_min(
-                torch.rand(logits.shape, generator=g, device=g.device), 1e-10)
+            gumbel_u = torch.clamp_min(rand_local(logits.shape, g), 1e-10)
         soft_one_hot = gumbel_softmax_from_u(gumbel_u, logits, tau=temperature, hard=hard)
         sampled = torch.matmul(soft_one_hot, self.codebook)
         feature = self.dgcnn_2(self._teach(sampled, center, rngs), center)

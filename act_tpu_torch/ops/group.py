@@ -15,6 +15,7 @@ from act_tpu_torch.ops.fps import furthest_point_sample
 from act_tpu_torch.ops.gather import gather_coords
 from act_tpu_torch.ops.reference import square_distance
 from act_tpu_torch.ops.topk import k_smallest
+from act_tpu_torch.parallel.mesh import rand_local
 
 
 def knn(ref_points: torch.Tensor, query: torch.Tensor, k: int
@@ -66,7 +67,7 @@ def subset_draw(B: int, n_fps: int, n_out: int, generator: torch.Generator,
                 device) -> torch.Tensor:
     """A random ``n_out``-subset of ``range(n_fps)`` in random order for each
     of B clouds: (B, n_out) int32 (the first n_out of a random permutation)."""
-    u = torch.rand(B, n_fps, generator=generator, device=device)
+    u = rand_local((B, n_fps), generator, device=device)
     return u.argsort(dim=-1)[:, :n_out].to(torch.int32).contiguous()
 
 

@@ -8,7 +8,11 @@ log file and its copy of the config go there, and ``--resume`` reads that
 copy back (``act_tpu/utils/config.py:97-119``). Not ported: the TPU-only flags
 (``--scan_steps``, ``--h2d_dtype``, ``--mesh_model_parallel``,
 ``--ckpt_every``, ``--smoke``), ``--val_freq`` (every epoch validates) and
-the tensorboard directory (no writer).
+the tensorboard directory (no writer). ``--launcher``, ``--local_rank`` and
+``--sync_bn`` are accepted as in the JAX CLI: the process group comes from
+torchrun's environment (``parallel.initialize_distributed``), and BatchNorm
+statistics are global over the ranks by construction, so ``--sync_bn``
+changes nothing.
 """
 from __future__ import annotations
 
@@ -17,12 +21,19 @@ import os
 import shutil
 from pathlib import Path
 
+from act_tpu_torch.parallel import is_main_process
 from act_tpu_torch.utils.config import ConfigDict, cfg_from_yaml_file
 
 
 def get_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True, help="yaml config file")
+    parser.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                        help="job launcher (the group comes from torchrun's environment)")
+    parser.add_argument("--local_rank", type=int, default=0,
+                        help="set from LOCAL_RANK under torchrun")
+    parser.add_argument("--sync_bn", action="store_true",
+                        help="no-op: BatchNorm statistics are global over the ranks")
     parser.add_argument("--num_workers", type=int, default=8,
                         help="forked loader workers for real data (synthetic data: none)")
     parser.add_argument("--seed", type=int, default=0)
@@ -49,6 +60,7 @@ def get_args(argv=None) -> argparse.Namespace:
         raise ValueError("--test and --resume cannot be both activated")
     if args.resume and args.start_ckpts is not None:
         raise ValueError("--resume and --start_ckpts cannot be both activated")
+    args.local_rank = int(os.environ.get("LOCAL_RANK", args.local_rank))
     stem, parent = Path(args.config).stem, Path(args.config).parent.name
     if args.test:
         args.exp_name = "test_" + args.exp_name
@@ -67,5 +79,6 @@ def get_config(args) -> ConfigDict:
             raise FileNotFoundError(f"Failed to resume: {copy} not found")
         return cfg_from_yaml_file(copy)
     config = cfg_from_yaml_file(args.config)
-    shutil.copy2(args.config, copy)
+    if is_main_process():
+        shutil.copy2(args.config, copy)
     return config

@@ -72,6 +72,14 @@ version at the shapes the path gives it:
   and with a symbolic batch, reloaded in a process that imports no model
   code, bit-equal to its direct call, its kernels in the call's profile,
   served by ``serve_http --src`` (phase 37);
+- data parallelism and preemption (phase 38, ``--ddp``): the finetune (B=32),
+  Stage-II (B=128) and Stage-I (B=64) steps over two ranks sharing the card
+  over gloo against one rank on the same global batches, every kernel of
+  the paths launched on both ranks; one rank over NCCL (``run_net`` and the
+  steps) bit-equal to the run without a group, with its step times and NCCL
+  kernels; the finetune CLI stopped by a real SIGTERM and resumed, and
+  Stage II stopped by the step hook and resumed, each bit-equal to an
+  uninterrupted run;
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -2886,9 +2894,9 @@ def export(dev, device_ms, kernel_events, measure):
     this script serves (the ModelNet classifier on 8192-point clouds, the
     Stage-II model's features and the Stage-I dVAE's tokens and
     reconstruction on 1024-point clouds, part and semantic segmentation on
-    2048-point clouds; seeded weights) at B=``EXPORT_B`` and with a symbolic
-    batch (the reconstruction at B=1 and ``EXPORT_B``: a symbolic batch
-    raises, checked), saved, and reloaded in a fresh process that imports no
+    2048-point clouds; seeded weights) with a symbolic batch (the
+    reconstruction at B=``EXPORT_B``: a symbolic batch raises, checked),
+    saved, and reloaded in a fresh process that imports no
     model module (``chip_smoke.py --artifacts``): there each artifact's
     outputs at B=1 and ``EXPORT_B`` (a fixed batch: its own), its launches,
     the kernel names in the profile of a call, its request times and one
@@ -2947,9 +2955,8 @@ def _export_phase(dev, kernel_events, tmp):
         "partseg": lambda b: ex.export_segmentation("partseg", SEG_NPOINT, batch=b, device=dev),
         "semseg": lambda b: ex.export_segmentation("semseg", SEG_NPOINT, batch=b, device=dev),
     }
-    batches = {k: (EXPORT_B, None) for k in makers}
-    batches["dvae"] = (1, EXPORT_B)
-    batches["semseg"] = (None,)
+    batches = {k: (None,) for k in makers}
+    batches["dvae"] = (EXPORT_B,)
     try:
         makers["dvae"](None)
         fail("export_dvae_recon with a symbolic batch did not raise")
@@ -3110,10 +3117,695 @@ def artifacts_child(tmp: str, out: str) -> None:
         json.dump(res, f)
 
 
+# -- 38. data parallelism and preemption (``chip_smoke.py --ddp OUT``) --------------
+DDP_STEPS = 3  # steps of each model held across the legs (Stage I: DDP_S1_STEPS)
+DDP_S1_STEPS = 2
+DDP_S1_ITR = 60000  # Stage I's anneal iteration: the KLD weight counts
+DDP_TIMED = 5  # timed steps after the held ones
+DDP_PROBE_BS = 256  # the probe's global batch (2 x total_bs)
+# leg (b) against the one-rank run on the same global batches, both in f32: the
+# losses, and for the weights' change over the steps, the BN running statistics
+# and Adam's first moments the norm of the difference over all tensors of the
+# kind against the one-rank norm, within DDP_RTOL; the probe's features within
+# FEAT_ATOL (bf16 at another batch). Stage I's DGCNN kNN and Chamfer choices
+# flip at near ties under rounding: on a small model one CPU step at 1 and at 4
+# threads differed by 1e-3 of the moments' norm, one over 2 ranks by 2-4 %
+DDP_RTOL = {"ft": 2e-2, "s2": 2e-2, "s1": 0.1}
+# the kinds held to DDP_RTOL. Stage I's weights' change is read, not held: AdamW's
+# first steps move each weight by about lr whatever its gradient's size, so the
+# weights whose gradient is at rounding level (its DGCNN's) move either way; one
+# rank on the card repeats no Stage-I step bit for bit (its torch.gather backward
+# adds with atomics), and leg (a) reads that spread for comparison
+DDP_HELD = {"ft": ("dw", "bn", "m"), "s2": ("dw", "bn", "m"), "s1": ("bn", "m")}
+# the gradient reductions gone wrong that leg (b)'s f32 finetune steps also take,
+# each once, and whether the check above must reject it: none (each rank steps on
+# its own half of the batch), and a SUM left unscaled (R x the mean), only read:
+# where the clip engages at one rank's gradients it engages at R x them, and
+# AdamW's update is scale-invariant, so the step is the same
+DDP_FAULTS = {"missing": True, "unscaled": False}
+# leg (b)'s finetune steps in the shipped bf16: each measure of the 2-rank bf16
+# run against the one-rank f32 run within DDP_BF16_FACTOR x the same measure of
+# the one-rank bf16 run (bf16 rounding alone, at the same batches)
+DDP_BF16_FACTOR = 2.0
+DDP_PER_STEP = {"ft": FINETUNE_PER_STEP, "ft16": FINETUNE_PER_STEP, "s2": STAGE2_PER_STEP,
+                "s1": STAGE1_PER_STEP}
+# the held steps (``ddp_steps``) of leg (a), leg (b) and the run without a group
+DDP_PARTS = {"a": ("ft", "s2", "s1"),
+             "b": ("ft", "ft16", "probe", "s2", "s1") + tuple(DDP_FAULTS),
+             "one": ("ft", "ft16", "probe", "s2", "s1")}
+PREEMPT_AT = 2  # the finetune CLI gets its SIGTERM after this step, Stage II its hook
+# each leg's device and backend: (a) NCCL on the rank's card, (b) gloo, both ranks on card 0
+DDP_DEVICES = {"a": ("cuda", None), "b": ("cuda:0", "gloo")}
+DDP_CLI_DEVICE = "cuda"
+# runs ``act_tpu_torch.main`` with argv[2:]; after step argv[1] (0: never) it
+# waits for the signal, so that the SIGTERM lands at that step boundary
+CLI_WRAPPER = r"""
+import os, sys, time
+sys.path.insert(0, os.environ["ACT_ROOT"])
+from act_tpu_torch.engine import preemption, runner_finetune
+stop_at, done, step = int(sys.argv[1]), [0], runner_finetune.train_step
+
+def counted(*a, **k):
+    out = step(*a, **k)
+    done[0] += 1
+    if done[0] == stop_at:
+        print("[ddp] step %d dispatched, waiting for SIGTERM" % stop_at, flush=True)
+        t0 = time.time()
+        while not preemption.GUARD.requested and time.time() - t0 < 120:
+            time.sleep(0.01)
+    return out
+
+runner_finetune.train_step = counted
+from act_tpu_torch import main
+main.main(sys.argv[2:])
+"""
+
+
+def ddp_inputs(tmp: str) -> None:
+    """The global batches that legs (a) and (b) and the one-process run share:
+    3 finetune batches of the train loader (32 ModelNet clouds of 8192
+    points), 3 Stage-II batches of 128 and 2 Stage-I batches of 64 synthetic
+    ShapeNet-55 clouds of 1024 points (each config's ``total_bs``)."""
+    import torch
+    from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.engine.serve import load_config
+    s2, s1 = load_config(PRETRAIN_CONFIG), load_config(AUTOENCODER_CONFIG)
+    cfg = rf.finetune_config(CONFIG)
+    (loader,) = rf.loaders(cfg, 0, ("train",))
+    loader.set_epoch(0)
+    ft = []
+    for _, batch in zip(range(DDP_STEPS), loader):
+        pts, labels = batch[2]
+        ft.append((torch.as_tensor(pts), torch.as_tensor(labels)))
+    torch.save({"ft": ft,
+                "s2": [torch.from_numpy(synthetic_batch(
+                    i, int(s2.total_bs), int(s2.dataset.train.others.npoints)))
+                    for i in range(DDP_STEPS)],
+                "s1": [torch.from_numpy(synthetic_batch(
+                    50 + i, int(s1.total_bs), int(s1.dataset.train.others.npoints)))
+                    for i in range(DDP_S1_STEPS)]}, os.path.join(tmp, "batches.pt"))
+
+
+def ddp_state(model, optimizer, start, full: bool):
+    """(the trained tensors' change from ``start``, the BN running statistics,
+    Adam's first moments) on the host, or per tensor the float64 sum
+    (``ddp_sum``) when not ``full``."""
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    stats = {n: b for n, b in model.named_buffers() if "running" in n}
+    moms = {n: optimizer.state[p]["exp_avg"] for n, p in params.items()}
+    moved = {n: p.detach() - start[n] for n, p in params.items()}
+    out = {}
+    for tag, tensors in (("dw", moved), ("bn", stats), ("m", moms)):
+        out[tag] = {n: (t.detach().float().cpu().clone() if full else ddp_sum(t))
+                    for n, t in tensors.items()}
+    return out
+
+
+def ddp_start(model):
+    """A copy of the model's trained tensors, after the start broadcast."""
+    return {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def ddp_sum(t) -> float:
+    """A tensor's float64 sum in numpy's pairwise order (the same in every
+    process, whatever its threads)."""
+    return float(t.detach().double().cpu().numpy().sum())
+
+
+def ddp_f32(cfg):
+    """``cfg`` computing in f32 (the held steps of legs (a) and (b))."""
+    m = cfg.model
+    for node in (m, m.get("transformer_config"), m.get("dvae_config")):
+        if node is not None and "dtype" in node:
+            node.dtype = "f32"
+    return cfg
+
+
+def ddp_fault(kind):
+    """The gradient all-reduce gone wrong: ``missing`` leaves each rank its
+    own gradients, ``unscaled`` sums them without dividing by R."""
+    from act_tpu_torch import parallel
+    if kind == "missing":
+        return lambda tensors: None
+
+    def unscaled(tensors):
+        parallel.all_reduce_mean(tensors)
+        for t in tensors:
+            if t is not None:
+                t.mul_(parallel.process_count())
+    return unscaled
+
+
+def ddp_steps(dev, tmp, parts, replay=None):
+    """The held steps of ``parts`` on this rank's rows of the global batches
+    (its share under a group, all of them without): "ft" finetune
+    ``run_finetune_steps`` in f32 (``ddp_f32``), "ft16" the same in the
+    shipped bf16, each of ``DDP_FAULTS`` the f32 finetune steps with that
+    fault in the gradient all-reduce (``ddp_fault``), "probe" Stage II's probe
+    features gathered over the ranks, "s2" Stage-II ``pretrain_step`` in f32,
+    "s1" Stage-I ``autoencoder_step`` in f32. ``replay``: the tokenizer ids of
+    leg (b)'s ranks, concatenated, in place of the Gumbel kernel's. Returns
+    the losses, states (rank 0: whole), launches, ids drawn, features."""
+    import torch
+    from act_tpu_torch import ops, parallel
+    from act_tpu_torch.engine import builder, train_state
+    from act_tpu_torch.engine import runner_autoencoder as ra
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.engine.train_state import (autoencoder_step, pretrain_step, step_rngs,
+                                                  steps_per_epoch)
+    from act_tpu_torch.ops import _backend
+    R, r = parallel.process_count(), parallel.process_index()
+    inputs = torch.load(os.path.join(tmp, "batches.pt"), weights_only=True)
+
+    def rows(t):
+        b = t.shape[0] // R
+        return t[r * b:(r + 1) * b].to(dev)
+
+    out = {"rank": r, "ranks": R, "backend": torch.distributed.get_backend()
+           if parallel.is_distributed() else None}
+    # finetune: f32, bf16, the faults
+    for part in ("ft", "ft16") + tuple(DDP_FAULTS):
+        if part not in parts:
+            continue
+        cfg = rf.finetune_config(CONFIG)
+        cfg = cfg if part == "ft16" else ddp_f32(cfg)
+        (loader,) = rf.loaders(cfg, 0, ("train",))
+        st = rf.build_state(cfg, max(len(loader), 1), 0, dev)
+        parallel.broadcast_module(st.model)
+        start = ddp_start(st.model)
+        reduce = ddp_fault(part) if part in DDP_FAULTS else train_state.all_reduce_mean
+        _backend.reset_launches()
+        with patched(train_state, all_reduce_mean=reduce):
+            run = rf.run_finetune_steps(cfg, DDP_STEPS, device=dev, state=st,
+                                        batches=[(rows(p), rows(y)) for p, y in inputs["ft"]])
+        torch.cuda.synchronize()
+        out[part] = dict(losses=run.losses, launches=dict(_backend.LAUNCHES),
+                         state=ddp_state(st.model, st.optimizer, start, r == 0),
+                         grad_mb=sum(q.numel() * 4 for q in st.model.parameters()
+                                     if q.requires_grad) / 1e6)
+        del run, st, start
+    # Stage II: the probe's features, then the steps
+    cfg = ddp_f32(load_config(PRETRAIN_CONFIG))
+    model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
+    parallel.broadcast_module(model)
+    if "probe" in parts:
+        node = cfg.dataset.val
+        node.others.bs = DDP_PROBE_BS
+        probe_loader = builder.dataset_builder(node, 0)[1]
+        out["probe"] = dict(zip(("feats", "labels"), rp.probe_features(
+            model, probe_loader, int(node.others.npoints))))
+    if "s2" in parts:
+        optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+        clip, ids, calls, start = cfg.get("grad_norm_clip", None), [], [0], ddp_start(model)
+        kernel = ops.gumbel_argmax
+
+        def gumbel(logits, seed):
+            if replay is None:
+                got = kernel(logits, seed)
+                ids.append(got.cpu())
+                return got
+            calls[0] += 1
+            return replay[calls[0] - 1].to(logits.device)
+        _backend.reset_launches()
+        losses = []
+        with patched(ops, gumbel_argmax=gumbel):
+            for i, pts in enumerate(inputs["s2"]):
+                losses.append(pretrain_step(model, optimizer, schedule, rows(pts), i,
+                                            step_rngs(0, i, dev), grad_norm_clip=clip))
+        torch.cuda.synchronize()
+        out["s2"] = dict(losses=[float(x) for x in losses], launches=dict(_backend.LAUNCHES),
+                         state=ddp_state(model, optimizer, start, r == 0), ids=ids,
+                         grad_mb=sum(q.numel() * 4 for q in model.parameters()
+                                     if q.requires_grad) / 1e6)
+        del optimizer, start
+    del model
+    torch.cuda.empty_cache()
+    if "s1" not in parts:
+        return out
+    cfg = ddp_f32(load_config(AUTOENCODER_CONFIG))
+    model = ra.prepare_model(cfg, 0, dev)
+    parallel.broadcast_module(model)
+    optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+    start = ddp_start(model)
+    _backend.reset_launches()
+    losses = []
+    for i, pts in enumerate(inputs["s1"]):
+        n = DDP_S1_ITR + i
+        losses.append(autoencoder_step(model, optimizer, schedule, rows(pts), i,
+                                       step_rngs(0, i, dev), ra.get_temp(cfg, n),
+                                       ra.get_kld_weight(cfg, n), cfg.get("grad_norm_clip"))[0])
+    torch.cuda.synchronize()
+    out["s1"] = dict(losses=[float(x) for x in losses], launches=dict(_backend.LAUNCHES),
+                     state=ddp_state(model, optimizer, start, r == 0))
+    del model, optimizer, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_times(dev, tmp, kernel_events):
+    """Host ms of ``DDP_TIMED`` finetune and Stage-II steps of the shipped
+    (bf16) configs on this rank's rows of the first global batch, after 3
+    warm-up steps, and one profiled step each: device busy, the NCCL kernels,
+    the kernels by name; under a group also the host ms of the gradient
+    all-reduce alone (``all_reduce_mean`` of the step's gradients)."""
+    from collections import Counter
+
+    import torch
+    from act_tpu_torch import parallel
+    from act_tpu_torch.engine import builder
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.engine.train_state import pretrain_step, step_rngs, steps_per_epoch
+    R, r = parallel.process_count(), parallel.process_index()
+    inputs = torch.load(os.path.join(tmp, "batches.pt"), weights_only=True)
+
+    def rows(t):
+        b = t.shape[0] // R
+        return t[r * b:(r + 1) * b].to(dev)
+
+    def timed(step, params):
+        ms = request_ms(step, DDP_TIMED)
+        ev = kernel_events(step, 1)
+        nccl = {}
+        for e in ev:
+            if "nccl" in e.name.lower():
+                nccl[e.name[:80]] = nccl.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+        grads = [p.grad for p in params if p.grad is not None]
+        reduce_ms = (statistics.median(request_ms(lambda: parallel.all_reduce_mean(grads),
+                                                  DDP_TIMED))
+                     if parallel.is_distributed() else None)
+        return dict(host_ms=statistics.median(ms), host_all=ms,
+                    device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3 if ev else None,
+                    kernels=len(ev), nccl=nccl, reduce_ms=reduce_ms,
+                    names=dict(Counter(e.name[:60] for e in ev)))
+
+    cfg = rf.finetune_config(CONFIG)
+    st = rf.build_state(cfg, 16, 0, dev)
+    parallel.broadcast_module(st.model)
+    p, y = rows(inputs["ft"][0][0]), rows(inputs["ft"][0][1])
+    out = {"ft": timed(lambda: rf.train_step(st, p, y, 0, 0), st.model.parameters())}
+    del st
+    cfg = load_config(PRETRAIN_CONFIG)
+    model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
+    parallel.broadcast_module(model)
+    optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+    pts = rows(inputs["s2"][0])
+    out["s2"] = timed(lambda: pretrain_step(model, optimizer, schedule, pts, 0,
+                                            step_rngs(0, 0, dev),
+                                            grad_norm_clip=cfg.get("grad_norm_clip", None)),
+                      model.parameters())
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_run_nets(dev, tmp, tag):
+    """Leg (a)'s and the one-process run's user path: finetune ``run_net`` and
+    Stage-II ``run_net`` (no probe, a random tokenizer) for one epoch each,
+    their checkpoints under ``tmp/{ft,s2}-{tag}``; returns their epoch losses
+    and steps."""
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.engine import runner_pretrain as rp
+    ft = rf.run_net(rf.finetune_config(CONFIG), device=dev, epochs=1,
+                    experiment_path=os.path.join(tmp, f"ft-{tag}"))
+    s2 = rp.run_net(ddp_pretrain_config(), device=dev, epochs=1, allow_random_tokenizer=True,
+                    experiment_path=os.path.join(tmp, f"s2-{tag}"))
+    return dict(ft_loss=ft.epoch_loss, ft_steps=ft.steps, s2_loss=s2.epoch_loss,
+                s2_steps=s2.step)
+
+
+def ddp_pretrain_config():
+    """``pretrain_act_distill.yaml`` without the probe's datasets (leg (b)
+    checks the probe's gather) and without a Stage-I checkpoint."""
+    from act_tpu_torch.engine.serve import load_config
+    cfg = load_config(PRETRAIN_CONFIG)
+    del cfg.dataset["val"], cfg.dataset["extra_train"]
+    cfg.model.dvae_config.ckpt = None
+    return cfg
+
+
+def ddp_rank(tmp: str, leg: str) -> None:
+    """A rank of leg (a) (NCCL, world size 1, ``cuda``) or (b) (gloo, two
+    ranks, both ``cuda:0``), launched with torchrun's variables; writes
+    ``leg-<leg>-<rank>.pt``. A rank that raises exits non-zero."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from act_tpu_torch import parallel
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.profiling import kernel_events
+    device, backend = DDP_DEVICES[leg]
+    parallel.initialize_distributed(device, backend=backend)
+    dev = parallel.local_device(device)
+    if not parallel.is_distributed():
+        fail(f"leg {leg}: no process group")
+    _backend.build_kernels()
+    replay = None
+    if leg == "a":
+        b = [torch.load(os.path.join(tmp, f"leg-b-{r}.pt"), weights_only=False) for r in (0, 1)]
+        replay = [torch.cat(pair) for pair in zip(b[0]["s2"]["ids"], b[1]["s2"]["ids"])]
+    out = ddp_steps(dev, tmp, DDP_PARTS[leg], replay)
+    out["time"] = ddp_times(dev, tmp, kernel_events)
+    if leg == "a":
+        out["run_net"] = ddp_run_nets(dev, tmp, "a")
+    torch.save(out, os.path.join(tmp, f"leg-{leg}-{parallel.process_index()}.pt"))
+    parallel.destroy_distributed()
+
+
+def ddp_launch(tmp: str, leg: str, ranks: int, timeout=600) -> list:
+    """Start the ranks of a leg as torchrun would (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), wait for all, fail if
+    one fails; returns their results."""
+    import socket
+
+    import torch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(ranks)}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank", tmp,
+                               leg], cwd=ROOT,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": "0"})
+             for r in range(ranks)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        fail(f"leg ({leg}): rank exit codes {rcs}")
+    return [torch.load(os.path.join(tmp, f"leg-{leg}-{r}.pt"), weights_only=False)
+            for r in range(ranks)]
+
+
+def ddp_compare(tag, got, want):
+    """A state (``ddp_state``) against another of the same tensors: for each
+    kind (the weights' change, the BN statistics, the Adam moments) the norm
+    of the difference over all its tensors against the norm of ``want``'s (a
+    near tie of a kNN or max choice that rounding flips moves a few gradients
+    by their own size; a missing or unscaled reduction moves all of them), and
+    the tensor of the largest difference against its own largest value.
+    Returns {kind: (the measure, that tensor)}."""
+    worst = {}
+    for kind in ("dw", "bn", "m"):
+        if sorted(got[kind]) != sorted(want[kind]):
+            fail(f"ddp {tag}: the tensors of {kind} differ")
+        d2 = r2 = w = 0.0
+        at = None
+        for n, t in got[kind].items():
+            ref = want[kind][n].double()
+            diff = t.double() - ref
+            d2, r2 = d2 + float((diff ** 2).sum()), r2 + float((ref ** 2).sum())
+            if t.numel():
+                rel = diff.abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                if rel > w:
+                    w, at = rel, n
+        worst[kind] = ((d2 / max(r2, 1e-300)) ** 0.5, at)
+    return worst
+
+
+def ddp_measures(worst) -> str:
+    return ", ".join(f"{k} {v[0]:.3e}" for k, v in worst.items())
+
+
+def ddp(dev, device_ms, kernel_events, measure):
+    """Phase 38, data parallelism and preemption at full width: (b) two ranks
+    sharing the card over gloo (finetune at 16 + 16 in f32, in bf16 and with
+    each fault of ``DDP_FAULTS``, Stage II at 64 + 64, Stage I at 32 + 32
+    clouds, the probe's features gathered); (a) one rank over NCCL: the f32
+    steps of the three with (b)'s tokenizer ids replayed, finetune
+    and Stage-II ``run_net``, step times with the NCCL kernels; the same in
+    this process without a group, held bit for bit to (a) and within
+    ``DDP_RTOL`` to (b); (c) the finetune CLI stopped by a real SIGTERM after
+    its 2nd step and resumed, Stage-II ``run_net`` stopped by the step hook
+    and resumed, each bit-equal to an uninterrupted run. Returns (no timing
+    rows, errors, each leg's launches)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        return _ddp(dev, kernel_events, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ddp(dev, kernel_events, tmp):
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    ddp_inputs(tmp)
+    launches = {}
+    steps = {"ft": DDP_STEPS, "ft16": DDP_STEPS, "s2": DDP_STEPS, "s1": DDP_S1_STEPS}
+
+    # (b) two ranks on the one card, over gloo
+    t0 = time.perf_counter()
+    b = ddp_launch(tmp, "b", 2)
+    print(f"[ddp] leg (b): 2 ranks over {b[0]['backend']} on one card, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for r, res in enumerate(b):
+        for model, n in steps.items():
+            check_launches(f"ddp (b) rank {r} {model}", res[model]["launches"],
+                           DDP_PER_STEP[model], n)
+            launches[f"(b) rank {r} {model}"] = res[model]["launches"]
+        print(f"[ddp] (b) rank {r}: launches a step: finetune "
+              f"{ {k: v // DDP_STEPS for k, v in res['ft']['launches'].items() if v} }, "
+              f"Stage II { {k: v // DDP_STEPS for k, v in res['s2']['launches'].items() if v} }, "
+              f"Stage I { {k: v // DDP_S1_STEPS for k, v in res['s1']['launches'].items() if v} }",
+              flush=True)
+    for model in steps:
+        sums = {k: {n: ddp_sum(t) for n, t in v.items()} for k, v in b[0][model]["state"].items()}
+        if sums != b[1][model]["state"]:
+            bad = [(k, n) for k, v in sums.items() for n, x in v.items()
+                   if x != b[1][model]["state"][k][n]]
+            fail(f"ddp (b) {model}: the two ranks' states differ at {bad[:8]}")
+    print("[ddp] (b) the two ranks' weights, BN statistics and Adam moments agree (float64 "
+          "sums of every tensor equal; f32 and bf16)", flush=True)
+    # (a) one rank over NCCL, with (b)'s tokenizer ids replayed
+    t0 = time.perf_counter()
+    (a,) = ddp_launch(tmp, "a", 1)
+    print(f"[ddp] leg (a): 1 rank over {a['backend']}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for model in DDP_PARTS["a"]:
+        launches[f"(a) {model}"] = a[model]["launches"]
+    # the same in this process, without a group
+    t0 = time.perf_counter()
+    replay = [torch.cat(pair) for pair in zip(b[0]["s2"]["ids"], b[1]["s2"]["ids"])]
+    one = ddp_steps(dev, tmp, DDP_PARTS["one"], replay)
+    one["time"] = ddp_times(dev, tmp, kernel_events)
+    one["run_net"] = ddp_run_nets(dev, tmp, "one")
+    print(f"[ddp] one process, no group: {time.perf_counter() - t0:.1f} s", flush=True)
+    errs, problems = {}, []
+    for model in DDP_PARTS["a"]:
+        same = a[model]["losses"] == one[model]["losses"] and all(
+            torch.equal(t, one[model]["state"][k][n])
+            for k, v in a[model]["state"].items() for n, t in v.items())
+        print(f"[ddp] (a) {model}: losses {a[model]['losses']} (no group: "
+              f"{one[model]['losses']}), weights, BN statistics and Adam moments bit-equal to "
+              f"the run without a group: {same}", flush=True)
+        if model == "s1":
+            spread = ddp_compare(model, a[model]["state"], one[model]["state"])
+            print(f"[ddp] (a) s1 against the run without a group (one rank's spread on the "
+                  f"card): relative norm of the difference: {ddp_measures(spread)}", flush=True)
+            if any(spread[k][0] > DDP_RTOL[model] for k in DDP_HELD[model]):
+                problems.append("(a) s1 beyond the tolerance against the run without a group")
+        elif not same:
+            problems.append(f"(a) {model}: the one-rank NCCL run differs from the run without "
+                            f"a group")
+    for model in ("ft", "s2", "s1"):
+        got_loss = [sum(x) / 2 for x in zip(b[0][model]["losses"], b[1][model]["losses"])]
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got_loss, one[model]["losses"]))
+        worst = ddp_compare(model, b[0][model]["state"], one[model]["state"])
+        bad = [k for k in DDP_HELD[model] if worst[k][0] > DDP_RTOL[model]]
+        print(f"[ddp] (b) {model}: mean losses of the ranks {got_loss} against one rank's "
+              f"{one[model]['losses']} (max relative {loss_err:.3e}); relative norm of the "
+              f"difference: weights' change {worst['dw'][0]:.3e}, BN statistics "
+              f"{worst['bn'][0]:.3e}, Adam moments {worst['m'][0]:.3e} (tolerance "
+              f"{DDP_RTOL[model]} on {', '.join(DDP_HELD[model])}; the largest tensor-wise: "
+              f"{worst['dw'][1]}, {worst['bn'][1]}, {worst['m'][1]})", flush=True)
+        if loss_err > DDP_RTOL[model] or bad:
+            problems.append(f"(b) {model}: 2 ranks against 1 rank beyond the tolerance: losses "
+                            f"{loss_err}, {bad}")
+        errs[f"ddp {model}"] = worst["m"][0]
+    # the faults: the same check must reject each that changes the step
+    for fault, must in DDP_FAULTS.items():
+        worst = ddp_compare(fault, b[0][fault]["state"], one["ft"]["state"])
+        caught = [k for k in DDP_HELD["ft"] if worst[k][0] > DDP_RTOL["ft"]]
+        print(f"[ddp] (b) ft with the gradient reduction {fault}: relative norm of the "
+              f"difference from one rank: {ddp_measures(worst)}; beyond the tolerance "
+              f"{DDP_RTOL['ft']}: {caught}{'' if must else ' (read only)'}", flush=True)
+        if must and not caught:
+            problems.append(f"(b) the check does not catch a {fault} gradient reduction")
+    # the shipped bf16: 2 ranks against one rank's f32, beside one rank's bf16 against its f32
+    own = ddp_compare("ft16", one["ft16"]["state"], one["ft"]["state"])
+    got = ddp_compare("ft16", b[0]["ft16"]["state"], one["ft"]["state"])
+    pair = ddp_compare("ft16", b[0]["ft16"]["state"], one["ft16"]["state"])
+    print(f"[ddp] (b) ft in bf16: one rank's bf16 against its f32: {ddp_measures(own)}; 2 ranks' "
+          f"bf16 against one rank's f32: {ddp_measures(got)}; 2 ranks' bf16 against one rank's "
+          f"bf16: {ddp_measures(pair)}; losses 2 ranks "
+          f"{[sum(x) / 2 for x in zip(b[0]['ft16']['losses'], b[1]['ft16']['losses'])]}, one "
+          f"rank {one['ft16']['losses']}, one rank f32 {one['ft']['losses']} (tolerance: "
+          f"{DDP_BF16_FACTOR} x one rank's bf16 against its f32)", flush=True)
+    bad = [k for k in own if got[k][0] > DDP_BF16_FACTOR * own[k][0]]
+    if bad:
+        problems.append(f"(b) ft in bf16: 2 ranks farther from f32 than {DDP_BF16_FACTOR} x one "
+                        f"rank's bf16: {bad}")
+    errs["ddp ft bf16"] = got["m"][0]
+    if problems:
+        fail("ddp: " + "; ".join(problems))
+    # the probe's features gathered in rank order against one rank's
+    feats, labels = one["probe"]["feats"], one["probe"]["labels"]
+    n = feats.shape[0]
+    order = np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)])
+    for r in (0, 1):
+        if not np.array_equal(b[r]["probe"]["labels"], labels[order]):
+            fail(f"ddp (b) rank {r}: the probe's gathered labels are not in rank order")
+    f_err = float(np.abs(b[0]["probe"]["feats"] - feats[order]).max())
+    print(f"[ddp] (b) probe features ({n}, {feats.shape[1]}) gathered in rank "
+          f"order against one rank's: max |diff| {f_err} (tolerance {FEAT_ATOL})", flush=True)
+    if f_err > FEAT_ATOL or not np.array_equal(b[0]["probe"]["feats"], b[1]["probe"]["feats"]):
+        fail("ddp (b): the probe's gathered features differ")
+    # run_net with and without the group
+    for model, tag in (("ft", "finetune"), ("s2", "Stage-II")):
+        pa = torch.load(os.path.join(tmp, f"{model}-a", "ckpt-last.pth"), weights_only=True)
+        po = torch.load(os.path.join(tmp, f"{model}-one", "ckpt-last.pth"), weights_only=True)
+        same = all(torch.equal(t, po["base_model"][k]) for k, t in pa["base_model"].items())
+        same &= a["run_net"][f"{model}_loss"] == one["run_net"][f"{model}_loss"]
+        print(f"[ddp] (a) {tag} run_net over NCCL: {pa['step']} steps, epoch loss "
+              f"{a['run_net'][f'{model}_loss']}; weights and statistics bit-equal to the run "
+              f"without a group: {same}", flush=True)
+        if not same:
+            fail(f"ddp (a) {tag} run_net differs from the run without a group")
+    # step times with and without the group
+    for model, tag in (("ft", "finetune B=32"), ("s2", "Stage-II B=128")):
+        for who, res in (("no group", one), ("NCCL, 1 rank", a), ("gloo rank 0", b[0]),
+                         ("gloo rank 1", b[1])):
+            t = res["time"][model]
+            dv = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.3f} ms"
+            ar = ("" if t["reduce_ms"] is None else
+                  f"; the gradient all-reduce alone {t['reduce_ms']:.3f} ms host")
+            print(f"[time] ddp {tag} step, {who}: host median {t['host_ms']:.3f} ms over "
+                  f"{DDP_TIMED} ({[round(x, 3) for x in t['host_all']]}), device busy {dv} "
+                  f"({t['kernels']} kernels); NCCL kernels {t['nccl'] or 'none'}{ar}",
+                  flush=True)
+        extra = {n: c - one["time"][model]["names"].get(n, 0)
+                 for n, c in a["time"][model]["names"].items()
+                 if c != one["time"][model]["names"].get(n, 0)}
+        print(f"[ddp] {tag} step: kernels whose count the NCCL group changes (name: "
+              f"extra launches): {extra}", flush=True)
+    print(f"[ddp] gradient all-reduce a step: finetune {b[0]['ft']['grad_mb']:.1f} MB, Stage II "
+          f"{b[0]['s2']['grad_mb']:.1f} MB of f32 (the trainable tensors)", flush=True)
+    # (c) preemption
+    ddp_preempt(dev, tmp, launches)
+    print(f"[ddp] phase 38 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {}, errs, launches
+
+
+def ddp_preempt(dev, tmp, launches) -> None:
+    """Leg (c): the finetune CLI for one epoch (``--scratch_model``) stopped by
+    a real SIGTERM after step ``PREEMPT_AT`` (ckpt-last with the cursor,
+    ``[PREEMPT]``, exit 0) and ``--resume`` to the epoch's end; Stage-II
+    ``run_net`` stopped by the step hook (``GUARD.at_step``) and resumed.
+    Each ends bit-equal to the uninterrupted ``run_net`` of this process (the
+    CLI runs that same call: seed 0, one epoch, no pretrained weights)."""
+    import re
+    import signal
+
+    import torch
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.preemption import GUARD
+    cfg_dir = os.path.join(tmp, "cfgs", "full")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        text = f.read().replace("max_epoch: 300", "max_epoch: 1")
+    text = text.replace("_base_: cfgs/", f"_base_: {ROOT}/cfgs/")
+    yaml = os.path.join(cfg_dir, "finetune_modelnet.yaml")
+    with open(yaml, "w") as f:
+        f.write(text)
+    env = {**os.environ, "ACT_ROOT": ROOT}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+
+    def cli(exp, stop_at=0, *flags):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", CLI_WRAPPER, str(stop_at), "--config",
+                                 yaml, "--scratch_model", "--exp_name", exp, "--device",
+                                 DDP_CLI_DEVICE, *flags], cwd=tmp,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("[ddp] step"):
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+        if rc != 0:
+            print("\n".join(lines[-40:]), flush=True)
+            fail(f"ddp (c) finetune CLI {exp} {flags}: exit {rc}")
+        return lines, time.perf_counter() - t0
+
+    exp_dir = os.path.join(tmp, "work_dirs", "finetune_modelnet", "full")
+    cut, s_cut = cli("cut", PREEMPT_AT)
+    pre = [ln for ln in cut if "[PREEMPT]" in ln]
+    saved = [ln for ln in cut if "Saved checkpoint" in ln]
+    last = torch.load(os.path.join(exp_dir, "cut", "ckpt-last.pth"), weights_only=True)
+    cursor = last.get("data_iter")
+    print(f"[ddp] (c) finetune CLI stopped by SIGTERM after step {PREEMPT_AT}: exit 0, "
+          f"{pre[-1] if pre else 'no [PREEMPT] line'}; cursor {cursor}; "
+          f"{saved[-1] if saved else 'no save'}; run {s_cut:.1f} s", flush=True)
+    if not pre or cursor != {"epoch": 0, "next_batch": PREEMPT_AT}:
+        fail("ddp (c): the finetune CLI did not stop with its cursor")
+    size = re.search(r"\(([0-9.]+) MiB, ([0-9.]+) s\)", saved[-1])
+    print(f"[time] ddp preemption save: {size.group(1)} MiB, {size.group(2)} s host "
+          f"(finetune ckpt-last with the cursor)", flush=True)
+    rest, s_rest = cli("cut", 0, "--resume")
+    if not any("resumed mid-epoch 0 at batch" in ln for ln in rest):
+        fail("ddp (c): --resume did not re-enter the interrupted epoch")
+    pw = torch.load(os.path.join(tmp, "ft-one", "ckpt-last.pth"), weights_only=True)
+    pr = torch.load(os.path.join(exp_dir, "cut", "ckpt-last.pth"), weights_only=True)
+    same = (pr["step"] == pw["step"] and "data_iter" not in pr and all(
+        torch.equal(t, pr["base_model"][k]) for k, t in pw["base_model"].items()))
+    print(f"[ddp] (c) finetune --resume: {pr['step']} steps, final weights and statistics "
+          f"bit-equal to the uninterrupted run: {same} ({s_rest:.1f} s)", flush=True)
+    if not same:
+        fail("ddp (c): the resumed finetune differs from the uninterrupted run")
+    # Stage II through the step hook, against the run without a group above
+    path = os.path.join(tmp, "s2-cut")
+    GUARD.reset()
+    GUARD.at_step = PREEMPT_AT
+    try:
+        t0 = time.perf_counter()
+        cut = rp.run_net(ddp_pretrain_config(), device=dev, epochs=1,
+                         allow_random_tokenizer=True, experiment_path=path)
+        s_cut = time.perf_counter() - t0
+    finally:
+        GUARD.reset()
+        GUARD.at_step = None
+    if not cut.preempted or cut.step != PREEMPT_AT:
+        fail(f"ddp (c): Stage II did not stop at step {PREEMPT_AT}")
+    rest = rp.run_net(ddp_pretrain_config(), device=dev, epochs=1, allow_random_tokenizer=True,
+                      resume=True, experiment_path=path)
+    pw = torch.load(os.path.join(tmp, "s2-one", "ckpt-last.pth"), weights_only=True)
+    pr = torch.load(os.path.join(path, "ckpt-last.pth"), weights_only=True)
+    same = pr["step"] == pw["step"] and all(
+        torch.equal(t, pr["base_model"][k]) for k, t in pw["base_model"].items())
+    print(f"[ddp] (c) Stage II stopped by the step hook at step {cut.step} ({s_cut:.1f} s), "
+          f"resumed to step {rest.step}: weights and statistics bit-equal to the uninterrupted "
+          f"run: {same}", flush=True)
+    if not same:
+        fail("ddp (c): the resumed Stage II differs from the uninterrupted run")
+
+
 # the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
 # where the profiler's windows are whole
 CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
-                "--export": "export"}
+                "--export": "export", "--ddp": "ddp"}
 
 
 def in_child(flag, timeout=600):
@@ -3411,6 +4103,9 @@ def main() -> None:
     errs.update(ts_errs)
     ex_rows, ex_errs, ex_launches = in_child("--export", timeout=1000)
     errs.update(ex_errs)
+    # -- 38. data parallelism over ranks and preemption, in a process of its own
+    _, ddp_errs, ddp_launches = in_child("--ddp")
+    errs.update(ddp_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
@@ -3435,6 +4130,7 @@ def main() -> None:
             "launches_tokenizer": {tag: n[kernel] for tag, n in tk_launches.items()},
             "launches_tsne": {tag: n[kernel] for tag, n in ts_launches.items()},
             "launches_export": {tag: n[kernel] for tag, n in ex_launches.items()},
+            "launches_ddp": {tag: n[kernel] for tag, n in ddp_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
@@ -3475,5 +4171,7 @@ if __name__ == "__main__":
         child(sys.argv[1], sys.argv[2])
     elif sys.argv[1:2] == ["--artifacts"]:
         artifacts_child(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -330,8 +330,9 @@ def test_save_resume_round_trip(tmp_path):
     fresh = runner.build_state(cfg, 128, seed=0, device="cpu")
     assert not torch.equal(fresh.model.state_dict()["cls_head_finetune.0.weight"],
                            st.model.state_dict()["cls_head_finetune.0.weight"])
-    epoch, step, best = ckpt_lib.resume_state(fresh.model, fresh.optimizer, str(tmp_path))
-    assert (epoch, step, best) == (1, 2, {"acc": 1.0})
+    epoch, step, best, start_batch = ckpt_lib.resume_state(fresh.model, fresh.optimizer,
+                                                           str(tmp_path))
+    assert (epoch, step, best, start_batch) == (1, 2, {"acc": 1.0}, 0)
     rest = runner.run_finetune_steps(cfg, 1, batches=batches[2:], device="cpu", state=fresh,
                                      start_step=2)
     assert first.losses + rest.losses == whole.losses

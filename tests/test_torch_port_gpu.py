@@ -988,3 +988,54 @@ def test_tsne_embed_on_the_card(cuda):
     assert np.isfinite(a.y).all() and np.array_equal(a.y, b.y)
     cpu = tsne.embed(feats, "cpu")
     assert abs(a.kl - cpu.kl) <= 0.05 * cpu.kl
+
+
+def test_gumbel_kernel_at_a_folded_rank_seed(cuda):
+    """Rank 1 of a data-parallel run folds its index into seed word 0
+    (``sampling.fold_seed``): the kernel's ids at that seed equal the plain
+    version's, and differ from rank 0's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    logits = torch.randn(4096, 8192, generator=g, device=cuda).to(torch.bfloat16)
+    seed = torch.tensor([123456789, -5], dtype=torch.int32, device=cuda)
+    folded = sampling.fold_seed(seed, 1)
+    got = ops.gumbel_argmax(logits, folded)
+    assert torch.equal(got, ops.gumbel_argmax_ref(logits, folded))
+    assert not torch.equal(got, ops.gumbel_argmax(logits, seed))
+
+
+def test_nccl_one_rank_all_reduce_and_global_batchnorm(cuda):
+    """A one-rank NCCL group: the gradient all-reduce leaves the tensors bit
+    for bit, the start-weight broadcast too, and the global statistics of a
+    BatchNorm (the sums path) equal the one-process ones within 1e-5."""
+    import socket
+
+    import torch.distributed as dist
+
+    from act_tpu_torch import parallel
+    from act_tpu_torch.models import common
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    x = cloud(90, 64, 1024, 32, device=cuda) * 2 + 3
+    bn = common.BatchNorm(32).to(cuda).train()
+    mean, var = common._fast_stats(x, (0, 1))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        grads = [cloud(91, 1000, device=cuda), cloud(92, 7, 3, device=cuda)]
+        before = [t.clone() for t in grads]
+        parallel.all_reduce_mean(grads)
+        assert all(torch.equal(a, b) for a, b in zip(grads, before))
+        sd = {k: v.clone() for k, v in bn.state_dict().items()}
+        parallel.broadcast_module(bn)
+        assert all(torch.equal(v, sd[k]) for k, v in bn.state_dict().items())
+        sums = parallel.all_reduce_sum(torch.cat([x.sum((0, 1)), x.square().sum((0, 1))]))
+        torch.testing.assert_close(sums[:32] / x[..., 0].numel(), mean, rtol=1e-5, atol=1e-5)
+        got_var = sums[32:] / x[..., 0].numel() - (sums[:32] / x[..., 0].numel()).square()
+        torch.testing.assert_close(got_var, var, rtol=1e-4, atol=1e-4)
+        y = bn(x)  # one rank: the one-process statistics themselves
+        torch.testing.assert_close(y, common._normalize(x, mean, var, bn.eps, bn.weight,
+                                                        bn.bias), rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
