@@ -52,8 +52,8 @@ from act_tpu_torch.engine.serve import load_config, recon_forward
 from act_tpu_torch.engine.train_state import (autoencoder_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
-from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
-                                    process_count, process_index, reduce_mean_scalar)
+from act_tpu_torch.parallel import (broadcast_module, gather_in_index_order, local_device,
+                                    process_count, reduce_mean_scalar)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AverageMeter
 from act_tpu_torch.utils.metrics import Metrics
@@ -276,13 +276,9 @@ def _gather_clouds(loader, taxonomies: List[str], per_cloud: List[List[float]]
                    ) -> Tuple[List[str], List[List[float]]]:
     """Every rank's clouds of ``validate`` without padded repeats, in the
     order of the loader's index space."""
-    R, r = process_count(), process_index()
-    keep = min(len(per_cloud), loader.num_real())
-    pos = gather_concat(np.arange(keep, dtype=np.int64) * R + r)
-    rows = gather_concat(np.asarray(per_cloud[:keep], dtype=np.float64).reshape(keep, -1))
-    tax = gather_concat(np.asarray(taxonomies[:keep], dtype=object))
-    order = np.argsort(pos, kind="stable")
-    return [str(tax[i]) for i in order], [[float(v) for v in rows[i]] for i in order]
+    tax, rows = gather_in_index_order(loader, np.asarray(taxonomies, dtype=object),
+                                      np.asarray(per_cloud, dtype=np.float64))
+    return [str(t) for t in tax], [[float(v) for v in row] for row in rows]
 
 
 @dataclass

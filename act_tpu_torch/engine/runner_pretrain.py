@@ -18,11 +18,12 @@ without loader or checkpoints. For ACT_PointBERT (``runner_pretrain.py:170-192,
 beside the tokenizer (only the tokenizer is stored in bf16), every step ends
 in the EMA of k at ``model.m``, and the checkpoints carry the MoCo queue and
 its pointer (buffers of the model's state dict). Over several ranks
-(``act_tpu_torch.parallel``) ACT_PointDistillation trains on each rank's
-share of the global batch, the probe's features are gathered in rank order,
-the epoch's loss is the ranks' mean and only rank 0 writes checkpoints;
-ACT_PointBERT raises there (its mixup pairs clouds across the global batch
-and its queue takes the global batch's keys). ``run_net`` polls the
+(``act_tpu_torch.parallel``) each rank trains on its share of the global
+batch, the probe's features are gathered in rank order, the epoch's loss is
+the ranks' mean and only rank 0 writes checkpoints; ACT_PointBERT's step is
+the one-process step on the global batch (its mixup partners, replacement
+tokens and MoCo keys are gathered over the ranks, ``models/act.py``), so
+its queue and k encoder stay equal on every rank. ``run_net`` polls the
 preemption guard (``engine/preemption.py``) after every step. Not ported:
 the TPU workarounds (``--scan_steps``, ``--h2d_dtype``, the kernel mesh).
 
@@ -55,7 +56,7 @@ from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_pe
                                               timed_steps)
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
-                                    process_count, reduce_mean_scalar)
+                                    reduce_mean_scalar)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter
 from act_tpu_torch.utils.svm import LinearSVC
@@ -131,15 +132,6 @@ def copy_query_encoder(model: nn.Module) -> nn.Module:
     return model
 
 
-def check_ranks(model_cfg) -> None:
-    """Raise for ACT_PointBERT over several ranks (not ported)."""
-    if is_pointbert(model_cfg) and process_count() > 1:
-        raise NotImplementedError(
-            "ACT_PointBERT over several ranks is not ported: its flipped-batch mixup pairs "
-            "clouds across ranks (act_tpu/models/act.py:516-525) and its MoCo enqueue takes "
-            "the global batch's keys (act.py:610-619)")
-
-
 def ema_momentum(cfg) -> Optional[float]:
     """The EMA momentum of the config's train step: ``model.m`` for
     ACT_PointBERT, else None."""
@@ -157,7 +149,6 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     clouds. Every step ends in a device synchronize, so its host time is
     the step's time. An ACT_PointBERT step's loss is the sum of its three."""
     cfg = load_config(config)
-    check_ranks(cfg.model)
     dev = local_device(device)
     model = freeze_tokenizer(build_pretrain_model(cfg.model, seed, state_dict), cfg).to(dev)
     broadcast_module(model)
@@ -332,7 +323,6 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
-    check_ranks(cfg.model)
     dev = local_device(device)
     cfg.dataset.train.others.bs = int(cfg.total_bs)
     train_set, train_loader = builder.dataset_builder(cfg.dataset.train, seed, num_workers)

@@ -16,6 +16,20 @@ Checkpoints are ``.pth`` files in the reference key layout
 (``--scan_steps``, the kernel mesh, TP sharding, ``--smoke``); ``max_steps``
 caps an epoch's train batches and, with ``eval_batches``, its evaluation.
 
+Over several ranks (``act_tpu_torch.parallel``, one process a card under
+``torch.distributed.run``) a step is the one-process step on the global
+batch, as the JAX runner's program over its mesh (``runner_segmentation.py:
+162, 291``): ``batch_size`` is global and each rank loads its
+``batch_size / R`` rows (``DataLoader(num_replicas=R, rank=r)``), the
+augmentation is drawn for the global batch and each rank keeps its rows,
+the start weights are rank 0's, the weighted S3DIS loss divides by the
+global weight sum (``models/segmentation.nll_seg_loss``). The evaluation
+runs each rank's share of the test split and gathers the per-cloud results
+in the loader's index order without the padded repeats, so the metrics,
+and with them the save decision, are one process's over the same clouds on
+every rank; the epoch loss is the ranks' mean; only rank 0 logs and writes
+ckpt-best. The whole-scene vote runs on one process, as JAX's does.
+
 Every entry point runs on the card unless ``device="cpu"`` is given; the
 data fall back to synthetic clouds when the data root is absent.
 """
@@ -40,6 +54,8 @@ from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine.serve import build_infer_fn, load_seg_model, load_state_dict
 from act_tpu_torch.engine.train_state import seg_step, step_rngs
 from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.parallel import (broadcast_module, gather_in_index_order, process_count,
+                                    process_index, reduce_mean_scalar)
 from act_tpu_torch.utils.config import ConfigDict
 from act_tpu_torch.utils.logger import print_log
 
@@ -52,9 +68,11 @@ CATEGORIES = sorted(SEG_CLASSES)  # category id -> name
 def _np_augment(rng: np.random.Generator, pts: np.ndarray) -> np.ndarray:
     """Random scale in [0.8, 1.25) and shift in [-0.1, 0.1) per cloud
     (provider.random_scale_point_cloud + shift_point_cloud,
-    part_segmentation/main.py:197-199)."""
-    s = rng.uniform(0.8, 1.25, (pts.shape[0], 1, 1)).astype(np.float32)
-    t = rng.uniform(-0.1, 0.1, (pts.shape[0], 1, 3)).astype(np.float32)
+    part_segmentation/main.py:197-199), drawn for the global batch: over R
+    ranks of b clouds each, R*b of each, and rank r keeps rows [r*b, (r+1)*b)."""
+    R, r, b = process_count(), process_index(), pts.shape[0]
+    s = rng.uniform(0.8, 1.25, (R * b, 1, 1)).astype(np.float32)[r * b:(r + 1) * b]
+    t = rng.uniform(-0.1, 0.1, (R * b, 1, 3)).astype(np.float32)[r * b:(r + 1) * b]
     return pts * s + t
 
 
@@ -73,14 +91,21 @@ def _numpy(x) -> np.ndarray:
     return x.float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def evaluate_partseg(infer: Callable, loader: Iterable, logger=None) -> Dict[str, float]:
+def _eval_batches(loader: Iterable, max_batches: Optional[int]) -> Iterable:
+    return islice(loader, max_batches) if max_batches else loader
+
+
+def evaluate_partseg(infer: Callable, loader: Iterable, logger=None,
+                     max_batches: Optional[int] = None) -> Dict[str, float]:
     """Accuracy, class-average and instance-average mIoU over ``loader``'s
-    (points, category ids, part labels) batches. ``infer(points, one_hot)``
-    gives (B, N, 50) log-probs; each shape's argmax is taken over its own
-    category's parts (``runner_segmentation.py:68-98``)."""
-    shape_ious = {cat: [] for cat in SEG_CLASSES}
-    correct, seen = 0, 0
-    for pts, cls, seg in loader:
+    (points, category ids, part labels) batches (the first ``max_batches``).
+    ``infer(points, one_hot)`` gives (B, N, 50) log-probs; each shape's
+    argmax is taken over its own category's parts
+    (``runner_segmentation.py:68-98``). Over several ranks ``loader`` is a
+    rank's share of the split and every rank returns the metrics of all of
+    them (``gather_in_index_order``)."""
+    cats, rows = [], []  # a shape's category, [its mean part IoU, points right, points]
+    for pts, cls, seg in _eval_batches(loader, max_batches):
         cls = np.asarray(cls)
         one_hot = np.eye(NUM_SHAPE_CATEGORIES, dtype=np.float32)[cls]
         logits = _numpy(infer(np.asarray(pts)[..., :3], one_hot))
@@ -89,9 +114,15 @@ def evaluate_partseg(infer: Callable, loader: Iterable, logger=None) -> Dict[str
             cat = CATEGORIES[c]
             parts = np.asarray(SEG_CLASSES[cat])
             pred = parts[logits[b][:, parts].argmax(-1)]
-            shape_ious[cat].append(float(np.mean(part_iou_per_shape(pred, seg[b], cat))))
-            correct += int((pred == seg[b]).sum())
-            seen += pred.size
+            cats.append(int(c))
+            rows.append([float(np.mean(part_iou_per_shape(pred, seg[b], cat))),
+                         float((pred == seg[b]).sum()), float(pred.size)])
+    cats, rows = gather_in_index_order(loader, np.asarray(cats, dtype=np.int64),
+                                       np.asarray(rows, dtype=np.float64).reshape(-1, 3))
+    shape_ious = {cat: [] for cat in SEG_CLASSES}
+    for c, row in zip(cats, rows):
+        shape_ious[CATEGORIES[c]].append(float(row[0]))
+    correct, seen = int(rows[:, 1].sum()), int(rows[:, 2].sum())
     all_ious = [i for v in shape_ious.values() for i in v]
     cat_ious = {c: float(np.mean(v)) for c, v in shape_ious.items() if v}
     metrics = {"accuracy": correct / max(seen, 1),
@@ -110,22 +141,30 @@ def _class_metrics(seen: np.ndarray, correct: np.ndarray, union: np.ndarray) -> 
             "mIoU": float(np.mean(correct / np.maximum(union, 1)))}
 
 
-def _accumulate(stats: Tuple[np.ndarray, ...], pred: np.ndarray, gt: np.ndarray) -> None:
-    seen, correct, union = stats
-    for c in range(len(seen)):
-        seen[c] += np.sum(gt == c)
-        correct[c] += np.sum((pred == c) & (gt == c))
-        union[c] += np.sum((pred == c) | (gt == c))
+def _class_counts(pred: np.ndarray, gt: np.ndarray, num_classes: int) -> np.ndarray:
+    """(3, num_classes): each class's points seen, predicted right, and in
+    the union of prediction and label."""
+    return np.stack([[np.sum(gt == c) for c in range(num_classes)],
+                     [np.sum((pred == c) & (gt == c)) for c in range(num_classes)],
+                     [np.sum((pred == c) | (gt == c)) for c in range(num_classes)]]
+                    ).astype(np.float64)
 
 
 def evaluate_semseg(infer: Callable, loader: Iterable, num_classes: int = S3DIS_NUM_CLASSES,
-                    logger=None) -> Dict[str, float]:
-    """OA, mAcc and mIoU over ``loader``'s (points, labels) batches;
-    ``infer(points)`` gives (B, N, C) log-probs (``runner_segmentation.py:101-123``)."""
-    stats = tuple(np.zeros(num_classes) for _ in range(3))
-    for pts, seg in loader:
-        _accumulate(stats, _numpy(infer(np.asarray(pts))).argmax(-1), np.asarray(seg))
-    metrics = _class_metrics(*stats)
+                    logger=None, max_batches: Optional[int] = None) -> Dict[str, float]:
+    """OA, mAcc and mIoU over ``loader``'s (points, labels) batches (the first
+    ``max_batches``); ``infer(points)`` gives (B, N, C) log-probs
+    (``runner_segmentation.py:101-123``). The counts are taken a block and
+    summed in the loader's index order (integers, exact in f64); over
+    several ranks every rank's blocks are gathered first
+    (``gather_in_index_order``)."""
+    counts = []
+    for pts, seg in _eval_batches(loader, max_batches):
+        pred, gt = _numpy(infer(np.asarray(pts))).argmax(-1), np.asarray(seg)
+        counts += [_class_counts(p, g, num_classes) for p, g in zip(pred, gt)]
+    (counts,) = gather_in_index_order(
+        loader, np.asarray(counts, dtype=np.float64).reshape(-1, 3, num_classes))
+    metrics = _class_metrics(*counts.sum(0))
     print_log(f"[SEMSEG EVAL] OA={metrics['OA']:.4f} mAcc={metrics['mAcc']:.4f} "
               f"mIoU={metrics['mIoU']:.4f}", logger)
     return metrics
@@ -142,13 +181,14 @@ class SegState:
 def build_seg_state(task: str, steps_per_epoch: int, *, epoch: int = 300,
                     learning_rate: float = 2e-4, weight_decay: float = 5e-2,
                     num_group: int = 128, dtype: str = "bf16", ckpts=None, seed: int = 0,
-                    device="cuda") -> SegState:
+                    device="cuda", widths: Optional[Dict] = None) -> SegState:
     """The ``task`` model with weights drawn from ``seed`` (then the
     pretrained tensors of ``ckpts`` where given), AdamW over every trainable
     parameter with decay ``weight_decay``, and the CosLR schedule over
     ``epoch`` epochs of ``steps_per_epoch`` steps
-    (``runner_segmentation.py:126-134``), on ``device``."""
-    model = load_seg_model(task, None, num_group, dtype, seed, device="cpu")
+    (``runner_segmentation.py:126-134``), on ``device``. ``widths`` narrows
+    the backbone (``serve.seg_config``)."""
+    model = load_seg_model(task, None, num_group, dtype, seed, device="cpu", widths=widths)
     if ckpts is not None:
         ckpt_lib.merge_pretrained(model, ckpt_lib.strip_student_prefix(load_state_dict(ckpts)))
     model = model.to(resolve_device(device))
@@ -177,17 +217,25 @@ class SegResult:
 
 def _loader(ds, batch_size: int, train: bool, seed: int, num_workers: int) -> DataLoader:
     """Train: shuffled by (seed, epoch), without the last partial batch. Real
-    data may take forked workers; synthetic data is built in process."""
+    data may take forked workers; synthetic data is built in process. Over R
+    ranks ``batch_size`` is global: each rank loads ``batch_size / R``
+    samples a batch from its share of the index space; raises unless R
+    divides it."""
+    R = process_count()
+    if int(batch_size) % R:
+        raise ValueError(f"batch_size {batch_size} is global and must divide over {R} ranks")
     workers = 0 if getattr(ds, "synthetic", False) else int(num_workers)
-    return DataLoader(ds, int(batch_size), shuffle=train, drop_last=train, seed=seed,
-                      prefetch=2 if workers else 0, num_workers=workers)
+    return DataLoader(ds, int(batch_size) // R, shuffle=train, drop_last=train, seed=seed,
+                      prefetch=2 if workers else 0, num_workers=workers, num_replicas=R,
+                      rank=process_index())
 
 
 def _run(task: str, train_ds, test_ds, *, npoint: int, batch_size: int, epoch: int, learning_rate: float,
          weight_decay: float, num_group: int, dtype: str, ckpts, experiment_path: str,
          seed: int, device, max_steps: Optional[int], eval_batches: Optional[int],
          num_workers: int, logger) -> SegResult:
-    """The epoch loop shared by both tasks (``runner_segmentation.py:137-273, 276-394``)."""
+    """The epoch loop shared by both tasks (``runner_segmentation.py:137-273, 276-394``);
+    every rank takes the same save decision from the gathered metrics."""
     dev = resolve_device(device)
     partseg = task == "partseg"
     train_loader = _loader(train_ds, batch_size, True, seed, num_workers)
@@ -200,6 +248,7 @@ def _run(task: str, train_ds, test_ds, *, npoint: int, batch_size: int, epoch: i
                              learning_rate=learning_rate, weight_decay=weight_decay,
                              num_group=num_group, dtype=dtype, ckpts=ckpts, seed=seed,
                              device=dev)
+        broadcast_module(st.model)  # rank 0's start weights (seeded or from ckpts)
         infer = build_infer_fn(st.model, int(npoint), with_fps=False)
         res = SegResult(st, 0.0)
         np_rng = np.random.default_rng(0)
@@ -219,13 +268,14 @@ def _run(task: str, train_ds, test_ds, *, npoint: int, batch_size: int, epoch: i
                     break
             losses = [float(x) for x in pending]  # one host fetch an epoch
             res.losses += losses
-            res.epoch_loss.append(float(np.mean(losses)) if losses else float("nan"))
+            res.epoch_loss.append(reduce_mean_scalar(np.mean(losses)) if losses
+                                  else float("nan"))
             print_log(f"[{'PartSeg' if partseg else 'SemSeg'}][Epoch {ep}] "
                       f"loss={res.epoch_loss[-1]:.4f} time={time.time() - t0:.1f}s", logger)
             st.model.eval()
-            batches = islice(test_loader, eval_batches) if eval_batches else test_loader
-            metrics = (evaluate_partseg(infer, batches, logger) if partseg
-                       else evaluate_semseg(infer, batches, logger=logger))
+            metrics = (evaluate_partseg(infer, test_loader, logger, eval_batches) if partseg
+                       else evaluate_semseg(infer, test_loader, logger=logger,
+                                            max_batches=eval_batches))
             res.epoch_metrics.append(metrics)
             if metrics[key] > res.best:
                 res.best = metrics[key]
@@ -306,7 +356,8 @@ def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROO
     rounds, each block's probabilities added to its points' votes
     (``np.add.at``). ``model`` (eval mode, on ``device``), else the semseg
     model of ``ckpts`` (else seeded). Returns (OA/mAcc/mIoU, each scene's
-    (points, 13) votes)."""
+    (points, 13) votes). It runs on one process, as the JAX vote does on one
+    device."""
     dev = resolve_device(device)
     if model is None:
         model = load_seg_model("semseg", ckpts, num_group, dtype, seed, dev)
@@ -316,7 +367,7 @@ def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROO
     ds = WholeSceneDataset(root, npoint, test_area=int(test_area))
     infer = build_infer_fn(model, npoint, with_fps=False)
     eval_bs = int(eval_batch_size or 16)
-    stats = tuple(np.zeros(S3DIS_NUM_CLASSES) for _ in range(3))
+    stats = np.zeros((3, S3DIS_NUM_CLASSES))
     votes = []
     for scene in range(len(ds)):
         pool = np.zeros((len(ds.semantic_labels[scene]), S3DIS_NUM_CLASSES))
@@ -326,7 +377,8 @@ def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROO
                 for i in range(n_real):
                     np.add.at(pool, sels[i], probs[i])
         votes.append(pool)
-        _accumulate(stats, pool.argmax(-1), np.asarray(ds.semantic_labels[scene]))
+        stats += _class_counts(pool.argmax(-1), np.asarray(ds.semantic_labels[scene]),
+                               S3DIS_NUM_CLASSES)
     metrics = _class_metrics(*stats)
     print_log(f"[WHOLE-SCENE] OA={metrics['OA']:.4f} mAcc={metrics['mAcc']:.4f} "
               f"mIoU={metrics['mIoU']:.4f}", logger)

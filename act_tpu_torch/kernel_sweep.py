@@ -1,6 +1,6 @@
 """Sweeps of the FPS, Chamfer, Gumbel and gather kernels' launch geometries
-and times of the k-smallest kernel on one CUDA card, beside an earlier
-version of the redesigned kernels.
+and times of the k-smallest and row-gather backward kernels on one CUDA
+card, beside an earlier version of the redesigned kernels.
 
   python -m act_tpu_torch.kernel_sweep [--parent DIR] [--out FILE]
 
@@ -26,15 +26,20 @@ prints the device times and the screen's survivors a row (from its plain
 model ``sampling.screen_ref``). It runs ``csrc/gather.cu`` at every gather
 shape of the paths with each body at 128 and 256 threads and the
 (body, threads) that ``ops/gather.py`` ``launch_geometry`` picks, each run
-checked bit-equal to ``gather_points``.
+checked bit-equal to ``gather_points``. It runs ``row_gather_bwd``
+(``csrc/rows.cu``) at the Stage-I DGCNN's rounds and one part-seg 3-NN
+gather on uniform random indices, a launch that lists the sources and one
+that reads the list, each bit-equal to ``gather_rows_bwd_ref``.
 Checked runs write into outputs first filled with NaN or -1. A device time
 that the profiler did not record in full is reported as not measured
 (``act_tpu_torch/profiling.py``).
 With ``--parent DIR`` (a checkout that holds an earlier ``act_tpu_torch/csrc``
 and ``act_tpu_torch/ops/_backend.py``), that version's ``chamfer.cu`` and
-``gather.cu``, where they differ from the current ones, are built too and
-their ``chamfer_bwd`` and gather are timed at the same shapes in the same
-process, in turns with the current ones (parent, current, current, parent).
+``gather.cu`` and ``rows.cu``, where they exist there and differ from the
+current ones, are built too and their ``chamfer_bwd``, gather and
+row-gather backward are timed at the same shapes in the same process, in
+turns with the current ones (parent, current, current, parent; the row
+gather's against a launch that lists the sources).
 Writes every row as JSON to ``--out`` (default
 ``chiprun_out/kernel_sweep.json``).
 """
@@ -101,7 +106,11 @@ GATHER_SHAPES = [(128, 1024, 64), (128, 1024, 2048), (64, 1024, 64), (64, 1024, 
 # gather (tile, threads) swept beside the pick: each body at 128 and 256
 GATHER_GEOMETRIES = ((False, 128), (False, 256), (True, 128), (True, 256))
 # the sources whose earlier version --parent times
-PARENT_STEMS = ("chamfer", "gather")
+PARENT_STEMS = ("chamfer", "gather", "rows")
+# row_gather_bwd (B, M, S, C, dtype): the Stage-I DGCNN's rounds (bf16) and one of
+# part seg's three 3-NN gathers (f32)
+ROW_SHAPES = [(64, 256, 64, 512, torch.bfloat16), (64, 256, 64, 256, torch.bfloat16),
+              (64, 256, 64, 128, torch.bfloat16), (16, 2048, 128, 1152, torch.float32)]
 
 
 def parent_kernels(parent: Path) -> dict:
@@ -125,7 +134,7 @@ def build_parent(parent: Path) -> dict:
     procs = {}
     for stem in PARENT_STEMS:
         src = parent / "act_tpu_torch" / "csrc" / f"{stem}.cu"
-        if src.read_bytes() == (_backend.CSRC / f"{stem}.cu").read_bytes():
+        if not src.exists() or src.read_bytes() == (_backend.CSRC / f"{stem}.cu").read_bytes():
             continue
         so = out_dir / f"{stem}.so"
         cmd = [_backend._nvcc(), *_backend.NVCC_FLAGS, "-o", str(so), str(src)]
@@ -384,14 +393,56 @@ def sweep_gather(dev, old: dict, rows: list, bad: list) -> None:
         print(line, flush=True)
 
 
+def sweep_row_gather(dev, old: dict, rows: list, bad: list) -> None:
+    """``row_gather_bwd`` at ``ROW_SHAPES``: a launch at a fresh index (it
+    lists the sources) and one at an index listed before (it reads the
+    list), each bit-equal to the plain version; the parent's in turns with
+    the listing one."""
+    gen = torch.Generator().manual_seed(9)
+    for B, M, S, C, dt in ROW_SHAPES:
+        grad = torch.randn(B, M, C, generator=gen).to(dt).to(dev)
+        idx = torch.randint(0, S, (B, M), generator=gen, dtype=torch.int32).to(dev)
+        want = ops.gather_rows_bwd_ref(grad, idx, S)
+        listed = ops.row_index(idx, S)
+        runs = {"listing": lambda: ops.gather_rows_bwd(grad, ops.row_index(idx, S)),
+                "reading": lambda: ops.gather_rows_bwd(grad, listed)}
+        for tag, run in runs.items():
+            if not torch.equal(run(), want):
+                print(f"MISMATCH row_gather_bwd {tag} {(B, M, S, C)}: not bit-equal")
+                bad.append(f"row_gather_bwd {tag} {(B, M, S, C)}")
+        times = {tag: device_ms(run, 100) for tag, run in runs.items()}
+        row = dict(kernel="row_gather_bwd", shape=[B, M, S, C], dtype=str(dt), **times)
+        line = (f"[row_gather_bwd] ({B}, {M}, {C}) {dt} into {S} rows: listing "
+                f"{fmt(times['listing'])} ms, reading the list {fmt(times['reading'])} ms")
+        if "act_row_gather_bwd" in old:
+            out = torch.empty(B, S, C, dtype=dt, device=dev)
+            order = torch.empty(B * M, dtype=torch.int32, device=dev)
+            starts = torch.empty(B * (S + 1), dtype=torch.int32, device=dev)
+            code = 0 if dt == torch.float32 else 1
+
+            def run_old():
+                call(old["act_row_gather_bwd"], grad, idx, out, order, starts, B, M, S, C, code)
+            out.fill_(float("nan"))
+            run_old()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                bad.append(f"parent row_gather_bwd {(B, M, S, C)}")
+            t_old, t_new = parent_vs_current(run_old, runs["listing"], 100)
+            row.update(parent_ms=t_old, listing_ms=t_new)
+            line += "; " + turns(t_old, t_new)
+        rows.append(row)
+        print(line, flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/kernel_sweep.json"))
     args = ap.parse_args()
     dev = _backend.resolve_device("cuda")
-    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn", "gumbel_argmax", "gather"))
-    for stem in ("fps", "topk", "chamfer", "gumbel", "gather"):
+    _backend.build_kernels(("fps", "k_smallest", "chamfer_nn", "gumbel_argmax", "gather",
+                            "row_gather_bwd"))
+    for stem in ("fps", "topk", "chamfer", "gumbel", "gather", "rows"):
         for line in _backend.BUILD_LOG.get(stem, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
@@ -490,6 +541,7 @@ def main() -> None:
     sweep_chamfer_bwd(dev, old, rows, bad)
     sweep_gumbel(dev, sms, rows, bad)
     sweep_gather(dev, old, rows, bad)
+    sweep_row_gather(dev, old, rows, bad)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
     print(f"wrote {args.out}", flush=True)

@@ -31,6 +31,8 @@ from act_tpu_torch.models.common import (Dense, GroupEncoder, LayerNorm, PosEmbe
                                          trunc_normal_)
 from act_tpu_torch.models.dvae import stage_two_tokenizer
 from act_tpu_torch.models.teacher import init_teacher_prompts
+from act_tpu_torch.parallel import (all_gather_cat, all_reduce_sum, process_count,
+                                    process_index)
 from act_tpu_torch.parallel.mesh import rand_local, randint_local
 from act_tpu_torch.utils.config import as_cfg
 
@@ -246,14 +248,18 @@ class MaskTransformer(nn.Module):
         """BERT-style corruption (``act.py:242-257``): with probability
         ``replace_pob`` an unmasked token becomes a detached token drawn from
         the flattened batch by a random permutation. Returns the tokens and the
-        overall mask (masked or replaced) that the token loss covers."""
+        overall mask (masked or replaced) that the token loss covers. Over R
+        ranks the permutation runs over the global batch's R*B*G tokens (every
+        rank draws it, so the generators stay in step) and each rank takes its
+        rows of the permuted global tokens."""
         if noaug or self.replace_pob == 0:
             return tokens, mask
         B, G, C = tokens.shape
         g = rng(rngs, "mask")
         replace = (rand_local((B, G), g) < self.replace_pob) & ~mask
-        perm = torch.randperm(B * G, generator=g, device=g.device)
-        shuffled = tokens.detach().reshape(B * G, C)[perm].reshape(B, G, C)
+        perm = torch.randperm(process_count() * B * G, generator=g, device=g.device)
+        rows = perm[process_index() * B * G:(process_index() + 1) * B * G]
+        shuffled = all_gather_cat(tokens.detach()).reshape(-1, C)[rows].reshape(B, G, C)
         w = replace[:, :, None].to(tokens.dtype)
         return tokens * (1 - w) + shuffled * w, mask | replace
 
@@ -408,9 +414,14 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
                ) -> torch.Tensor:
     """The cross entropy at the masked positions of (B, G, V) logits, their
-    mean weighted by the mask over max(mask count, 1) (``act.py:531-548``)."""
+    mean weighted by the mask over max(mask count, 1) (``act.py:531-548``).
+    Over R ranks the count is the global batch's (detached) and the loss R
+    times this rank's share, so that the ranks' mean is the global loss and
+    gradient (``train_state._update`` averages the gradients)."""
     w = mask.to(logits.dtype)
-    return torch.sum(_ce_per_item(logits, labels) * w) / torch.clamp_min(torch.sum(w), 1.0)
+    total = all_reduce_sum(torch.sum(w).detach())
+    return (torch.sum(_ce_per_item(logits, labels) * w) * process_count()
+            / torch.clamp_min(total, 1.0))
 
 
 @MODELS.register_module()
@@ -426,7 +437,15 @@ class ACT_PointBERT(nn.Module):
     read) and advances it by B; K must be a multiple of B. The k encoder
     takes no gradient: the train step moves it by EMA
     (``train_state.pretrain_step``, ``ema_momentum``). Only the tokenizer's
-    encoder and dgcnn_1 run; its other tensors keep the reference layout."""
+    encoder and dgcnn_1 run; its other tensors keep the reference layout.
+
+    Over R ranks of B clouds each the forward is the one-process forward on
+    the global batch of R*B (rank order): the token replacement permutes
+    the global tokens, the mixup flips the global batch, the cutmix
+    positives are the global keys at the rank's global rows, the masked
+    token loss divides by the global mask count, and every rank enqueues
+    the global keys (the pointer advances by R*B), so the queue stays equal
+    on every rank, as the EMA of k does."""
 
     def __init__(self, config: Any):
         super().__init__()
@@ -471,7 +490,9 @@ class ACT_PointBERT(nn.Module):
     def _mixup(self, neighborhood, center, dvae_label, rngs: Rngs, draws=None):
         """Point mixup with the batch flipped (``act.py:516-529``): a ratio
         a cloud and a Bernoulli(ratio) group mask, or ``draws`` = (ratio (B,),
-        mask (B, G) float) pinned."""
+        mask (B, G) float) pinned. Over R ranks the flip is the global
+        batch's: rank r's row i pairs with rank R-1-r's row B-1-i, whose
+        data (no gradient crosses ranks) come by an all-gather."""
         B, G = center.shape[:2]
         if draws is None:
             g = rng(rngs, "mask")
@@ -480,10 +501,14 @@ class ACT_PointBERT(nn.Module):
                   ).to(center.dtype)
         else:
             ratio, mm = draws
+        r = process_index()
+
+        def partner(t):
+            return torch.flip(all_gather_cat(t), (0,))[r * B:(r + 1) * B]
         m4 = mm[:, :, None, None]
-        mix_n = neighborhood * m4 + torch.flip(neighborhood, (0,)) * (1 - m4)
-        mix_c = center * mm[:, :, None] + torch.flip(center, (0,)) * (1 - mm[:, :, None])
-        mix_l = (dvae_label * mm + torch.flip(dvae_label, (0,)) * (1 - mm)).to(torch.int32)
+        mix_n = neighborhood * m4 + partner(neighborhood) * (1 - m4)
+        mix_c = center * mm[:, :, None] + partner(center) * (1 - mm[:, :, None])
+        mix_l = (dvae_label * mm + partner(dvae_label) * (1 - mm)).to(torch.int32)
         return ratio, mix_n, mix_c, mix_l
 
     def forward(self, pts: torch.Tensor, rngs: Rngs = None, noaug: bool = False,
@@ -497,9 +522,10 @@ class ACT_PointBERT(nn.Module):
         intermediates."""
         if noaug:
             return self.forward_eval(pts)
-        B = pts.shape[0]
-        if self.K % B:
-            raise ValueError(f"MoCo queue K={self.K} must be a multiple of the batch {B}")
+        B, R = pts.shape[0], process_count()
+        if self.K % (R * B):
+            raise ValueError(f"MoCo queue K={self.K} must be a multiple of the global batch "
+                             f"{R} x {B}")
         mq, mmix, mk = masks if masks is not None else (None, None, None)
         neighborhood, center = ops.group_points(pts, self.num_group, self.group_size)
         with torch.no_grad():
@@ -529,13 +555,19 @@ class ACT_PointBERT(nn.Module):
             else:
                 dvae_loss = (_masked_ce(logits, dvae_label, mask)
                              + _masked_ce(mix_logits, mix_l, mix_mask))
+        k_all = all_gather_cat(k_cls)  # the global batch's keys, in rank order
         if self.cutmix_loss_on:
-            ce = torch.cat([mix_cls @ k_cls.T, mix_cls @ queue], dim=1) / self.T
-            labels = torch.arange(B, device=pts.device)
+            ce = torch.cat([mix_cls @ k_all.T, mix_cls @ queue], dim=1) / self.T
+            labels = process_index() * B + torch.arange(B, device=pts.device)
             cutmix_loss = torch.mean(ratio * _ce_per_item(ce, labels)
-                                     + (1 - ratio) * _ce_per_item(ce, torch.flip(labels, (0,))))
-        with torch.no_grad():
-            slots = self.queue_ptr + torch.arange(B, device=self.queue_ptr.device)
-            self.queue.index_copy_(1, slots, k_cls.T.to(self.queue.dtype))
-            self.queue_ptr.copy_((self.queue_ptr + B) % self.K)
+                                     + (1 - ratio) * _ce_per_item(ce, R * B - 1 - labels))
+        self.enqueue(k_all)
         return moco_loss, dvae_loss, cutmix_loss
+
+    @torch.no_grad()
+    def enqueue(self, keys: torch.Tensor) -> None:
+        """The (n, cls_dim) keys into the queue's columns from the pointer on
+        (on the device, no host read); the pointer advances by n."""
+        slots = self.queue_ptr + torch.arange(keys.shape[0], device=self.queue_ptr.device)
+        self.queue.index_copy_(1, slots, keys.T.to(self.queue.dtype))
+        self.queue_ptr.copy_((self.queue_ptr + keys.shape[0]) % self.K)

@@ -539,9 +539,11 @@ class DGCNN(nn.Module):
     space (one kNN graph, built once from the fixed centers), each a
     conv/GroupNorm/LeakyReLU and a max over the neighbours; the four scales
     concatenate (2304 channels) into the output projection. The neighbour
-    features come from ``torch.gather`` (the TPU's one-hot product is exact,
-    so the values are the same; unlike advanced indexing, its backward on the
-    CPU sums in a fixed order, so CPU runs repeat bit for bit)."""
+    features come from ``ops.gather_rows`` (exact copies, as the TPU's one-hot
+    product gives; its backward sums each row's gradients in ascending order,
+    the kernel of ``csrc/rows.cu`` on the card, so runs repeat bit for bit on
+    the card as on the CPU). The four rounds share one ``ops.row_index``: the
+    first backward launch lists each center's sources, the others read it."""
 
     def __init__(self, in_channels: int, output_channel: int,
                  dtype: Optional[torch.dtype] = None):
@@ -555,14 +557,14 @@ class DGCNN(nn.Module):
 
     def forward(self, f: torch.Tensor, coor: torch.Tensor) -> torch.Tensor:
         """f: (B, G, C) features, coor: (B, G, 3) centers -> (B, G, out)."""
-        idx = ops.graph_feature_idx(coor, coor, 4).long()  # (B, G, k)
+        idx = ops.graph_feature_idx(coor, coor, 4)  # (B, G, k)
         B, G, k = idx.shape
+        rows = ops.row_index(idx.reshape(B, G * k), G)  # one list of sources for the 4 rounds
         f = self.input_trans(f)
         feats = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             C = f.shape[-1]
-            nbr = torch.gather(f, 1, idx.reshape(B, G * k, 1).expand(-1, -1, C)
-                               ).reshape(B, G, k, C)
+            nbr = ops.gather_rows(f, rows).reshape(B, G, k, C)
             self_f = f[:, :, None, :].expand_as(nbr)
             f = torch.amax(layer(torch.cat([nbr - self_f, self_f], dim=-1)), dim=2)
             feats.append(f)

@@ -32,6 +32,7 @@ from act_tpu_torch.models.common import (BatchNorm, Conv1x1, Dropout, GroupEncod
                                          LayerNorm, LeakyReLU, PosEmbedMLP, Rngs,
                                          TransformerEncoder, dense, dtype_from_cfg,
                                          init_weights)
+from act_tpu_torch.parallel import all_reduce_sum, process_count
 from act_tpu_torch.utils.config import as_cfg
 
 NUM_SHAPE_CATEGORIES = 16
@@ -193,10 +194,17 @@ def nll_seg_loss(log_probs: torch.Tensor, target: torch.Tensor,
                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NLL of (B, N, C) log-probs at the (B, N) labels, the mean, or with
     per-class weights ``sum(nll * w) / max(sum(w), 1e-8)``
-    (``segmentation.py:186-195``; S3DIS weighs by inverse frequency)."""
+    (``segmentation.py:186-195``; S3DIS weighs by inverse frequency).
+
+    Over R ranks (each of the same rows) the gradients are averaged
+    (``train_state._update``): the mean needs nothing more, and the weighted
+    loss is R times this rank's numerator over the global ``sum(w)``
+    (detached), so that the ranks' mean is the global batch's loss and
+    gradient."""
     t = target.long()
     nll = -torch.gather(log_probs, -1, t[..., None])[..., 0]
     if weight is None:
         return nll.mean()
     w = weight[t]
-    return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1e-8)
+    total = all_reduce_sum(torch.sum(w).detach())
+    return torch.sum(nll * w) * process_count() / torch.clamp_min(total, 1e-8)

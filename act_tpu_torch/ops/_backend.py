@@ -48,6 +48,7 @@ KERNELS = {
     "chamfer_nn": ("chamfer", "act_chamfer_nn", [_P] * 7 + [_I] * 8 + [_P]),
     "chamfer_nn_min": ("chamfer", "act_chamfer_nn_min", [_P] * 4 + [_I] * 8 + [_P]),
     "chamfer_bwd": ("chamfer", "act_chamfer_bwd", [_P] * 8 + [_I] * 3 + [_P]),
+    "row_gather_bwd": ("rows", "act_row_gather_bwd", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
 # launches of each kernel wrapper: plain counters, read and reset by callers

@@ -15,6 +15,9 @@ the indices in the difference form ``sum((x - y)**2)``, as
 the recomputed ones let autograd reach both coordinate arguments; at a query
 that is itself a center (every FPS center is one of the N points) the
 difference form gives an exact 0 where the kernel's expanded form may not.
+The three feature gathers are ``ops.gather_rows``: under grad their backward
+launches the fixed-order row sum of ``csrc/rows.cu`` on the card (the plain
+version takes ``reference.gather_rows_ref``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from act_tpu_torch.ops.group import knn
 from act_tpu_torch.ops.reference import nn_blend
+from act_tpu_torch.ops.rows import gather_rows
 
 
 def three_nn_interpolate(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
@@ -32,4 +36,4 @@ def three_nn_interpolate(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
     on a CUDA tensor they come from the k-smallest kernel."""
     with torch.no_grad():
         _, idx = knn(known_xyz.contiguous(), unknown_xyz.contiguous(), k)
-    return nn_blend(unknown_xyz, known_xyz, known_feats, idx)
+    return nn_blend(unknown_xyz, known_xyz, known_feats, idx, gather_rows)

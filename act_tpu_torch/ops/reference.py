@@ -8,7 +8,7 @@ k smallest come back ascending with ties to the smaller index.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -79,27 +79,111 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, 1, flat).reshape(*idx.shape, C)
 
 
+def gather_rows_bwd_ref(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The backward of a row gather, summed in a fixed order: grad (B, M, C),
+    idx (B, M) int -> (B, rows, C) with out[b, s] the sum over m ascending
+    with idx[b, m] == s of grad[b, m], accumulated in f32 from +0 and rounded
+    once to grad's dtype; an index outside [0, rows) adds nothing. The plain
+    version of ``csrc/rows.cu`` (the same sum in the same order, on any
+    device); in f32 on the CPU it equals ``torch.gather``'s and
+    ``index_select``'s own backward bit for bit. A stable sort lists each
+    destination's sources in ascending order, and slot j of every list is
+    added at once (a destination with fewer sources adds +0, which leaves a
+    sum that starts at +0 unchanged)."""
+    B, M, C = grad.shape
+    dev = grad.device
+    idx = idx.long()
+    dest = torch.where((idx >= 0) & (idx < rows),
+                       idx + rows * torch.arange(B, device=dev)[:, None], B * rows).reshape(-1)
+    order = torch.sort(dest, stable=True).indices
+    counts = torch.bincount(dest, minlength=B * rows + 1)[:B * rows]
+    starts = torch.cumsum(counts, 0) - counts
+    g = grad.reshape(B * M, C)
+    out = torch.zeros(B * rows, C, dtype=torch.float32, device=dev)
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        src = order[torch.clamp(starts + j, max=B * M - 1)]
+        out += torch.where((counts > j)[:, None], g[src].float(), 0.0)
+    return out.reshape(B, rows, C).to(grad.dtype)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table (B, S, C), idx (B, M) int -> (B, M, C): the rows of each cloud's
+    table at its indices (exact copies)."""
+    return torch.gather(table, 1, idx.long()[..., None].expand(-1, -1, table.shape[-1]))
+
+
+class RowIndex:
+    """The indices (B, M) int32 of row gathers from tables of ``rows`` rows a
+    cloud, shared by the gathers that use the same ones (the DGCNN's four
+    rounds). ``csr`` is the backward kernel's list of each row's sources
+    (``ops/rows.py``): made by its first launch on these indices on the
+    card, read by the later ones; the plain version needs none."""
+
+    def __init__(self, idx: torch.Tensor, rows: int):
+        self.idx = idx
+        self.rows = int(rows)
+        self.csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def row_index(idx: torch.Tensor, rows: int) -> RowIndex:
+    """A :class:`RowIndex` of ``idx`` (B, M) of any integer type."""
+    return RowIndex(idx.to(torch.int32).contiguous(), rows)
+
+
+class RowGather(torch.autograd.Function):
+    """:func:`take_rows` at a :class:`RowIndex` whose backward is
+    ``bwd(grad, index)``: the kernel's wrapper (``ops/rows.py``) or
+    :func:`row_index_bwd_ref`."""
+
+    @staticmethod
+    def forward(ctx, table, index, bwd):
+        if table.shape[1] != index.rows:
+            raise ValueError(f"a RowIndex into {index.rows} rows, a table of {table.shape[1]}")
+        ctx.index, ctx.bwd = index, bwd
+        return take_rows(table, index.idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.bwd(grad.contiguous(), ctx.index), None, None
+
+
+def row_index_bwd_ref(grad: torch.Tensor, index: RowIndex) -> torch.Tensor:
+    """:func:`gather_rows_bwd_ref` at a :class:`RowIndex`."""
+    return gather_rows_bwd_ref(grad, index.idx, index.rows)
+
+
+def gather_rows_ref(table: torch.Tensor, idx) -> torch.Tensor:
+    """:func:`take_rows`, its backward :func:`gather_rows_bwd_ref` (the plain
+    version of ``ops.gather_rows``); ``idx`` (B, M) or a :class:`RowIndex`.
+    Without a gradient to take it is :func:`take_rows` alone."""
+    index = idx if isinstance(idx, RowIndex) else row_index(idx, table.shape[1])
+    if torch.is_grad_enabled() and table.requires_grad:
+        return RowGather.apply(table, index, row_index_bwd_ref)
+    return take_rows(table, index.idx)
+
+
 def nn_blend(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor, known_feats: torch.Tensor,
-             idx: torch.Tensor) -> torch.Tensor:
+             idx: torch.Tensor, gather_rows: Callable = gather_rows_ref) -> torch.Tensor:
     """The inverse-distance blend of the known features at the neighbour
     indices ``idx`` (B, N, k): weights ``1 / (d + 1e-8)`` normalised over k,
     d the squared distances recomputed from ``idx`` in the difference form
     ``sum((x - y)**2)`` (as ``act_tpu/ops/interpolate.py:42-50``), so that
     autograd reaches both coordinate arguments and a query on a center gets
     an exact 0; the sum of the k gathered feature rows runs in f32 and comes
-    out in ``known_feats``' dtype. (B, N, 3), (B, S, 3), (B, S, C) -> (B, N, C)."""
+    out in ``known_feats``' dtype. Each neighbour's rows come from
+    ``gather_rows`` (whose backward sums in a fixed order: the plain
+    :func:`gather_rows_ref`, or ``ops.gather_rows`` with the kernel's).
+    (B, N, 3), (B, S, 3), (B, S, C) -> (B, N, C)."""
     B, N, k = idx.shape
-    S, C = known_feats.shape[1:]
+    C = known_feats.shape[-1]
     d = ((unknown_xyz[:, :, None, :] - gather_points(known_xyz, idx)) ** 2).sum(-1)
     w = 1.0 / (d + 1e-8)
     w = w / w.sum(-1, keepdim=True)  # (B, N, k) f32
-    rows = (idx.long() + S * torch.arange(B, device=idx.device)[:, None, None]).reshape(B * N, k)
-    table = known_feats.reshape(B * S, C)
     out = None
-    for j in range(k):  # one gathered (B*N, C) feature row set at a time
-        term = table.index_select(0, rows[:, j]).float() * w.reshape(B * N, k)[:, j, None]
+    for j in range(k):  # one gathered (B, N, C) feature row set at a time
+        term = gather_rows(known_feats, idx[:, :, j]).float() * w[:, :, j, None]
         out = term if out is None else out + term
-    return out.reshape(B, N, C).to(known_feats.dtype)
+    return out.to(known_feats.dtype)
 
 
 def three_nn_interpolate_ref(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
@@ -210,13 +294,12 @@ def chamfer_bwd_ref(x: torch.Tensor, y: torch.Tensor, i1: torch.Tensor, i2: torc
     output gradients g1 (B, N), g2 (B, M) (``_chamfer_bwd``,
     ``act_tpu/ops/chamfer.py:341-369``): v1 = 2 (x - y[i1]) g1,
     v2 = 2 (y - x[i2]) g2, dx = v1 - scatter_add(i2, v2),
-    dy = v2 - scatter_add(i1, v1). The plain version of ``chamfer_bwd``."""
+    dy = v2 - scatter_add(i1, v1), each scatter-add the ascending sum of
+    :func:`gather_rows_bwd_ref` (on the CPU ``index_add_``'s, on the card the
+    same, where ``index_add_`` adds in a changing order). The plain version
+    of ``chamfer_bwd``."""
     B, N, _ = x.shape
     M = y.shape[1]
     v1 = 2.0 * (x - gather_points(y, i1)) * g1[:, :, None]
     v2 = 2.0 * (y - gather_points(x, i2)) * g2[:, :, None]
-    rows_x = (torch.arange(B, device=x.device)[:, None] * N + i2.long()).reshape(-1)
-    rows_y = (torch.arange(B, device=x.device)[:, None] * M + i1.long()).reshape(-1)
-    sx = torch.zeros(B * N, 3, dtype=v2.dtype, device=x.device).index_add_(0, rows_x, v2.reshape(-1, 3))
-    sy = torch.zeros(B * M, 3, dtype=v1.dtype, device=x.device).index_add_(0, rows_y, v1.reshape(-1, 3))
-    return v1 - sx.reshape(B, N, 3), v2 - sy.reshape(B, M, 3)
+    return v1 - gather_rows_bwd_ref(v2, i2, N), v2 - gather_rows_bwd_ref(v1, i1, M)

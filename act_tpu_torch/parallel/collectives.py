@@ -7,9 +7,12 @@ as ``process_allgather`` concatenates) take host values over the gloo group
 of ``mesh.cpu_group`` whatever the default backend, so they never stall the
 card's stream. The JAX package needs no more: ``jit`` over the mesh reduces
 the gradients. The port adds the device side: ``all_reduce_mean`` of the
-gradients, ``broadcast_module`` of the start weights and ``all_reduce_sum``
-for the global BatchNorm statistics, over the default group (NCCL on the
-card, or gloo, which takes CUDA tensors for all-reduce and broadcast).
+gradients, ``broadcast_module`` of the start weights, ``all_reduce_sum``
+for the global BatchNorm statistics and loss denominators, and
+``all_gather_cat`` for the global batch of a tensor (PointBERT's mixup
+partners, replacement tokens and MoCo keys), over the default group (NCCL
+on the card, or gloo, which takes CUDA tensors for all-reduce and
+broadcast).
 Each is the identity without a process group.
 """
 from __future__ import annotations
@@ -56,6 +59,21 @@ def gather_concat(array: np.ndarray) -> np.ndarray:
     return np.concatenate([p[:int(k)].numpy() for p, k in zip(parts, ns)], axis=0)
 
 
+def gather_in_index_order(loader, *columns) -> List[np.ndarray]:
+    """Every rank's per-sample rows of an unshuffled ``DataLoader`` over the
+    ranks (``num_replicas=R``), without its padded repeats, in the order of
+    the loader's index space (rank r's j-th sample is position j*R + r): what
+    one process computes over the same samples. Each column holds one entry a
+    sample, in this rank's order; only its first ``loader.num_real()``
+    entries are real. Without a process group, each column as an array."""
+    if not mesh.is_distributed():
+        return [np.asarray(c) for c in columns]
+    R, r = mesh.process_count(), mesh.process_index()
+    keep = min(len(columns[0]), loader.num_real())
+    order = np.argsort(gather_concat(np.arange(keep, dtype=np.int64) * R + r), kind="stable")
+    return [gather_concat(np.asarray(c)[:keep])[order] for c in columns]
+
+
 def all_gather_objects(obj) -> List:
     """Every rank's picklable ``obj`` in rank order (``[obj]`` alone)."""
     if not mesh.is_distributed():
@@ -63,6 +81,24 @@ def all_gather_objects(obj) -> List:
     out: List = [None] * mesh.process_count()
     dist.all_gather_object(out, obj, group=mesh.cpu_group())
     return out
+
+
+def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) concatenated along dim 0
+    in rank order, on ``t``'s device, without gradient: the global batch of
+    a per-rank tensor of data (``t`` alone without a group). Sent as its
+    bytes (gloo takes no bf16), over the default group; under gloo through
+    host memory."""
+    if not mesh.is_distributed():
+        return t
+    src = t.detach().contiguous()
+    if dist.get_backend() == "gloo":
+        src = src.cpu()
+    raw = src.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(mesh.process_count())]
+    dist.all_gather(parts, raw)
+    out = torch.cat(parts).view(t.dtype).reshape(-1, *t.shape[1:])
+    return out.to(t.device)
 
 
 def _buckets(tensors: Iterable[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:

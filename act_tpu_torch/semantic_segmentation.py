@@ -8,6 +8,10 @@ The JAX CLI's flags without its TPU ones (``--scan_steps``,
 train batches and its evaluation at N batches. The run writes ckpt-best and
 its log under ``work_dirs/sem_seg/<log_dir>`` and is on the card unless
 ``--device cpu`` is given.
+
+On N cards: ``python -m torch.distributed.run --nproc_per_node=N -m
+act_tpu_torch.semantic_segmentation ...`` (one process a card, NCCL; ``--batch_size``
+is global, each rank trains on its share, rank 0 logs and saves).
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import argparse
 import os
 from typing import List, Optional
 
-from act_tpu_torch.ops import resolve_device
+from act_tpu_torch.parallel import destroy_distributed, initialize_distributed, local_device
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -42,7 +46,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    resolve_device(args.device)  # no card: raise before making directories and logs
+    initialize_distributed(args.device)  # torchrun's group, if launched by it
+    try:
+        run(args, local_device(args.device))  # no card: raise before directories and logs
+    finally:
+        destroy_distributed()
+
+
+def run(args: argparse.Namespace, device) -> None:
     experiment_path = os.path.join("./work_dirs/sem_seg", args.log_dir)
     os.makedirs(experiment_path, exist_ok=True)
     from act_tpu_torch.engine.runner_segmentation import run_semseg
@@ -52,7 +63,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                epoch=args.epoch, learning_rate=args.learning_rate,
                weight_decay=args.weight_decay, test_area=args.test_area, ckpts=args.ckpts,
                num_group=args.num_group, dtype=args.dtype, experiment_path=experiment_path,
-               seed=args.seed, device=args.device, max_steps=args.steps,
+               seed=args.seed, device=device, max_steps=args.steps,
                eval_batches=args.steps, num_workers=args.num_workers, logger=logger)
 
 

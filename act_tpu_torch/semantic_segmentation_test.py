@@ -6,7 +6,9 @@
 The JAX CLI's flags without ``--smoke`` (``--num_votes 1`` takes one
 round). Without ``--ckpts`` the weights are drawn from ``--seed``. The log
 goes to ``work_dirs/sem_seg/<log_dir>/test.log``; the run is on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. It runs on one process, as the JAX vote
+does on one device, and raises under ``torch.distributed.run`` with more
+than one rank.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ import os
 from typing import List, Optional
 
 from act_tpu_torch.ops import resolve_device
+
+WHOLE_SCENE_RANKS = ("the whole-scene vote runs on one process (as the JAX package's "
+                     "whole_scene_eval runs on one device): run it without "
+                     "torch.distributed.run")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -37,6 +43,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(WHOLE_SCENE_RANKS)
     resolve_device(args.device)  # no card: raise before making directories and logs
     experiment_path = os.path.join("./work_dirs/sem_seg", args.log_dir)
     os.makedirs(experiment_path, exist_ok=True)

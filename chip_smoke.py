@@ -20,10 +20,11 @@ version at the shapes the path gives it:
   ``act_dvae_with_pretrained_transformer.yaml`` (B=64 clouds of 1024 points,
   G=64 x M=32, 384 wide, an 8192-way codebook, the frozen ViT-B teacher with
   64 deep prompts, bf16, seeded weights, synthetic clouds): the Chamfer
-  kernels against their plain versions, one train-mode loss and backward
-  through the kernels and one through the plain versions, then
-  ``run_autoencoder_steps`` for a few train steps and ``validate`` (the
-  reconstruction metrics);
+  kernels and the row-gather backward (the DGCNN's four rounds) against
+  their plain versions, one train-mode loss and backward through the kernels
+  and one through the plain versions, then ``run_autoencoder_steps`` for a
+  few train steps, one step rerun from the same state bit for bit, and
+  ``validate`` (the reconstruction metrics);
 - classification finetune: ``PointTransformer`` at ``finetune_modelnet.yaml``
   (B=32 synthetic ModelNet clouds of 8192 points resampled by FPS to 1200
   and a random 1024 of those, rotated, drop path 0.1, the mlp-3 head's
@@ -46,12 +47,13 @@ version at the shapes the path gives it:
   32, clouds of 2048 points, bf16, seeded weights, synthetic ShapeNetPart and
   S3DIS data): FPS, k-smallest (k=32 and the 3-NN's k=3) and the gathers at
   the part-seg (B=16), sem-seg (B=32) and whole-scene (16 blocks) shapes and
-  ``three_nn_interpolate``, each against its plain version; both models'
-  eval forwards through the kernels and through the plain versions, the
-  request times and ``serve_http``'s segmentation kind; one part-seg
-  train-mode loss and backward through both; ``run_partseg`` and
-  ``run_semseg`` for a few steps and an evaluation each with ckpt-best
-  reloaded; ``whole_scene_eval`` with the blocks batched against one block a
+  ``three_nn_interpolate`` and the 3-NN's row-gather backward, each against
+  its plain version; both models' eval forwards through the kernels and
+  through the plain versions, the request times and ``serve_http``'s
+  segmentation kind; one part-seg train-mode loss and backward through both;
+  ``run_partseg`` and ``run_semseg`` for a few steps and an evaluation each
+  with ckpt-best reloaded, one step of each rerun from the same state bit for
+  bit; ``whole_scene_eval`` with the blocks batched against one block a
   forward;
 - ``ACT_PointBERT`` at ``pretrain_act_distill.yaml`` with the PointBERT
   overrides of ``tools/bench_suite.py`` (B=128 clouds of 1024 points, the q and
@@ -66,20 +68,24 @@ version at the shapes the path gives it:
   CLIP and BERT teachers and Stage II on the CLIP tokenizer (phases 33-35);
 - t-SNE at ``tsne_scan_hardest.yaml`` (two 384 x 12 PointTransformers, 2048
   points, seeded weights): both models' features through the kernels and the
-  plain versions, ``tsne_net``, and the embedding of 2882 features on the card
-  against a CPU run (phase 36);
+  plain versions, ``tsne_net``, the embedding of 2882 features on the card,
+  and of the first 1024 against a CPU run (phase 36; the CPU run on a thread
+  of this process, beside phase 37's tracing);
 - every serving forward exported (``engine/export.py``) on the card at B=32
   and with a symbolic batch, reloaded in a process that imports no model
   code, bit-equal to its direct call, its kernels in the call's profile,
-  served by ``serve_http --src`` (phase 37);
+  served over HTTP (``serve_http``; the first through ``--src``) (phase 37);
 - data parallelism and preemption (phase 38, ``--ddp``): the finetune (B=32),
-  Stage-II (B=128) and Stage-I (B=64) steps over two ranks sharing the card
-  over gloo against one rank on the same global batches, every kernel of
-  the paths launched on both ranks; one rank over NCCL (``run_net`` and the
-  steps) bit-equal to the run without a group, with its step times and NCCL
-  kernels; the finetune CLI stopped by a real SIGTERM and resumed, and
+  Stage-II (B=128), Stage-I (B=64), part-seg (B=16), sem-seg (B=32) and
+  ACT_PointBERT (B=128, its MoCo queue) steps over two ranks sharing the
+  card over gloo against one rank on the same global batches, every kernel
+  of the paths launched on both ranks; one rank over NCCL (``run_net`` and
+  the steps) bit-equal to the run without a group, with its step times and
+  NCCL kernels; the finetune CLI stopped by a real SIGTERM and resumed, and
   Stage II stopped by the step hook and resumed, each bit-equal to an
-  uninterrupted run;
+  uninterrupted run; the part-seg CLI under ``torch.distributed.run`` with
+  2 ranks (the CLIs and the ``run_net`` legs run beside phase 37's tracing,
+  every timed section alone on the card);
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -124,16 +130,14 @@ WHOLE_CLOUD = (32, 2048)  # the JAX package's own Chamfer op shape (tools/bench_
 # calls) are held to the plain version run on the CPU bit for bit.
 BWD_RTOL = 1e-5
 # full-width bf16 gradients, kernel path against plain path (phase 12), in
-# relative L2 norm. The plain path's Chamfer backward (index_add_ on the card)
-# sums in another order than the kernel's ascending one. On the loss's side of
-# the bf16 teacher (the decoder, dgcnn_2) that leaves the gradients within
-# GRAD_RTOL, and two kernel-path runs are equal there.
-# Upstream of it every bf16 rounding through its 12 frozen blocks can move an
-# element by one bf16 ulp (2^-8), and two kernel-path runs still differ by
-# about 1 % (measured on the H100, printed by the phase; the port's kernels
-# give the same outputs from run to run, so the spread comes from PyTorch's
-# own operators there): the gap to the plain path is held to SPREAD_FACTOR
-# times that run-to-run spread, and never below GRAD_RTOL.
+# relative L2 norm: within GRAD_RTOL on the loss's side of the bf16 teacher (the
+# decoder, dgcnn_2); upstream of it every bf16 rounding through its 12 frozen
+# blocks can move an element by one bf16 ulp (2^-8), so the gap to the plain path
+# is held to SPREAD_FACTOR times the spread of two kernel-path runs, and never
+# below GRAD_RTOL. Two kernel-path runs differed by about 1 % upstream while the
+# DGCNN's torch.gather backward added with atomics; with the row gathers' fixed
+# order (and the plain Chamfer backward's ascending sums, on the card too) both
+# runs and both paths are bit-equal on the H100.
 GRAD_RTOL = 1e-3
 SPREAD_FACTOR = 2.0
 DOWNSTREAM_KEYS = ("decoder.final_conv.6.weight", "decoder.mlp.0.weight",
@@ -163,11 +167,21 @@ REPLACES = {"fps": "act_tpu/ops/fps.py:98", "k_smallest": "act_tpu/ops/topk.py:3
             "gather": "act_tpu/ops/gather.py:25", "gumbel_argmax": "act_tpu/ops/sampling.py:50",
             "chamfer_nn": "act_tpu/ops/chamfer.py:33",
             "chamfer_nn_min": "act_tpu/ops/chamfer.py:167",
-            "chamfer_bwd": "act_tpu/ops/chamfer.py:341 (_chamfer_bwd)"}
+            "chamfer_bwd": "act_tpu/ops/chamfer.py:341 (_chamfer_bwd)",
+            "row_gather_bwd": "none: no Pallas counterpart; it repairs the port's own "
+                              "torch.gather / index_select backward (the DGCNN's neighbour rows, "
+                              "the 3-NN blend's feature rows), whose atomics add in a changing "
+                              "order"}
 SERVE_KERNELS = ("fps", "k_smallest", "gather")  # the kernels of the serving path
 # kernel launches a train step (or a validation cloud) of each training path
 STAGE2_PER_STEP = {"fps": 1, "k_smallest": 3, "gather": 2, "gumbel_argmax": 1}
-STAGE1_PER_STEP = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn": 2, "chamfer_bwd": 2}
+# a Stage-I step: group_points, dgcnn_1's and dgcnn_2's kNN, the two recon Chamfer losses,
+# and the backward of the two DGCNNs' four neighbour-row gathers each
+STAGE1_PER_STEP = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn": 2, "chamfer_bwd": 2,
+                   "row_gather_bwd": 8}
+# the row-gather backward at the Stage-I DGCNN's four rounds (C of each round's input
+# features; dgcnn_1 and dgcnn_2 alike) and its bound
+DGCNN_ROUND_C = (128, 256, 512, 512)
 VALIDATE_PER_CLOUD = {"fps": 1, "k_smallest": 3, "gather": 2, "chamfer_nn_min": 1}
 # a finetune train step (and a vote): the resample's FPS, the index compose and
 # the cloud gather, then group_points' FPS, k-smallest and two gathers
@@ -191,9 +205,10 @@ FEAT_ATOL = 0.05
 # blocks, the whole-scene vote on 16 blocks, 2048 points each, G=128 x M=32
 SEG_NPOINT, SEG_GROUPS, SEG_GROUP_SIZE = 2048, 128, 32
 SEG_PART_B, SEG_SEM_B, SEG_BLOCKS = 16, 32, 16
-# a forward (and a train step): group_points' FPS, k=32 kNN and two gathers,
-# then the 3-NN's k=3 k-smallest
+# a forward: group_points' FPS, k=32 kNN and two gathers, then the 3-NN's k=3
+# k-smallest; a train step also the backward of the 3-NN blend's three row gathers
 SEG_PER_FORWARD = {"fps": 1, "k_smallest": 2, "gather": 2}
+SEG_PER_STEP = {**SEG_PER_FORWARD, "row_gather_bwd": 3}
 # bf16 eval log-probs, kernel path against plain path: bit-equal unless an FPS
 # tie swap reorders the groups (then bf16 sums in another order)
 SEG_LOGP_ATOL = 0.05
@@ -231,19 +246,28 @@ PB_EMA_STEPS, PB_RUN_STEPS = 3, 3
 # FPS, k=32 kNN and two gathers, then dgcnn_1's k=4 kNN; recon adds dgcnn_2's)
 TOK_B, TOK_HTTP_B = 32, 2
 # phase 36, t-SNE: the YAML, the test batches of tsne_net, the features embedded
-# (ScanObjectNN hardest's test split holds 2882 clouds), the card's final KL
-# against a CPU run's of the same input (two runs of a chaotic descent in other
-# rounding orders end in other local optima: on the H100 80GB HBM3 the two KLs
-# of this input were 0.00685 apart, relative, in every run, each side being
-# repeatable), held within about 3x that
+# and timed (ScanObjectNN hardest's test split holds 2882 clouds), the first of
+# them that the card and a CPU run both embed, and the card's final KL against
+# the CPU run's (two runs of a chaotic descent in other rounding orders end in
+# other local optima: on the H100 80GB HBM3 the two KLs of all 2882 features
+# were 0.00685 apart, relative, in every run, each side being repeatable), held
+# within about 3x that
 TSNE_CONFIG = "cfgs/tsne/tsne_scan_hardest.yaml"
-TSNE_BATCHES, TSNE_N, TSNE_KL_RTOL = 2, 2882, 0.02
+TSNE_BATCHES, TSNE_N, TSNE_REF_N, TSNE_KL_RTOL = 2, 2882, 1024, 0.02
+# where phase 36's child leaves the TSNE_REF_N features and the card's KL, whose
+# CPU t-SNE the parent runs on a thread beside phase 37's tracing (an environment
+# variable holding a path)
+TSNE_REF_ENV = "CHIP_SMOKE_TSNE_REFERENCE"
 # extract_features with logits: the resample (FPS, gather), then group_points
 # (FPS, k-smallest, 2 gathers) in extract_feature and again in the forward
 TSNE_PER_BATCH = {"fps": 3, "k_smallest": 2, "gather": 5}
 # phase 37, the artifacts: the fixed batch, the largest relative difference
 # allowed where an exported graph decomposes an op, request timing iterations
 EXPORT_B, EXPORT_RTOL, EXPORT_ITERS = 32, 1e-5, 20
+# the file whose existence tells phase 37's child that the work the parent ran
+# beside its tracing (phase 36's CPU t-SNE, phase 38's CLIs) has ended, so that
+# its timed requests run alone (an environment variable holding a path)
+QUIET_ENV = "CHIP_SMOKE_QUIET_FILE"
 TOKENIZE_PER_REQUEST = {"fps": 1, "k_smallest": 2, "gather": 2}
 RECON_PER_REQUEST = {"fps": 1, "k_smallest": 3, "gather": 2}
 # the Stage-I config's teacher swapped (visual_embed_type clip_* selects CLIP's
@@ -316,6 +340,60 @@ def distinct_rows(idx) -> int:
     counted per cloud."""
     s = idx.reshape(idx.shape[0], -1).sort(-1).values
     return int(s.shape[0] * (s.shape[1] > 0) + (s[:, 1:] != s[:, :-1]).sum().item())
+
+
+def row_gather_bounds(grad, S, listing=True):
+    """``bound_ms`` of one row_gather_bwd launch: the (B, M, C) gradient rows
+    read once, the (B, S, C) sums written once, and the list of sources
+    ((B, M) order and (B, S + 1) starts, int32) made from the (B, M) int32
+    indices when ``listing`` (a launch at a fresh index), else read."""
+    B, M, C = grad.shape
+    csr = 4 * (B * M + B * (S + 1))
+    return bound_ms(grad.element_size() * (B * M * C + B * S * C) + csr
+                    + (4 * B * M if listing else 0))
+
+
+def check_row_gather(tag, grad, idx, S, errs) -> None:
+    """The row-gather backward kernel at one shape in f32 and bf16 against its
+    plain version on the card, and against itself across two launches at one
+    ``ops.row_index`` (the first lists the sources, the second reads the
+    list): bit for bit (fails otherwise)."""
+    import torch
+    from act_tpu_torch import ops
+    for dt in (torch.float32, torch.bfloat16):
+        g, shared = grad.to(dt), ops.row_index(idx, S)
+        got, again = ops.gather_rows_bwd(g, shared), ops.gather_rows_bwd(g, shared)
+        want = ops.gather_rows_bwd_ref(g, idx, S)
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            fail(f"row_gather_bwd {tag} {dt}: not bit-equal to its plain version or to itself "
+                 f"(max |diff| {float((got.float() - want.float()).abs().max())})")
+        errs[f"row_gather_bwd {tag} {dt}"] = 0.0
+    print(f"[check] row_gather_bwd {tag}: grad {tuple(grad.shape)} by {tuple(idx.shape)} into "
+          f"{S} rows, f32 and bf16: bit-equal to its plain version and across two launches "
+          f"(listing, then reading the list)",
+          flush=True)
+
+
+def rerun_bit_equal(model, optimizer, step):
+    """Run ``step`` twice from one model and optimizer state; returns (whether
+    every weight, buffer (BatchNorm statistics) and optimizer tensor (Adam's
+    moments) came out bit-equal, the tensors compared)."""
+    import copy
+
+    import torch
+    m0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    o0 = copy.deepcopy(optimizer.state_dict())
+    outs = []
+    for _ in range(2):
+        model.load_state_dict(m0)
+        optimizer.load_state_dict(copy.deepcopy(o0))
+        step()
+        torch.cuda.synchronize()
+        outs.append([t.detach().clone() for t in model.state_dict().values()]
+                    + [v.clone() for st in optimizer.state.values() for v in st.values()
+                       if torch.is_tensor(v)])
+    return (len(outs[0]) == len(outs[1])
+            and all(torch.equal(a, b) for a, b in zip(*outs))), len(outs[0])
 
 
 def timed(fn, iters, warm=3):
@@ -672,7 +750,7 @@ def stage1_paths_agree(model, clouds, temp, kldw, dev, tag) -> None:
     spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in grad_keys}
     _backend.reset_launches()
     with patched(ops, group_points=ops.group_points_ref,
-                 graph_feature_idx=ops.graph_feature_idx_ref), \
+                 graph_feature_idx=ops.graph_feature_idx_ref, gather_rows=ops.gather_rows_ref), \
             patched(chamfer_mod, nn_pair=ops.chamfer_ref, nn_pair_min=ops.chamfer_min_ref,
                     chamfer_bwd=ops.chamfer_bwd_ref):
         loss_p, grads_p = loss_and_grads()
@@ -713,6 +791,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.ops import _backend
     from act_tpu_torch.ops import chamfer as chamfer_mod
     from act_tpu_torch.ops.fps import _sms, tie_swaps
+    from act_tpu_torch.ops.reference import take_rows
 
     cfg = load_config(AUTOENCODER_CONFIG)
     bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
@@ -803,6 +882,11 @@ def stage_one(dev, device_ms, kernel_events, measure):
         print(f"[check] chamfer_bwd hard cases ({', '.join(chamfer_mod.BWD_CASES)}): bit-equal "
               "to the plain version on the CPU, signs of zeros included; an index out of range "
               "gives NaN in its own row only", flush=True)
+        # the row-gather backward at the DGCNN's rounds: (B, G * 4) neighbour rows of G
+        dg_idx = ops.graph_feature_idx(centers, centers, 4).reshape(bs, G * 4)
+        dg_grads = {c: rnd(bs, G * 4, c) for c in sorted(set(DGCNN_ROUND_C))}
+        for c, grad in dg_grads.items():
+            check_row_gather(f"Stage-I DGCNN C={c}", grad, dg_idx, G, errs)
 
     # -- 12. the full-width dVAE: one train-mode loss and backward through the
     # kernels and one through the plain versions ------------------------------
@@ -865,6 +949,11 @@ def stage_one(dev, device_ms, kernel_events, measure):
           f"{peak / 2 ** 30:.3f} GiB", flush=True)
     print("[time] Stage-I step top kernels (ms a step): "
           + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+    same, n_t = rerun_bit_equal(run.model, run.optimizer, lambda: step(steps + 2))
+    print(f"[stage1] one Stage-I step (B={bs}, bf16) run twice from one state: every weight, "
+          f"BN statistic and Adam moment bit-equal: {same} ({n_t} tensors)", flush=True)
+    if not same:
+        fail("Stage I: a step rerun from the same state differs")
 
     # device ms of the stages, each forward and backward in training mode
     m = run.model.train()
@@ -901,6 +990,16 @@ def stage_one(dev, device_ms, kernel_events, measure):
         "whole step": device_ms(lambda: step(steps + 1), 3)}
     print("[time] Stage-I step stages, forward + backward (device ms): " + ", ".join(
         f"{k} {v if v is None else round(v, 5)}" for k, v in stage_ms.items()), flush=True)
+    # dgcnn_1 with the row-gather kernel against torch.gather's own (atomic) backward, in turns
+    dg_ms = {}
+    for tag in ("torch.gather", "kernel", "kernel", "torch.gather"):
+        with patched(ops, gather_rows=lambda t, ix: take_rows(t, ix.idx)) \
+                if tag == "torch.gather" else patched(ops):
+            dg_ms.setdefault(tag, []).append(
+                round(timed(fwd_bwd(lambda f: m.dgcnn_1(f, ctr), feats), 20), 5))
+    print(f"[time] Stage-I dgcnn_1 forward + backward (CUDA-event ms a call, in turns): with "
+          f"the row-gather backward kernel {dg_ms['kernel']}, with torch.gather's atomic "
+          f"backward (before the repair) {dg_ms['torch.gather']}", flush=True)
 
     # -- 14. validate: the reconstruction metrics -----------------------------
     val = [torch.from_numpy(c) for c in synthetic_batch(1, VAL_CLOUDS, npts)]
@@ -960,6 +1059,23 @@ def stage_one(dev, device_ms, kernel_events, measure):
                 bound_ms(distinct_rows(i) * 12 + i.numel() * 4 + i.numel() * 12))
                 for p, i in s1_gathers],
         }
+        flat = (dg_idx.long() + G * torch.arange(bs, device=dev)[:, None]).reshape(-1)
+        rows["row_gather_bwd"] = []
+        # a step's launches: each DGCNN's first backward launch (round 4, C=512) lists
+        # the sources, its other three (C=512, 256, 128) read the list
+        listed = ops.row_index(dg_idx, G)
+        ops.gather_rows_bwd(dg_grads[512].to(torch.bfloat16), listed)
+        for c, n, fresh in ((512, 2, True), (512, 2, False), (256, 2, False), (128, 2, False)):
+            gr = dg_grads[c].to(torch.bfloat16)
+            base = torch.zeros(bs * G, c, dtype=gr.dtype, device=dev)
+            rows["row_gather_bwd"].append(measure(
+                f"{tuple(gr.shape)} bf16 by {tuple(dg_idx.shape)} into {G} rows (Stage-I DGCNN, "
+                f"{'listing the sources' if fresh else 'reading the list'})",
+                (lambda gr=gr: ops.gather_rows_bwd(gr, ops.row_index(dg_idx, G))) if fresh
+                else (lambda gr=gr: ops.gather_rows_bwd(gr, listed)),
+                lambda gr=gr: ops.gather_rows_bwd_ref(gr, dg_idx, G),
+                lambda gr=gr, base=base: base.index_add(0, flat, gr.reshape(-1, gr.shape[-1])),
+                100, 5, row_gather_bounds(gr, G, fresh), n))
     print_times("Stage-I ", rows)
     sms = _sms(torch.cuda.current_device())
     for name, names in (("chamfer_nn", ("recon coarse", "recon fine")),
@@ -1693,7 +1809,9 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
     from act_tpu_torch.engine.train_state import seg_step, step_rngs
     from act_tpu_torch.models.segmentation import nll_seg_loss
     from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import interpolate as interp_mod
     from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.ops.reference import take_rows
 
     N, G, M = SEG_NPOINT, SEG_GROUPS, SEG_GROUP_SIZE
     errs, launches = {}, {}
@@ -1758,7 +1876,21 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
                   f"(C={C}) bit-equal to its plain version", flush=True)
             if tag == "whole scene":
                 continue  # the part-seg shape again
+            # the row-gather backward of the 3-NN blend: one of its three (B, N) gathers
+            i3 = ops.k_smallest_ref(d3, 3)[1].reshape(B, N, 3)[:, :, 0].contiguous()
+            g3 = torch.randn(B, N, C, generator=torch.Generator(device=dev).manual_seed(B + 1),
+                             device=dev)
+            check_row_gather(f"3-NN {tag}", g3, i3, G, errs)
             n = 1 if tag == "part seg" else 0  # launches a part-seg train step
+            flat3 = (i3.long() + G * torch.arange(B, device=dev)[:, None]).reshape(-1)
+            base3 = torch.zeros(B * G, C, device=dev)
+            shapes.setdefault("row_gather_bwd", []).append(measure(
+                f"{tuple(g3.shape)} f32 by {tuple(i3.shape)} into {G} rows ({tag} 3-NN)",
+                lambda g3=g3, i3=i3: ops.gather_rows_bwd(g3, ops.row_index(i3, G)),
+                lambda g3=g3, i3=i3: ops.gather_rows_bwd_ref(g3, i3, G),
+                lambda g3=g3, f=flat3, b=base3: b.index_add(0, f, g3.reshape(-1, C)),
+                50, 3, row_gather_bounds(g3, G), 3 * n))
+            del g3
             rows = shapes.setdefault("fps", [])
             rows.append(measure(f"({B}, {N}, 3)->{G} ({tag})",
                                 lambda p=pts: ops.furthest_point_sample(p, G),
@@ -1902,7 +2034,7 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
     check_launches("part-seg loss and backward through the kernels", dict(_backend.LAUNCHES),
-                   SEG_PER_FORWARD, 1)
+                   SEG_PER_STEP, 1)
     _, again = loss_and_grads()
     spread = {k: float((again[k] - grads_k[k]).norm() / grads_k[k].norm()) for k in SEG_GRAD_KEYS}
     with plain_path():
@@ -1935,7 +2067,8 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
         run_s = time.perf_counter() - t0
         launches[f"run_{task}"] = got = dict(_backend.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        check_launches(f"run_{task}", got, SEG_PER_FORWARD, SEG_RUN_STEPS + SEG_RUN_EVAL)
+        check_launches(f"run_{task}", got, {k: SEG_RUN_STEPS * v + SEG_RUN_EVAL * SEG_PER_FORWARD.get(
+            k, 0) for k, v in SEG_PER_STEP.items()}, 1)
         m = res.state.model
         seeded = load_seg_model(task, seed=0, device="cpu").state_dict()
         after = {k: v.detach().cpu() for k, v in m.state_dict().items()}
@@ -1975,6 +2108,12 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
               f"{bs / med * 1e3:.1f} clouds/s; peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
         busy_line(kernel_events, f"seg {task} train step B={bs}", lambda: step(res.steps), med,
                   top_n=8)
+        same, n_t = rerun_bit_equal(res.state.model, res.state.optimizer,
+                                    lambda: step(res.steps))
+        print(f"[seg] one {task} step (B={bs}, bf16) run twice from one state: every weight, BN "
+              f"statistic and Adam moment bit-equal: {same} ({n_t} tensors)", flush=True)
+        if not same:
+            fail(f"seg {task}: a step rerun from the same state differs")
         if task == "partseg":  # the step's parts, device ms
             with torch.no_grad():
                 ctr = ops.gather_coords(p_pts, ops.furthest_point_sample(p_pts, G))
@@ -1990,6 +2129,19 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
                      "whole step": device_ms(lambda: step(res.steps), 3)}
             print(f"[time] seg partseg train step B={bs} parts (device ms): " + ", ".join(
                 f"{k} {v if v is None else round(v, 5)}" for k, v in parts.items()), flush=True)
+            # the blend's forward + backward with the row-gather kernel against
+            # torch.gather's own (atomic) backward, in turns
+            blend_ms = {}
+            for tag in ("torch.gather", "kernel", "kernel", "torch.gather"):
+                with patched(interp_mod, gather_rows=take_rows) if tag == "torch.gather" \
+                        else patched(interp_mod):
+                    blend_ms.setdefault(tag, []).append(round(timed(
+                        lambda: ops.three_nn_interpolate(p_pts, ctr, feats).backward(grad_out),
+                        10), 5))
+            print(f"[time] seg three_nn_interpolate forward + backward B={bs} (CUDA-event ms a "
+                  f"call, in turns): with the row-gather backward kernel {blend_ms['kernel']}, "
+                  f"with torch.gather's atomic backward (before the repair) "
+                  f"{blend_ms['torch.gather']}", flush=True)
         if task == "semseg":
             trained_sem = m
 
@@ -2732,10 +2884,12 @@ def tsne(dev, device_ms, kernel_events, measure):
     counted, the resample's launch shapes timed; 36b, ``tsne_net`` with 2
     batches and 2 vote rounds, on those batches labelled with the seeded
     finetuned model's own predictions, so that every cloud counts as correct
-    and both embeddings and their ``.npz`` files are made; 36c, ``utils/tsne.embed`` on the card at N =
-    ``TSNE_N`` features (the size of ScanObjectNN hardest's test split, from
-    synthetic clouds), timed, run twice (the same embedding), and on the CPU,
-    its final KL within ``TSNE_KL_RTOL`` of the card's. Returns (timing rows
+    and both embeddings and their ``.npz`` files are made; 36c,
+    ``utils/tsne.embed`` on the card at N = ``TSNE_N`` features (the size of
+    ScanObjectNN hardest's test split, from synthetic clouds), timed, run
+    twice (the same embedding), and at the first ``TSNE_REF_N`` of them on
+    the card and on the CPU, the final KLs within ``TSNE_KL_RTOL`` (the CPU
+    run in the parent, when it set ``TSNE_REF_ENV``). Returns (timing rows
     by kernel, errors, launches of each run)."""
     import tempfile
 
@@ -2871,21 +3025,40 @@ def _tsne(dev, device_ms, kernel_events, measure, tmp):
         embs.append(tsne_lib.embed(feats, dev))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    e = embs[0]
+    same = np.array_equal(embs[0].y, embs[1].y)
+    print(f"[time] t-SNE N={TSNE_N} (perplexity {e.perplexity}, {e.n_iter + 1} iterations) on "
+          f"the card: {times[0]:.3f} s, again {times[1]:.3f} s; final KL {e.kl:.6f} (again: "
+          f"same embedding {same})", flush=True)
+    if not (np.isfinite(e.y).all() and same):
+        fail("t-SNE on the card: not finite or not repeatable")
+    small = tsne_lib.embed(feats[:TSNE_REF_N], dev)
+    print(f"[tsne] t-SNE N={TSNE_REF_N} (the first features) on the card: final KL "
+          f"{small.kl:.6f}", flush=True)
+    if not np.isfinite(small.y).all():
+        fail(f"t-SNE on the card at N={TSNE_REF_N}: not finite")
+    ref = os.environ.get(TSNE_REF_ENV)
+    if ref:  # the CPU run of the same features: the parent's, beside phase 37's tracing
+        np.savez(ref, feats=feats[:TSNE_REF_N], kl=small.kl)
+    else:
+        tsne_cpu_check(feats[:TSNE_REF_N], small.kl)
+    print(f"[tsne] phase 36 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, errs, launches
+
+
+def tsne_cpu_check(feats, card_kl) -> None:
+    """Phase 36's reference: the t-SNE of ``feats`` on the CPU, its final KL
+    within ``TSNE_KL_RTOL`` of the card's ``card_kl`` (fails otherwise)."""
+    from act_tpu_torch.utils import tsne as tsne_lib
     t0 = time.perf_counter()
     on_cpu = tsne_lib.embed(feats, "cpu")
     cpu_s = time.perf_counter() - t0
-    e = embs[0]
-    same = np.array_equal(embs[0].y, embs[1].y)
-    rel = abs(e.kl - on_cpu.kl) / on_cpu.kl
-    print(f"[time] t-SNE N={TSNE_N} (perplexity {e.perplexity}, {e.n_iter + 1} iterations) on "
-          f"the card: {times[0]:.3f} s, again {times[1]:.3f} s; final KL {e.kl:.6f} (again: "
-          f"same embedding {same}); on the CPU {cpu_s:.1f} s, KL {on_cpu.kl:.6f} "
-          f"({on_cpu.n_iter + 1} iterations); |KL diff| / CPU KL {rel:.5f} (tolerance "
-          f"{TSNE_KL_RTOL})", flush=True)
-    if not (np.isfinite(e.y).all() and same and rel <= TSNE_KL_RTOL):
-        fail("t-SNE on the card: not finite, not repeatable, or its KL off the CPU run's")
-    print(f"[tsne] phase 36 {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rows, errs, launches
+    rel = abs(card_kl - on_cpu.kl) / on_cpu.kl
+    print(f"[time] t-SNE N={len(feats)} on the CPU: {cpu_s:.1f} s, KL {on_cpu.kl:.6f} "
+          f"({on_cpu.n_iter + 1} iterations); the card's {card_kl:.6f}: |KL diff| / CPU KL "
+          f"{rel:.5f} (tolerance {TSNE_KL_RTOL})", flush=True)
+    if not rel <= TSNE_KL_RTOL:
+        fail("t-SNE on the card: its KL is off the CPU run's")
 
 
 def export(dev, device_ms, kernel_events, measure):
@@ -2900,7 +3073,8 @@ def export(dev, device_ms, kernel_events, measure):
     model module (``chip_smoke.py --artifacts``): there each artifact's
     outputs at B=1 and ``EXPORT_B`` (a fixed batch: its own), its launches,
     the kernel names in the profile of a call, its request times and one
-    answer of ``serve_http --src``; here the outputs are held bit-equal to
+    answer of its HTTP server (the first's made by ``serve_http``'s
+    ``src``); here the outputs are held bit-equal to
     the direct serving function's (token ids exactly) and the request times
     compared. Returns (timing rows by kernel, errors, launches of each
     artifact's calls)."""
@@ -2970,6 +3144,7 @@ def _export_phase(dev, kernel_events, tmp):
         inputs[kind] = x
     torch.save(inputs, os.path.join(tmp, "inputs.pt"))
     spec, sizes = [], {}
+    beside = " (beside the parent's checked work)" if os.environ.get(QUIET_ENV) else ""
     for kind, bs in batches.items():
         for b in bs:
             name = f"{kind}-{'sym' if b is None else b}"
@@ -2981,7 +3156,7 @@ def _export_phase(dev, kernel_events, tmp):
             side = ex.save_exported(exported, path)
             t_save = time.perf_counter() - t0
             sizes[name] = side["bytes"] / 2 ** 20
-            print(f"[export] {name}: traced in {t_export:.1f} s, saved in {t_save:.1f} s, "
+            print(f"[export] {name}: traced in {t_export:.1f} s, saved in {t_save:.1f} s{beside}, "
                   f"{sizes[name]:.1f} MiB (the model's .pth {pth_mib[kind]:.1f} MiB), inputs "
                   f"{side['in_shapes']} -> {side['out_shape']} {side['out_dtype']}, kernel ops "
                   f"{side['needs_ops']}", flush=True)
@@ -2992,6 +3167,7 @@ def _export_phase(dev, kernel_events, tmp):
             del exported
     with open(os.path.join(tmp, "spec.json"), "w") as f:
         json.dump(spec, f)
+    wait_for_quiet()
     out = os.path.join(tmp, "loaded.json")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--artifacts", tmp, out],
                           cwd=ROOT, timeout=900)
@@ -3033,9 +3209,31 @@ def _export_phase(dev, kernel_events, tmp):
                   direct_ms, iters=2)
         print(f"[export] {name}: "
               f"{sizes[name]:.1f} MiB; kernels in the profile {res['kernels']}; launches "
-              f"{res['launches']}; serve_http --src {res['http']}", flush=True)
+              f"{res['launches']}; its HTTP server {res['http']}", flush=True)
     print(f"[export] phase 37 {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {}, errs, launches
+
+
+def wait_for(path: str, what: str, timeout=900) -> float:
+    """Wait until ``path`` exists (``what`` has happened); fails after
+    ``timeout`` s or when the process that started this one has ended.
+    Returns the seconds waited."""
+    t0, parent = time.perf_counter(), os.getppid()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout or os.getppid() != parent:
+            fail(f"gave up waiting for {what}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def wait_for_quiet() -> None:
+    """Wait until the file of ``QUIET_ENV`` exists (when it is set): the
+    parent's work beside this phase has ended."""
+    quiet = os.environ.get(QUIET_ENV)
+    if quiet:
+        waited = wait_for(quiet, "the work beside phase 37's tracing")
+        print(f"[export] traced and saved; waited {waited:.1f} s for the work beside the "
+              f"tracing to end before the timed requests", flush=True)
 
 
 def artifacts_child(tmp: str, out: str) -> None:
@@ -3043,8 +3241,9 @@ def artifacts_child(tmp: str, out: str) -> None:
     through ``load_exported`` (which imports ``act_tpu_torch.ops`` and no
     model module, checked at the end), its outputs on ``tmp/inputs.pt`` at
     each batch (to ``tmp/outputs.pt``), its kernel launches, the kernels in
-    the profile of one call, its request median, and one ``serve_http
-    --src`` answer held to the call."""
+    the profile of one call, its request median, and one answer of its
+    HTTP server held to the call (the first artifact's server made by
+    ``serve_http.serve(src=...)``)."""
     import torch
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
@@ -3078,7 +3277,10 @@ def artifacts_child(tmp: str, out: str) -> None:
                 break
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / 2
         ms = statistics.median(request_ms(lambda: fn(*x), EXPORT_ITERS))
-        server = serve_http.serve(src=item["path"], port=0, device=dev)
+        # the first artifact through ``serve(src=...)``, which loads it again; the
+        # others through the same server on the program loaded above
+        server = (serve_http.serve(src=item["path"], port=0, device=dev) if item is spec[0]
+                  else serve_http.make_server(fn, dict(fn.meta), "127.0.0.1", 0))
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         try:
@@ -3103,7 +3305,7 @@ def artifacts_child(tmp: str, out: str) -> None:
         want = want.argmax(-1) if key == "labels" else want.to(got.dtype)
         http = f"{code}, {'equal to the call' if torch.equal(got, want) else 'DIFFERS'}"
         if code != 200 or not torch.equal(got, want):
-            fail(f"serve_http --src {item['name']}: {http}")
+            fail(f"the HTTP server of {item['name']}: {http}")
         graph_ops = sorted({str(n.target) for n in fn.exported.graph.nodes
                             if n.op == "call_function"})
         res[item["name"]] = dict(load_s=load_s, launches=launches, kernels=kernels, ms=ms,
@@ -3121,7 +3323,6 @@ def artifacts_child(tmp: str, out: str) -> None:
 DDP_STEPS = 3  # steps of each model held across the legs (Stage I: DDP_S1_STEPS)
 DDP_S1_STEPS = 2
 DDP_S1_ITR = 60000  # Stage I's anneal iteration: the KLD weight counts
-DDP_TIMED = 5  # timed steps after the held ones
 DDP_PROBE_BS = 256  # the probe's global batch (2 x total_bs)
 # leg (b) against the one-rank run on the same global batches, both in f32: the
 # losses, and for the weights' change over the steps, the BN running statistics
@@ -3130,32 +3331,44 @@ DDP_PROBE_BS = 256  # the probe's global batch (2 x total_bs)
 # FEAT_ATOL (bf16 at another batch). Stage I's DGCNN kNN and Chamfer choices
 # flip at near ties under rounding: on a small model one CPU step at 1 and at 4
 # threads differed by 1e-3 of the moments' norm, one over 2 ranks by 2-4 %
-DDP_RTOL = {"ft": 2e-2, "s2": 2e-2, "s1": 0.1}
-# the kinds held to DDP_RTOL. Stage I's weights' change is read, not held: AdamW's
-# first steps move each weight by about lr whatever its gradient's size, so the
-# weights whose gradient is at rounding level (its DGCNN's) move either way; one
-# rank on the card repeats no Stage-I step bit for bit (its torch.gather backward
-# adds with atomics), and leg (a) reads that spread for comparison
-DDP_HELD = {"ft": ("dw", "bn", "m"), "s2": ("dw", "bn", "m"), "s1": ("bn", "m")}
-# the gradient reductions gone wrong that leg (b)'s f32 finetune steps also take,
-# each once, and whether the check above must reject it: none (each rank steps on
-# its own half of the batch), and a SUM left unscaled (R x the mean), only read:
-# where the clip engages at one rank's gradients it engages at R x them, and
-# AdamW's update is scale-invariant, so the step is the same
-DDP_FAULTS = {"missing": True, "unscaled": False}
+DDP_RTOL = {"ft": 2e-2, "s2": 2e-2, "s1": 0.1, "ps": 2e-2, "ss": 2e-2, "pb": 2e-2}
+# the kinds held to DDP_RTOL in leg (b). Stage I's weights' change is read, not held:
+# AdamW's first steps move each weight by about lr whatever its gradient's size, so
+# the weights whose gradient is at rounding level (its DGCNN's) move either way at
+# the other summation order of two ranks (0.189 on the H100); leg (a) holds Stage I
+# bit-equal to the run without a group (its row gathers' backward sums in a fixed order)
+DDP_HELD = {"ft": ("dw", "bn", "m"), "s2": ("dw", "bn", "m"), "s1": ("bn", "m"),
+            "ps": ("dw", "bn", "m"), "ss": ("dw", "bn", "m"), "pb": ("dw", "bn", "m", "k", "q")}
+# the gradient reduction gone wrong that leg (b)'s f32 finetune steps also take,
+# and whether the check above must reject it: none (each rank steps on its own
+# half of the batch)
+DDP_FAULTS = {"missing": True}
 # leg (b)'s finetune steps in the shipped bf16: each measure of the 2-rank bf16
 # run against the one-rank f32 run within DDP_BF16_FACTOR x the same measure of
 # the one-rank bf16 run (bf16 rounding alone, at the same batches)
 DDP_BF16_FACTOR = 2.0
 DDP_PER_STEP = {"ft": FINETUNE_PER_STEP, "ft16": FINETUNE_PER_STEP, "s2": STAGE2_PER_STEP,
-                "s1": STAGE1_PER_STEP}
-# the held steps (``ddp_steps``) of leg (a), leg (b) and the run without a group
-DDP_PARTS = {"a": ("ft", "s2", "s1"),
-             "b": ("ft", "ft16", "probe", "s2", "s1") + tuple(DDP_FAULTS),
-             "one": ("ft", "ft16", "probe", "s2", "s1")}
+                "s1": STAGE1_PER_STEP, "ps": SEG_PER_STEP, "ss": SEG_PER_STEP,
+                "pb": POINTBERT_PER_STEP, "pbq": POINTBERT_PER_STEP}
+# the segmentation and PointBERT steps held across the legs (f32, ``ddp_steps``): part
+# seg at the runner's B=16, sem seg at B=32 with seeded class weights (the synthetic
+# S3DIS's own are all 1), ACT_PointBERT at B=128 with its queue K=16384 (``DDP_HELD``:
+# also k's EMA change and the queue); "pbq" is PointBERT with the keys' gather left out
+# of the enqueue (each rank enqueues its own keys only), which the queue's pointer and
+# its unwritten columns, held exactly, must reject
+DDP_SEG_B = {"ps": SEG_PART_B, "ss": SEG_SEM_B}
+# the held steps (``ddp_steps``) of leg (a), leg (b) and the run without a group (leg
+# (a) holds finetune and Stage II through their run_net)
+DDP_PARTS = {"a": ("s1", "ps", "ss", "pb"),
+             "b": ("ft", "ft16", "probe", "s2", "s1", "ps", "ss", "pb", "pbq")
+             + tuple(DDP_FAULTS),
+             "one": ("ft", "ft16", "probe", "s2", "s1", "ps", "ss", "pb")}
 PREEMPT_AT = 2  # the finetune CLI gets its SIGTERM after this step, Stage II its hook
-# each leg's device and backend: (a) NCCL on the rank's card, (b) gloo, both ranks on card 0
-DDP_DEVICES = {"a": ("cuda", None), "b": ("cuda:0", "gloo")}
+# leg (b)'s device and backend: gloo, both ranks on card 0 (NCCL takes one rank a card)
+DDP_B = ("cuda:0", "gloo")
+# the parent's directory for phase 38 (its CLIs run there beside phase 37), passed
+# to phase 38's child (an environment variable holding a path)
+DDP_TMP_ENV = "CHIP_SMOKE_DDP_DIR"
 DDP_CLI_DEVICE = "cuda"
 # runs ``act_tpu_torch.main`` with argv[2:]; after step argv[1] (0: never) it
 # waits for the signal, so that the SIGTERM lands at that step boundary
@@ -3185,9 +3398,15 @@ def ddp_inputs(tmp: str) -> None:
     """The global batches that legs (a) and (b) and the one-process run share:
     3 finetune batches of the train loader (32 ModelNet clouds of 8192
     points), 3 Stage-II batches of 128 and 2 Stage-I batches of 64 synthetic
-    ShapeNet-55 clouds of 1024 points (each config's ``total_bs``)."""
+    ShapeNet-55 clouds of 1024 points (each config's ``total_bs``), 3 part-seg
+    batches of 16 and 3 sem-seg batches of 32 synthetic clouds of 2048 points
+    with their labels (and one-hots; sem seg's class weights seeded), 3
+    PointBERT batches of 128 clouds."""
+    import numpy as np
     import torch
     from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.datasets.loader import DataLoader
+    from act_tpu_torch.datasets.segmentation_datasets import PartNormalDataset, S3DISDataset
     from act_tpu_torch.engine import runner_finetune as rf
     from act_tpu_torch.engine.serve import load_config
     s2, s1 = load_config(PRETRAIN_CONFIG), load_config(AUTOENCODER_CONFIG)
@@ -3198,7 +3417,24 @@ def ddp_inputs(tmp: str) -> None:
     for _, batch in zip(range(DDP_STEPS), loader):
         pts, labels = batch[2]
         ft.append((torch.as_tensor(pts), torch.as_tensor(labels)))
-    torch.save({"ft": ft,
+    ft_steps = max(len(loader), 1)  # the lr schedule's steps an epoch
+    none = os.path.join(tmp, "no_data")  # absent: the datasets' synthetic clouds
+    seg = {}
+    for part, ds in (("ps", PartNormalDataset(none, SEG_NPOINT, split="trainval")),
+                     ("ss", S3DISDataset("train", none, SEG_NPOINT))):
+        batches = DataLoader(ds, DDP_SEG_B[part], shuffle=True, drop_last=True, prefetch=0)
+        seg[part] = []
+        for _, b in zip(range(DDP_STEPS), batches):
+            oh = (torch.from_numpy(np.eye(16, dtype=np.float32)[np.asarray(b[1])])
+                  if part == "ps" else None)
+            seg[part].append((torch.from_numpy(np.asarray(b[0])[..., :3]),
+                              torch.as_tensor(b[-1]), oh))
+    torch.save({"ft": ft, "ft_steps": ft_steps, **seg,
+                "ss_weight": torch.from_numpy(
+                    np.random.default_rng(3).uniform(0.5, 3.0, 13).astype(np.float32)),
+                "pb": [torch.from_numpy(synthetic_batch(20 + i, int(s2.total_bs),
+                                                        int(s2.dataset.train.others.npoints)))
+                       for i in range(DDP_STEPS)],
                 "s2": [torch.from_numpy(synthetic_batch(
                     i, int(s2.total_bs), int(s2.dataset.train.others.npoints)))
                     for i in range(DDP_STEPS)],
@@ -3207,24 +3443,35 @@ def ddp_inputs(tmp: str) -> None:
                     for i in range(DDP_S1_STEPS)]}, os.path.join(tmp, "batches.pt"))
 
 
+def ddp_took(part, t0) -> None:
+    """One ``[ddp]`` line: this rank's seconds on ``part`` of phase 38 since ``t0``."""
+    from act_tpu_torch import parallel
+    print(f"[ddp] rank {parallel.process_index()} of {parallel.process_count()}: {part} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def ddp_state(model, optimizer, start, full: bool):
     """(the trained tensors' change from ``start``, the BN running statistics,
-    Adam's first moments) on the host, or per tensor the float64 sum
+    Adam's first moments; for ACT_PointBERT also the EMA-moved k encoder's
+    change and the MoCo queue) on the host, or per tensor the float64 sum
     (``ddp_sum``) when not ``full``."""
-    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    params = {n: p for n, p in model.named_parameters() if n in start}
+    trained = {n: p for n, p in params.items() if p.requires_grad}
     stats = {n: b for n, b in model.named_buffers() if "running" in n}
-    moms = {n: optimizer.state[p]["exp_avg"] for n, p in params.items()}
-    moved = {n: p.detach() - start[n] for n, p in params.items()}
-    out = {}
-    for tag, tensors in (("dw", moved), ("bn", stats), ("m", moms)):
-        out[tag] = {n: (t.detach().float().cpu().clone() if full else ddp_sum(t))
-                    for n, t in tensors.items()}
-    return out
+    kinds = {"dw": {n: p.detach() - start[n] for n, p in trained.items()}, "bn": stats,
+             "m": {n: optimizer.state[p]["exp_avg"] for n, p in trained.items()}}
+    if hasattr(model, "queue"):
+        kinds["k"] = {n: p.detach() - start[n] for n, p in params.items() if not p.requires_grad}
+        kinds["q"] = {"queue": model.queue}
+    return {tag: {n: (t.detach().float().cpu().clone() if full else ddp_sum(t))
+                  for n, t in tensors.items()} for tag, tensors in kinds.items()}
 
 
 def ddp_start(model):
-    """A copy of the model's trained tensors, after the start broadcast."""
-    return {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    """A copy of the model's trained tensors (and ACT_PointBERT's k encoder),
+    after the start broadcast."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if p.requires_grad or n.startswith("transformer_k.")}
 
 
 def ddp_sum(t) -> float:
@@ -3264,9 +3511,11 @@ def ddp_steps(dev, tmp, parts, replay=None):
     shipped bf16, each of ``DDP_FAULTS`` the f32 finetune steps with that
     fault in the gradient all-reduce (``ddp_fault``), "probe" Stage II's probe
     features gathered over the ranks, "s2" Stage-II ``pretrain_step`` in f32,
-    "s1" Stage-I ``autoencoder_step`` in f32. ``replay``: the tokenizer ids of
+    "s1" Stage-I ``autoencoder_step`` in f32, then the segmentation and
+    PointBERT steps (``ddp_seg_bert_steps``). ``replay``: the tokenizer ids of
     leg (b)'s ranks, concatenated, in place of the Gumbel kernel's. Returns
-    the losses, states (rank 0: whole), launches, ids drawn, features."""
+    the losses, states (rank 0: whole), launches, ids drawn, features, and
+    each step's host ms with the gradient all-reduce's alone."""
     import torch
     from act_tpu_torch import ops, parallel
     from act_tpu_torch.engine import builder, train_state
@@ -3284,16 +3533,21 @@ def ddp_steps(dev, tmp, parts, replay=None):
         b = t.shape[0] // R
         return t[r * b:(r + 1) * b].to(dev)
 
+    def reduce_ms(params):
+        grads = [p.grad for p in params if p.grad is not None]
+        return (statistics.median(request_ms(lambda: parallel.all_reduce_mean(grads), 3))
+                if parallel.is_distributed() else None)
+
     out = {"rank": r, "ranks": R, "backend": torch.distributed.get_backend()
            if parallel.is_distributed() else None}
     # finetune: f32, bf16, the faults
     for part in ("ft", "ft16") + tuple(DDP_FAULTS):
         if part not in parts:
             continue
+        t0 = time.perf_counter()
         cfg = rf.finetune_config(CONFIG)
         cfg = cfg if part == "ft16" else ddp_f32(cfg)
-        (loader,) = rf.loaders(cfg, 0, ("train",))
-        st = rf.build_state(cfg, max(len(loader), 1), 0, dev)
+        st = rf.build_state(cfg, inputs["ft_steps"], 0, dev)
         parallel.broadcast_module(st.model)
         start = ddp_start(st.model)
         reduce = ddp_fault(part) if part in DDP_FAULTS else train_state.all_reduce_mean
@@ -3304,121 +3558,166 @@ def ddp_steps(dev, tmp, parts, replay=None):
         torch.cuda.synchronize()
         out[part] = dict(losses=run.losses, launches=dict(_backend.LAUNCHES),
                          state=ddp_state(st.model, st.optimizer, start, r == 0),
+                         step_ms=run.step_ms, reduce_ms=reduce_ms(st.model.parameters()),
                          grad_mb=sum(q.numel() * 4 for q in st.model.parameters()
                                      if q.requires_grad) / 1e6)
         del run, st, start
+        ddp_took(part, t0)
     # Stage II: the probe's features, then the steps
-    cfg = ddp_f32(load_config(PRETRAIN_CONFIG))
-    model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
-    parallel.broadcast_module(model)
-    if "probe" in parts:
-        node = cfg.dataset.val
-        node.others.bs = DDP_PROBE_BS
-        probe_loader = builder.dataset_builder(node, 0)[1]
-        out["probe"] = dict(zip(("feats", "labels"), rp.probe_features(
-            model, probe_loader, int(node.others.npoints))))
-    if "s2" in parts:
-        optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
-        clip, ids, calls, start = cfg.get("grad_norm_clip", None), [], [0], ddp_start(model)
-        kernel = ops.gumbel_argmax
+    if "probe" in parts or "s2" in parts:
+        t0 = time.perf_counter()
+        cfg = ddp_f32(load_config(PRETRAIN_CONFIG))
+        model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
+        parallel.broadcast_module(model)
+        if "probe" in parts:
+            node = cfg.dataset.val
+            node.others.bs = DDP_PROBE_BS
+            probe_loader = builder.dataset_builder(node, 0)[1]
+            out["probe"] = dict(zip(("feats", "labels"), rp.probe_features(
+                model, probe_loader, int(node.others.npoints))))
+        if "s2" in parts:
+            optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+            clip, ids, calls, start = cfg.get("grad_norm_clip", None), [], [0], ddp_start(model)
+            kernel = ops.gumbel_argmax
 
-        def gumbel(logits, seed):
-            if replay is None:
-                got = kernel(logits, seed)
-                ids.append(got.cpu())
-                return got
-            calls[0] += 1
-            return replay[calls[0] - 1].to(logits.device)
+            def gumbel(logits, seed):
+                if replay is None:
+                    got = kernel(logits, seed)
+                    ids.append(got.cpu())
+                    return got
+                calls[0] += 1
+                return replay[calls[0] - 1].to(logits.device)
+            _backend.reset_launches()
+            with patched(ops, gumbel_argmax=gumbel):
+                losses, ms, red = ddp_timed_steps(
+                    lambda i: pretrain_step(model, optimizer, schedule, rows(inputs["s2"][i]), i,
+                                            step_rngs(0, i, dev), grad_norm_clip=clip),
+                    model.parameters())
+            out["s2"] = dict(losses=losses, launches=dict(_backend.LAUNCHES), step_ms=ms,
+                             reduce_ms=red, state=ddp_state(model, optimizer, start, r == 0),
+                             ids=ids, grad_mb=sum(q.numel() * 4 for q in model.parameters()
+                                                  if q.requires_grad) / 1e6)
+            del optimizer, start
+        del model
+        torch.cuda.empty_cache()
+        ddp_took("probe and s2", t0)
+    if "s1" in parts:
+        t0 = time.perf_counter()
+        cfg = ddp_f32(load_config(AUTOENCODER_CONFIG))
+        model = ra.prepare_model(cfg, 0, dev)
+        parallel.broadcast_module(model)
+        optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+        start = ddp_start(model)
         _backend.reset_launches()
-        losses = []
-        with patched(ops, gumbel_argmax=gumbel):
-            for i, pts in enumerate(inputs["s2"]):
-                losses.append(pretrain_step(model, optimizer, schedule, rows(pts), i,
-                                            step_rngs(0, i, dev), grad_norm_clip=clip))
-        torch.cuda.synchronize()
-        out["s2"] = dict(losses=[float(x) for x in losses], launches=dict(_backend.LAUNCHES),
-                         state=ddp_state(model, optimizer, start, r == 0), ids=ids,
+
+        def s1_step(i):
+            n = DDP_S1_ITR + i
+            return autoencoder_step(model, optimizer, schedule, rows(inputs["s1"][i]), i,
+                                    step_rngs(0, i, dev), ra.get_temp(cfg, n),
+                                    ra.get_kld_weight(cfg, n), cfg.get("grad_norm_clip"))[0]
+        losses, ms, red = ddp_timed_steps(s1_step, model.parameters(), DDP_S1_STEPS)
+        out["s1"] = dict(losses=losses, launches=dict(_backend.LAUNCHES), step_ms=ms,
+                         reduce_ms=red, state=ddp_state(model, optimizer, start, r == 0),
                          grad_mb=sum(q.numel() * 4 for q in model.parameters()
                                      if q.requires_grad) / 1e6)
-        del optimizer, start
-    del model
-    torch.cuda.empty_cache()
-    if "s1" not in parts:
-        return out
-    cfg = ddp_f32(load_config(AUTOENCODER_CONFIG))
-    model = ra.prepare_model(cfg, 0, dev)
-    parallel.broadcast_module(model)
-    optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
-    start = ddp_start(model)
-    _backend.reset_launches()
-    losses = []
-    for i, pts in enumerate(inputs["s1"]):
-        n = DDP_S1_ITR + i
-        losses.append(autoencoder_step(model, optimizer, schedule, rows(pts), i,
-                                       step_rngs(0, i, dev), ra.get_temp(cfg, n),
-                                       ra.get_kld_weight(cfg, n), cfg.get("grad_norm_clip"))[0])
-    torch.cuda.synchronize()
-    out["s1"] = dict(losses=[float(x) for x in losses], launches=dict(_backend.LAUNCHES),
-                     state=ddp_state(model, optimizer, start, r == 0))
-    del model, optimizer, start
-    torch.cuda.empty_cache()
+        del model, optimizer, start
+        torch.cuda.empty_cache()
+        ddp_took("s1", t0)
+    out.update(ddp_seg_bert_steps(dev, inputs, parts, rows))
     return out
 
 
-def ddp_times(dev, tmp, kernel_events):
-    """Host ms of ``DDP_TIMED`` finetune and Stage-II steps of the shipped
-    (bf16) configs on this rank's rows of the first global batch, after 3
-    warm-up steps, and one profiled step each: device busy, the NCCL kernels,
-    the kernels by name; under a group also the host ms of the gradient
-    all-reduce alone (``all_reduce_mean`` of the step's gradients)."""
-    from collections import Counter
+def ddp_timed_steps(step, params, steps=DDP_STEPS):
+    """Run ``step(i)`` for the held steps, each ended by a device synchronize;
+    returns (their losses, host ms of each, host ms of the gradient all-reduce
+    alone on the last step's gradients, median of 3, under a group)."""
+    import torch
+    from act_tpu_torch import parallel
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(i)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    grads = [p.grad for p in params if p.grad is not None]
+    reduce_ms = (statistics.median(request_ms(lambda: parallel.all_reduce_mean(grads), 3))
+                 if parallel.is_distributed() else None)
+    return losses, ms, reduce_ms
 
+
+def ddp_seg_bert_steps(dev, inputs, parts, rows):
+    """The held f32 steps of part seg ("ps", the runner's augmentation drawn
+    for the global batch), sem seg with class weights ("ss") and
+    ACT_PointBERT ("pb"; "pbq" with each rank enqueueing its own keys only)
+    on this rank's rows of the global batches: losses, state (rank 0 whole),
+    launches, the step's host ms and the gradient all-reduce's alone, the
+    all-reduced MB, PointBERT's queue pointer."""
+    import numpy as np
     import torch
     from act_tpu_torch import parallel
     from act_tpu_torch.engine import builder
-    from act_tpu_torch.engine import runner_finetune as rf
     from act_tpu_torch.engine import runner_pretrain as rp
-    from act_tpu_torch.engine.serve import load_config
-    from act_tpu_torch.engine.train_state import pretrain_step, step_rngs, steps_per_epoch
+    from act_tpu_torch.engine import runner_segmentation as rs
+    from act_tpu_torch.engine.train_state import (pretrain_step, seg_step, step_rngs,
+                                                  steps_per_epoch)
+    from act_tpu_torch.ops import _backend
     R, r = parallel.process_count(), parallel.process_index()
-    inputs = torch.load(os.path.join(tmp, "batches.pt"), weights_only=True)
-
-    def rows(t):
-        b = t.shape[0] // R
-        return t[r * b:(r + 1) * b].to(dev)
-
-    def timed(step, params):
-        ms = request_ms(step, DDP_TIMED)
-        ev = kernel_events(step, 1)
-        nccl = {}
-        for e in ev:
-            if "nccl" in e.name.lower():
-                nccl[e.name[:80]] = nccl.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
-        grads = [p.grad for p in params if p.grad is not None]
-        reduce_ms = (statistics.median(request_ms(lambda: parallel.all_reduce_mean(grads),
-                                                  DDP_TIMED))
-                     if parallel.is_distributed() else None)
-        return dict(host_ms=statistics.median(ms), host_all=ms,
-                    device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3 if ev else None,
-                    kernels=len(ev), nccl=nccl, reduce_ms=reduce_ms,
-                    names=dict(Counter(e.name[:60] for e in ev)))
-
-    cfg = rf.finetune_config(CONFIG)
-    st = rf.build_state(cfg, 16, 0, dev)
-    parallel.broadcast_module(st.model)
-    p, y = rows(inputs["ft"][0][0]), rows(inputs["ft"][0][1])
-    out = {"ft": timed(lambda: rf.train_step(st, p, y, 0, 0), st.model.parameters())}
-    del st
-    cfg = load_config(PRETRAIN_CONFIG)
+    out = {}
+    for part in ("ps", "ss"):
+        if part not in parts:
+            continue
+        t0 = time.perf_counter()
+        st = rs.build_seg_state("partseg" if part == "ps" else "semseg", 32, dtype="f32",
+                                device=dev)
+        parallel.broadcast_module(st.model)
+        start = ddp_start(st.model)
+        weight = inputs["ss_weight"].to(dev) if part == "ss" else None
+        batches = [(torch.from_numpy(rs._np_augment(np.random.default_rng(i),
+                                                    rows(p).cpu().numpy())).to(dev),
+                    rows(y), None if oh is None else rows(oh))
+                   for i, (p, y, oh) in enumerate(inputs[part])]
+        _backend.reset_launches()
+        losses, ms, reduce_ms = ddp_timed_steps(
+            lambda i: seg_step(st.model, st.optimizer, st.schedule, batches[i][0],
+                               batches[i][1], i, step_rngs(0, i, dev), batches[i][2], weight),
+            st.model.parameters())
+        out[part] = dict(losses=losses, launches=dict(_backend.LAUNCHES), step_ms=ms,
+                         reduce_ms=reduce_ms, state=ddp_state(st.model, st.optimizer, start,
+                                                              r == 0),
+                         grad_mb=sum(q.numel() * 4 for q in st.model.parameters()
+                                     if q.requires_grad) / 1e6)
+        del st, start
+        torch.cuda.empty_cache()
+        ddp_took(part, t0)
+    if "pb" not in parts:
+        return out
+    cfg = ddp_f32(pointbert_config())
     model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
     parallel.broadcast_module(model)
-    optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
-    pts = rows(inputs["s2"][0])
-    out["s2"] = timed(lambda: pretrain_step(model, optimizer, schedule, pts, 0,
-                                            step_rngs(0, 0, dev),
-                                            grad_norm_clip=cfg.get("grad_norm_clip", None)),
-                      model.parameters())
-    del model, optimizer
+    start, clip, m = ddp_start(model), cfg.get("grad_norm_clip", None), rp.ema_momentum(cfg)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    enqueue, pts = model.enqueue, [rows(p) for p in inputs["pb"]]
+    for part in ("pb", "pbq"):
+        if part not in parts:
+            continue
+        t0 = time.perf_counter()
+        model.load_state_dict(initial)
+        optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
+        if part == "pbq":
+            model.enqueue = lambda keys: enqueue(keys.narrow(0, r * (keys.shape[0] // R),
+                                                             keys.shape[0] // R))
+        _backend.reset_launches()
+        losses, ms, reduce_ms = ddp_timed_steps(
+            lambda i: pretrain_step(model, optimizer, schedule, pts[i], i, step_rngs(0, i, dev),
+                                    grad_norm_clip=clip, ema_momentum=m),
+            model.parameters())
+        out[part] = dict(losses=losses, launches=dict(_backend.LAUNCHES), step_ms=ms,
+                         reduce_ms=reduce_ms, state=ddp_state(model, optimizer, start, r == 0),
+                         ptr=int(model.queue_ptr), grad_mb=sum(
+                             q.numel() * 4 for q in model.parameters() if q.requires_grad) / 1e6)
+        del optimizer
+        ddp_took(part, t0)
+    del model, start, initial
     torch.cuda.empty_cache()
     return out
 
@@ -3448,61 +3747,77 @@ def ddp_pretrain_config():
     return cfg
 
 
-def ddp_rank(tmp: str, leg: str) -> None:
-    """A rank of leg (a) (NCCL, world size 1, ``cuda``) or (b) (gloo, two
-    ranks, both ``cuda:0``), launched with torchrun's variables; writes
-    ``leg-<leg>-<rank>.pt``. A rank that raises exits non-zero."""
+def ddp_rank(tmp: str) -> None:
+    """A rank of leg (b) (gloo, two ranks, both on card 0), launched with
+    torchrun's variables: it joins the group, loads the kernels, waits for
+    ``go-b`` (phase 37 has ended and the batches are written), then takes
+    the steps; writes ``leg-b-<rank>.pt``. A rank that raises exits
+    non-zero."""
     import torch
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     from act_tpu_torch import parallel
     from act_tpu_torch.ops import _backend
-    from act_tpu_torch.profiling import kernel_events
-    device, backend = DDP_DEVICES[leg]
-    parallel.initialize_distributed(device, backend=backend)
-    dev = parallel.local_device(device)
+    parallel.initialize_distributed(DDP_B[0], backend=DDP_B[1])
+    dev = parallel.local_device(DDP_B[0])
     if not parallel.is_distributed():
-        fail(f"leg {leg}: no process group")
+        fail("leg (b): no process group")
     _backend.build_kernels()
-    replay = None
-    if leg == "a":
-        b = [torch.load(os.path.join(tmp, f"leg-b-{r}.pt"), weights_only=False) for r in (0, 1)]
-        replay = [torch.cat(pair) for pair in zip(b[0]["s2"]["ids"], b[1]["s2"]["ids"])]
-    out = ddp_steps(dev, tmp, DDP_PARTS[leg], replay)
-    out["time"] = ddp_times(dev, tmp, kernel_events)
-    if leg == "a":
-        out["run_net"] = ddp_run_nets(dev, tmp, "a")
-    torch.save(out, os.path.join(tmp, f"leg-{leg}-{parallel.process_index()}.pt"))
+    open(os.path.join(tmp, f"ready-b-{parallel.process_index()}"), "w").close()
+    wait_for(os.path.join(tmp, "go-b"), "leg (b)'s start")
+    out = ddp_steps(dev, tmp, DDP_PARTS["b"])
+    torch.save(out, os.path.join(tmp, f"leg-b-{parallel.process_index()}.pt"))
     parallel.destroy_distributed()
 
 
-def ddp_launch(tmp: str, leg: str, ranks: int, timeout=600) -> list:
-    """Start the ranks of a leg as torchrun would (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), wait for all, fail if
-    one fails; returns their results."""
+def torchrun_env(ranks: int) -> dict:
+    """torchrun's variables for ``ranks`` ranks on this host, less ``RANK``
+    and ``LOCAL_RANK``, at a free port."""
     import socket
-
-    import torch
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-           "WORLD_SIZE": str(ranks)}
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank", tmp,
-                               leg], cwd=ROOT,
-                              env={**env, "RANK": str(r), "LOCAL_RANK": "0"})
-             for r in range(ranks)]
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(ranks)}
+
+
+def ddp_start_b(tmp: str) -> list:
+    """Start leg (b)'s two ranks, each a process started as torchrun would
+    start it (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``); they join their group and wait for ``tmp/go-b``."""
+    env = {**os.environ, **torchrun_env(2)}
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank", tmp],
+                             cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": "0"})
+            for r in range(2)]
+
+
+def ddp_finish_b(tmp: str, procs: list) -> list:
+    """Wait for leg (b)'s ranks; fails if one fails, returns their results."""
+    import torch
     try:
-        rcs = [p.wait(timeout=timeout) for p in procs]
+        rcs = [p.wait(timeout=600) for p in procs]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_processes(procs)
     if any(rcs):
-        fail(f"leg ({leg}): rank exit codes {rcs}")
-    return [torch.load(os.path.join(tmp, f"leg-{leg}-{r}.pt"), weights_only=False)
-            for r in range(ranks)]
+        fail(f"leg (b): rank exit codes {rcs}")
+    return [torch.load(os.path.join(tmp, f"leg-b-{r}.pt"), weights_only=False) for r in (0, 1)]
+
+
+@contextmanager
+def one_nccl_rank():
+    """Leg (a)'s group: this process as the one rank of an NCCL group made
+    from torchrun's variables (``initialize_distributed``), left on exit."""
+    from act_tpu_torch import parallel
+    env = {**torchrun_env(1), "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        parallel.initialize_distributed("cuda")
+        if not parallel.is_distributed():
+            fail("leg (a): no process group")
+        yield
+    finally:
+        parallel.destroy_distributed()
+        for k in env:
+            del os.environ[k]
 
 
 def ddp_compare(tag, got, want):
@@ -3514,7 +3829,7 @@ def ddp_compare(tag, got, want):
     the tensor of the largest difference against its own largest value.
     Returns {kind: (the measure, that tensor)}."""
     worst = {}
-    for kind in ("dw", "bn", "m"):
+    for kind in want:
         if sorted(got[kind]) != sorted(want[kind]):
             fail(f"ddp {tag}: the tensors of {kind} differ")
         d2 = r2 = w = 0.0
@@ -3536,37 +3851,40 @@ def ddp_measures(worst) -> str:
 
 
 def ddp(dev, device_ms, kernel_events, measure):
-    """Phase 38, data parallelism and preemption at full width: (b) two ranks
-    sharing the card over gloo (finetune at 16 + 16 in f32, in bf16 and with
-    each fault of ``DDP_FAULTS``, Stage II at 64 + 64, Stage I at 32 + 32
-    clouds, the probe's features gathered); (a) one rank over NCCL: the f32
-    steps of the three with (b)'s tokenizer ids replayed, finetune
-    and Stage-II ``run_net``, step times with the NCCL kernels; the same in
-    this process without a group, held bit for bit to (a) and within
-    ``DDP_RTOL`` to (b); (c) the finetune CLI stopped by a real SIGTERM after
-    its 2nd step and resumed, Stage-II ``run_net`` stopped by the step hook
-    and resumed, each bit-equal to an uninterrupted run. Returns (no timing
-    rows, errors, each leg's launches)."""
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
-    try:
-        return _ddp(dev, kernel_events, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _ddp(dev, kernel_events, tmp):
+    """Phase 38, data parallelism and preemption at full width, in the
+    directory of ``DDP_TMP_ENV`` (the parent's, where the CLIs of legs (c)
+    and (d) ran beside phase 37's tracing): (b) two ranks sharing the card
+    over gloo (finetune at 16 + 16 in f32, in bf16 and with the fault of
+    ``DDP_FAULTS``, Stage II at 64 + 64, Stage I at 32 + 32 clouds, the
+    probe's features gathered; part seg at 8 + 8, sem seg at 16 + 16 with
+    class weights, ACT_PointBERT at 64 + 64, also with the keys' gather left
+    out of its enqueue); then in this process the same steps without a
+    group, then (a) this process as one rank over NCCL: the f32 steps of
+    Stage I, part seg, sem seg and PointBERT, held bit for bit to the run
+    without a group; (b) held within ``DDP_RTOL`` to the run without a group
+    (PointBERT's queue pointer and unwritten columns exactly); each held step
+    timed, with the gradient all-reduce alone, each leg alone on the card.
+    The ``run_net`` legs ran beside phase 37 (``ddp_runs``). Returns (no
+    timing rows, errors, each leg's launches). Started beside phase 37, it
+    starts leg (b)'s ranks and waits for ``go`` (phase 37 has ended)."""
     import numpy as np
     import torch
+    tmp = os.environ[DDP_TMP_ENV]
+    procs = ddp_start_b(tmp)
+    try:
+        wait_for(os.path.join(tmp, "go"), "the end of phase 37", timeout=1200)
+    except SystemExit:
+        stop_processes(procs)
+        raise
     t_phase = time.perf_counter()
     ddp_inputs(tmp)
     launches = {}
-    steps = {"ft": DDP_STEPS, "ft16": DDP_STEPS, "s2": DDP_STEPS, "s1": DDP_S1_STEPS}
+    steps = {**{m: DDP_STEPS for m in DDP_PARTS["b"] if m in DDP_PER_STEP}, "s1": DDP_S1_STEPS}
 
-    # (b) two ranks on the one card, over gloo
+    # (b) two ranks on the one card, over gloo, alone
     t0 = time.perf_counter()
-    b = ddp_launch(tmp, "b", 2)
+    open(os.path.join(tmp, "go-b"), "w").close()
+    b = ddp_finish_b(tmp, procs)
     print(f"[ddp] leg (b): 2 ranks over {b[0]['backend']} on one card, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r, res in enumerate(b):
@@ -3574,65 +3892,75 @@ def _ddp(dev, kernel_events, tmp):
             check_launches(f"ddp (b) rank {r} {model}", res[model]["launches"],
                            DDP_PER_STEP[model], n)
             launches[f"(b) rank {r} {model}"] = res[model]["launches"]
-        print(f"[ddp] (b) rank {r}: launches a step: finetune "
-              f"{ {k: v // DDP_STEPS for k, v in res['ft']['launches'].items() if v} }, "
-              f"Stage II { {k: v // DDP_STEPS for k, v in res['s2']['launches'].items() if v} }, "
-              f"Stage I { {k: v // DDP_S1_STEPS for k, v in res['s1']['launches'].items() if v} }",
-              flush=True)
+        print(f"[ddp] (b) rank {r}: launches a step: " + ", ".join(
+            f"{model} { {k: v // n for k, v in res[model]['launches'].items() if v} }"
+            for model, n in steps.items() if model in ("ft", "s2", "s1", "ps", "ss", "pb")),
+            flush=True)
     for model in steps:
+        if model == "pbq":  # each rank's queue holds its own keys: they differ by design
+            continue
         sums = {k: {n: ddp_sum(t) for n, t in v.items()} for k, v in b[0][model]["state"].items()}
         if sums != b[1][model]["state"]:
             bad = [(k, n) for k, v in sums.items() for n, x in v.items()
                    if x != b[1][model]["state"][k][n]]
             fail(f"ddp (b) {model}: the two ranks' states differ at {bad[:8]}")
-    print("[ddp] (b) the two ranks' weights, BN statistics and Adam moments agree (float64 "
-          "sums of every tensor equal; f32 and bf16)", flush=True)
-    # (a) one rank over NCCL, with (b)'s tokenizer ids replayed
+    print("[ddp] (b) the two ranks' weights, BN statistics and Adam moments (PointBERT: k and "
+          "the queue) agree (float64 sums of every tensor equal; f32 and bf16)", flush=True)
+    # the run without a group, then (a) one rank over NCCL, each with (b)'s tokenizer ids
+    # replayed and alone on the card
+    replay = [torch.cat(pair) for pair in zip(b[0]["s2"]["ids"], b[1]["s2"]["ids"])]
     t0 = time.perf_counter()
-    (a,) = ddp_launch(tmp, "a", 1)
+    one = ddp_steps(dev, tmp, DDP_PARTS["one"], replay)
+    print(f"[ddp] one process, no group: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with one_nccl_rank():
+        a = ddp_steps(dev, tmp, DDP_PARTS["a"], replay)
     print(f"[ddp] leg (a): 1 rank over {a['backend']}, {time.perf_counter() - t0:.1f} s",
           flush=True)
     for model in DDP_PARTS["a"]:
         launches[f"(a) {model}"] = a[model]["launches"]
-    # the same in this process, without a group
-    t0 = time.perf_counter()
-    replay = [torch.cat(pair) for pair in zip(b[0]["s2"]["ids"], b[1]["s2"]["ids"])]
-    one = ddp_steps(dev, tmp, DDP_PARTS["one"], replay)
-    one["time"] = ddp_times(dev, tmp, kernel_events)
-    one["run_net"] = ddp_run_nets(dev, tmp, "one")
-    print(f"[ddp] one process, no group: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[ddp] legs (b), (a) and the run without a group: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     errs, problems = {}, []
     for model in DDP_PARTS["a"]:
-        same = a[model]["losses"] == one[model]["losses"] and all(
-            torch.equal(t, one[model]["state"][k][n])
-            for k, v in a[model]["state"].items() for n, t in v.items())
+        same = a[model]["losses"] == one[model]["losses"] and a[model].get("ptr") == one[
+            model].get("ptr") and all(torch.equal(t, one[model]["state"][k][n])
+                                      for k, v in a[model]["state"].items() for n, t in v.items())
         print(f"[ddp] (a) {model}: losses {a[model]['losses']} (no group: "
-              f"{one[model]['losses']}), weights, BN statistics and Adam moments bit-equal to "
-              f"the run without a group: {same}", flush=True)
-        if model == "s1":
-            spread = ddp_compare(model, a[model]["state"], one[model]["state"])
-            print(f"[ddp] (a) s1 against the run without a group (one rank's spread on the "
-                  f"card): relative norm of the difference: {ddp_measures(spread)}", flush=True)
-            if any(spread[k][0] > DDP_RTOL[model] for k in DDP_HELD[model]):
-                problems.append("(a) s1 beyond the tolerance against the run without a group")
-        elif not same:
+              f"{one[model]['losses']}), every held tensor ({', '.join(a[model]['state'])}) "
+              f"bit-equal to the run without a group: {same}", flush=True)
+        if not same:
             problems.append(f"(a) {model}: the one-rank NCCL run differs from the run without "
                             f"a group")
-    for model in ("ft", "s2", "s1"):
+    for model in ("ft", "s2", "s1", "ps", "ss", "pb"):
         got_loss = [sum(x) / 2 for x in zip(b[0][model]["losses"], b[1][model]["losses"])]
         loss_err = max(abs(g - w) / abs(w) for g, w in zip(got_loss, one[model]["losses"]))
         worst = ddp_compare(model, b[0][model]["state"], one[model]["state"])
         bad = [k for k in DDP_HELD[model] if worst[k][0] > DDP_RTOL[model]]
         print(f"[ddp] (b) {model}: mean losses of the ranks {got_loss} against one rank's "
               f"{one[model]['losses']} (max relative {loss_err:.3e}); relative norm of the "
-              f"difference: weights' change {worst['dw'][0]:.3e}, BN statistics "
-              f"{worst['bn'][0]:.3e}, Adam moments {worst['m'][0]:.3e} (tolerance "
-              f"{DDP_RTOL[model]} on {', '.join(DDP_HELD[model])}; the largest tensor-wise: "
-              f"{worst['dw'][1]}, {worst['bn'][1]}, {worst['m'][1]})", flush=True)
+              f"difference: {ddp_measures(worst)} (tolerance {DDP_RTOL[model]} on "
+              f"{', '.join(DDP_HELD[model])}; the largest tensor-wise: "
+              f"{[v[1] for v in worst.values()]})", flush=True)
         if loss_err > DDP_RTOL[model] or bad:
             problems.append(f"(b) {model}: 2 ranks against 1 rank beyond the tolerance: losses "
                             f"{loss_err}, {bad}")
         errs[f"ddp {model}"] = worst["m"][0]
+    # PointBERT's queue: the pointer and the columns not yet written exact, with and
+    # without the keys' gather in the enqueue (the fault must be rejected)
+    for model, must_pass in (("pb", True), ("pbq", False)):
+        ptr, want_ptr = b[0][model]["ptr"], one["pb"]["ptr"]
+        q, want_q = b[0][model]["state"]["q"]["queue"], one["pb"]["state"]["q"]["queue"]
+        unwritten = torch.equal(q[:, want_ptr:], want_q[:, want_ptr:])
+        ok = ptr == b[1][model]["ptr"] == want_ptr and unwritten
+        worst = ddp_compare(model, b[0][model]["state"], one["pb"]["state"])
+        print(f"[ddp] (b) {model}: queue pointer {ptr} on rank 0, {b[1][model]['ptr']} on rank "
+              f"1 (one rank: {want_ptr}), the unwritten columns bit-equal {unwritten}, relative "
+              f"norm of the difference: {ddp_measures(worst)}; "
+              f"{'held' if ok else 'rejected'}{'' if must_pass else ' (the fault: must be rejected)'}",
+              flush=True)
+        if ok != must_pass:
+            problems.append(f"(b) {model}: the queue check {'rejects' if must_pass else 'passes'}")
     # the faults: the same check must reject each that changes the step
     for fault, must in DDP_FAULTS.items():
         worst = ddp_compare(fault, b[0][fault]["state"], one["ft"]["state"])
@@ -3671,55 +3999,88 @@ def _ddp(dev, kernel_events, tmp):
           f"order against one rank's: max |diff| {f_err} (tolerance {FEAT_ATOL})", flush=True)
     if f_err > FEAT_ATOL or not np.array_equal(b[0]["probe"]["feats"], b[1]["probe"]["feats"]):
         fail("ddp (b): the probe's gathered features differ")
+    # the held f32 steps' host times on each leg (each alone on the card), and the
+    # gradient all-reduce's
+    for model, tag, bs in (("ft", "finetune", 32), ("s2", "Stage-II", 128), ("s1", "Stage-I", 64),
+                           ("ps", "part-seg", SEG_PART_B), ("ss", "sem-seg", SEG_SEM_B),
+                           ("pb", "PointBERT", 128)):
+        for who, res, ranks in (("no group", one, 1), ("NCCL, 1 rank", a, 1),
+                                ("gloo rank 0", b[0], 2), ("gloo rank 1", b[1], 2)):
+            if model not in res:
+                continue
+            t = res[model]
+            med = statistics.median(t["step_ms"][1:])
+            share = ("" if t["reduce_ms"] is None else
+                     f"; the gradient all-reduce alone {t['reduce_ms']:.3f} ms host, "
+                     f"{t['reduce_ms'] / med:.3f} of a step")
+            print(f"[time] ddp {tag} f32 step, B={bs // ranks} a rank, {who}: host ms "
+                  f"{[round(x, 3) for x in t['step_ms']]}, median after the first "
+                  f"{med:.3f}{share}", flush=True)
+    print(f"[ddp] gradient all-reduce a step: finetune {b[0]['ft']['grad_mb']:.1f} MB, Stage II "
+          f"{b[0]['s2']['grad_mb']:.1f} MB, part seg {b[0]['ps']['grad_mb']:.1f} MB, sem seg "
+          f"{b[0]['ss']['grad_mb']:.1f} MB, PointBERT {b[0]['pb']['grad_mb']:.1f} MB of f32 (the "
+          f"trainable tensors)", flush=True)
+    print(f"[ddp] phase 38 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {}, errs, launches
+
+
+def ddp_runs(tmp: str) -> None:
+    """The ``run_net`` legs of phase 38 (``chip_smoke.py --ddp-runs TMP``),
+    checked and not timed, beside phase 37's tracing: finetune and Stage-II
+    ``run_net`` without a group, then the same in an NCCL group of this one
+    rank (leg (a)), then leg (c)'s Stage II stopped by the step hook and
+    resumed (``ddp_preempt_stage2``); writes the epoch losses to
+    ``runs.pt``. Exits non-zero if a run fails."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from act_tpu_torch.ops import _backend
+    dev = _backend.resolve_device("cuda")
+    _backend.build_kernels()
+    t0 = time.perf_counter()
+    out = {"one": ddp_run_nets(dev, tmp, "one")}
+    with one_nccl_rank():
+        out["a"] = ddp_run_nets(dev, tmp, "a")
+    ddp_preempt_stage2(dev, tmp)
+    torch.save(out, os.path.join(tmp, "runs.pt"))
+    print(f"[ddp] run_net legs (beside phase 37's tracing): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def ddp_run_net_check(tmp, side) -> None:
+    """Leg (a)'s ``run_net``s (finetune and Stage II over NCCL) bit-equal to
+    the same without a group (``ddp_runs``, in ``tmp``)."""
+    import torch
+    rc = side.get("runs")
+    if rc != 0:
+        fail(f"ddp: the run_net legs failed (exit {rc})")
+    runs = torch.load(os.path.join(tmp, "runs.pt"), weights_only=False)
+    a, one = runs["a"], runs["one"]
     # run_net with and without the group
     for model, tag in (("ft", "finetune"), ("s2", "Stage-II")):
         pa = torch.load(os.path.join(tmp, f"{model}-a", "ckpt-last.pth"), weights_only=True)
         po = torch.load(os.path.join(tmp, f"{model}-one", "ckpt-last.pth"), weights_only=True)
         same = all(torch.equal(t, po["base_model"][k]) for k, t in pa["base_model"].items())
-        same &= a["run_net"][f"{model}_loss"] == one["run_net"][f"{model}_loss"]
+        same &= a[f"{model}_loss"] == one[f"{model}_loss"]
         print(f"[ddp] (a) {tag} run_net over NCCL: {pa['step']} steps, epoch loss "
-              f"{a['run_net'][f'{model}_loss']}; weights and statistics bit-equal to the run "
+              f"{a[f'{model}_loss']}; weights and statistics bit-equal to the run "
               f"without a group: {same}", flush=True)
         if not same:
             fail(f"ddp (a) {tag} run_net differs from the run without a group")
-    # step times with and without the group
-    for model, tag in (("ft", "finetune B=32"), ("s2", "Stage-II B=128")):
-        for who, res in (("no group", one), ("NCCL, 1 rank", a), ("gloo rank 0", b[0]),
-                         ("gloo rank 1", b[1])):
-            t = res["time"][model]
-            dv = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.3f} ms"
-            ar = ("" if t["reduce_ms"] is None else
-                  f"; the gradient all-reduce alone {t['reduce_ms']:.3f} ms host")
-            print(f"[time] ddp {tag} step, {who}: host median {t['host_ms']:.3f} ms over "
-                  f"{DDP_TIMED} ({[round(x, 3) for x in t['host_all']]}), device busy {dv} "
-                  f"({t['kernels']} kernels); NCCL kernels {t['nccl'] or 'none'}{ar}",
-                  flush=True)
-        extra = {n: c - one["time"][model]["names"].get(n, 0)
-                 for n, c in a["time"][model]["names"].items()
-                 if c != one["time"][model]["names"].get(n, 0)}
-        print(f"[ddp] {tag} step: kernels whose count the NCCL group changes (name: "
-              f"extra launches): {extra}", flush=True)
-    print(f"[ddp] gradient all-reduce a step: finetune {b[0]['ft']['grad_mb']:.1f} MB, Stage II "
-          f"{b[0]['s2']['grad_mb']:.1f} MB of f32 (the trainable tensors)", flush=True)
-    # (c) preemption
-    ddp_preempt(dev, tmp, launches)
-    print(f"[ddp] phase 38 {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {}, errs, launches
 
 
-def ddp_preempt(dev, tmp, launches) -> None:
-    """Leg (c): the finetune CLI for one epoch (``--scratch_model``) stopped by
-    a real SIGTERM after step ``PREEMPT_AT`` (ckpt-last with the cursor,
-    ``[PREEMPT]``, exit 0) and ``--resume`` to the epoch's end; Stage-II
-    ``run_net`` stopped by the step hook (``GUARD.at_step``) and resumed.
-    Each ends bit-equal to the uninterrupted ``run_net`` of this process (the
-    CLI runs that same call: seed 0, one epoch, no pretrained weights)."""
-    import re
+def ddp_side_start(tmp, started):
+    """Start phase 38's checked, untimed work on a thread, in ``tmp`` (it
+    runs beside phase 37's tracing): the ``run_net`` legs (``ddp_runs``, a
+    process of their own), leg (c)'s finetune CLI for one epoch
+    (``--scratch_model``) stopped by a real SIGTERM after step
+    ``PREEMPT_AT`` and then ``--resume``d to the epoch's end, leg (d)'s
+    part-seg CLI under ``torch.distributed.run`` with 2 ranks on the card;
+    each process appended to ``started``. Returns {"thread", and once it
+    ends "cut", "rest" (each the CLI's exit code, output lines and seconds),
+    "seg" (the torchrun process's exit code, output and seconds), "runs"
+    (the run_net legs' exit code)}."""
     import signal
-
-    import torch
-    from act_tpu_torch.engine import runner_pretrain as rp
-    from act_tpu_torch.engine.preemption import GUARD
     cfg_dir = os.path.join(tmp, "cfgs", "full")
     os.makedirs(cfg_dir)
     with open(os.path.join(ROOT, CONFIG)) as f:
@@ -3728,7 +4089,10 @@ def ddp_preempt(dev, tmp, launches) -> None:
     yaml = os.path.join(cfg_dir, "finetune_modelnet.yaml")
     with open(yaml, "w") as f:
         f.write(text)
-    env = {**os.environ, "ACT_ROOT": ROOT}
+    wrapper = os.path.join(tmp, "seg_cli.py")
+    with open(wrapper, "w") as f:
+        f.write(SEG_CLI_WRAPPER)
+    env, side = {**os.environ, "ACT_ROOT": ROOT}, {}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
 
@@ -3739,43 +4103,46 @@ def ddp_preempt(dev, tmp, launches) -> None:
                                  DDP_CLI_DEVICE, *flags], cwd=tmp,
                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
+        started.append(proc)
         lines = []
         for line in proc.stdout:
             lines.append(line.rstrip())
             if line.startswith("[ddp] step"):
                 proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=600)
-        if rc != 0:
-            print("\n".join(lines[-40:]), flush=True)
-            fail(f"ddp (c) finetune CLI {exp} {flags}: exit {rc}")
-        return lines, time.perf_counter() - t0
+        return proc.wait(timeout=600), lines, time.perf_counter() - t0
 
-    exp_dir = os.path.join(tmp, "work_dirs", "finetune_modelnet", "full")
-    cut, s_cut = cli("cut", PREEMPT_AT)
-    pre = [ln for ln in cut if "[PREEMPT]" in ln]
-    saved = [ln for ln in cut if "Saved checkpoint" in ln]
-    last = torch.load(os.path.join(exp_dir, "cut", "ckpt-last.pth"), weights_only=True)
-    cursor = last.get("data_iter")
-    print(f"[ddp] (c) finetune CLI stopped by SIGTERM after step {PREEMPT_AT}: exit 0, "
-          f"{pre[-1] if pre else 'no [PREEMPT] line'}; cursor {cursor}; "
-          f"{saved[-1] if saved else 'no save'}; run {s_cut:.1f} s", flush=True)
-    if not pre or cursor != {"epoch": 0, "next_batch": PREEMPT_AT}:
-        fail("ddp (c): the finetune CLI did not stop with its cursor")
-    size = re.search(r"\(([0-9.]+) MiB, ([0-9.]+) s\)", saved[-1])
-    print(f"[time] ddp preemption save: {size.group(1)} MiB, {size.group(2)} s host "
-          f"(finetune ckpt-last with the cursor)", flush=True)
-    rest, s_rest = cli("cut", 0, "--resume")
-    if not any("resumed mid-epoch 0 at batch" in ln for ln in rest):
-        fail("ddp (c): --resume did not re-enter the interrupted epoch")
-    pw = torch.load(os.path.join(tmp, "ft-one", "ckpt-last.pth"), weights_only=True)
-    pr = torch.load(os.path.join(exp_dir, "cut", "ckpt-last.pth"), weights_only=True)
-    same = (pr["step"] == pw["step"] and "data_iter" not in pr and all(
-        torch.equal(t, pr["base_model"][k]) for k, t in pw["base_model"].items()))
-    print(f"[ddp] (c) finetune --resume: {pr['step']} steps, final weights and statistics "
-          f"bit-equal to the uninterrupted run: {same} ({s_rest:.1f} s)", flush=True)
-    if not same:
-        fail("ddp (c): the resumed finetune differs from the uninterrupted run")
-    # Stage II through the step hook, against the run without a group above
+    def run():
+        t0 = time.perf_counter()
+        runs = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-runs", tmp],
+                                cwd=ROOT, env=env)
+        started.append(runs)
+        seg = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+             wrapper, DDP_B[0], DDP_B[1], "--device", DDP_B[0],
+             "--steps", str(SEG_RUN_STEPS), "--epoch", "1", "--batch_size", str(SEG_PART_B),
+             "--npoint", str(SEG_NPOINT), "--root", "no_data", "--log_dir", "ddp",
+             "--num_workers", "0"], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        started.append(seg)
+        try:
+            side["cut"] = cli("cut", PREEMPT_AT)
+            side["rest"] = cli("cut", 0, "--resume")
+        finally:
+            out = seg.communicate(timeout=600)[0]
+            side["seg"] = (seg.returncode, out, time.perf_counter() - t0)
+            side["runs"] = runs.wait(timeout=600)
+    side["thread"] = threading.Thread(target=run, daemon=True)
+    side["thread"].start()
+    return side
+
+
+def ddp_preempt_stage2(dev, tmp) -> None:
+    """Leg (c)'s Stage II: ``run_net`` stopped by the step hook
+    (``GUARD.at_step``) after step ``PREEMPT_AT`` and resumed, bit-equal to the
+    uninterrupted ``run_net`` of this process."""
+    import torch
+    from act_tpu_torch.engine import runner_pretrain as rp
+    from act_tpu_torch.engine.preemption import GUARD
     path = os.path.join(tmp, "s2-cut")
     GUARD.reset()
     GUARD.at_step = PREEMPT_AT
@@ -3802,34 +4169,153 @@ def ddp_preempt(dev, tmp, launches) -> None:
         fail("ddp (c): the resumed Stage II differs from the uninterrupted run")
 
 
+def ddp_preempt_check(tmp, side) -> None:
+    """Leg (c)'s finetune CLI: the cut run exits 0 after a ``[PREEMPT]`` line
+    with ckpt-last holding its cursor; the ``--resume``d run re-enters the
+    epoch and ends bit-equal to the uninterrupted ``run_net`` of this process
+    (the CLI runs that same call: seed 0, one epoch, no pretrained weights)."""
+    import re
+
+    import torch
+    for key, flags in (("cut", ""), ("rest", " --resume")):
+        if key not in side:
+            fail(f"ddp (c): the finetune CLI{flags} did not run")
+        rc, lines, _ = side[key]
+        if rc != 0:
+            print("\n".join(lines[-40:]), flush=True)
+            fail(f"ddp (c) finetune CLI{flags}: exit {rc}")
+    (_, cut, s_cut), (_, rest, s_rest) = side["cut"], side["rest"]
+    exp_dir = os.path.join(tmp, "work_dirs", "finetune_modelnet", "full")
+    pre = [ln for ln in cut if "[PREEMPT]" in ln]
+    saved = [ln for ln in cut if "Saved checkpoint" in ln]
+    if not pre or not saved:
+        print("\n".join(cut[-40:]), flush=True)
+        fail("ddp (c): the finetune CLI did not stop with a [PREEMPT] save")
+    print(f"[ddp] (c) finetune CLI stopped by SIGTERM after step {PREEMPT_AT}: exit 0, "
+          f"{pre[-1]}; {saved[-1]}; run {s_cut:.1f} s", flush=True)
+    size = re.search(r"\(([0-9.]+) MiB, ([0-9.]+) s\)", saved[-1])
+    print(f"[time] ddp preemption save: {size.group(1)} MiB, {size.group(2)} s host (finetune "
+          f"ckpt-last with the cursor; contended: the CLI ran beside phase 37's tracing and "
+          f"the part-seg CLI)", flush=True)
+    if not any("resumed mid-epoch 0 at batch" in ln for ln in rest):
+        fail("ddp (c): --resume did not re-enter the interrupted epoch")
+    pw = torch.load(os.path.join(tmp, "ft-one", "ckpt-last.pth"), weights_only=True)
+    pr = torch.load(os.path.join(exp_dir, "cut", "ckpt-last.pth"), weights_only=True)
+    same = (pr["step"] == pw["step"] and "data_iter" not in pr and all(
+        torch.equal(t, pr["base_model"][k]) for k, t in pw["base_model"].items()))
+    print(f"[ddp] (c) finetune --resume: {pr['step']} steps, final weights and statistics "
+          f"bit-equal to the uninterrupted run: {same} ({s_rest:.1f} s)", flush=True)
+    if not same:
+        fail("ddp (c): the resumed finetune differs from the uninterrupted run")
+
+
+# runs ``act_tpu_torch.part_segmentation`` with argv[3:] in a process group of
+# device argv[1] and backend argv[2] made first (two ranks share the one card: NCCL
+# takes one rank a card, so they join over gloo)
+SEG_CLI_WRAPPER = r"""
+import os, sys
+sys.path.insert(0, os.environ["ACT_ROOT"])
+from act_tpu_torch import parallel
+parallel.initialize_distributed(sys.argv[1], backend=sys.argv[2])
+from act_tpu_torch import part_segmentation
+part_segmentation.main(sys.argv[3:])
+"""
+
+
+def ddp_seg_cli_check(tmp, side) -> None:
+    """Leg (d): the part-seg CLI under ``torch.distributed.run`` with 2 ranks
+    on the card (``--steps SEG_RUN_STEPS``: as many steps of the global B=16
+    and evaluation batches) wrote exactly one ckpt-best and one log; the
+    whole-scene CLI with torchrun's ``WORLD_SIZE`` of 2 raises before it
+    loads anything."""
+    import torch
+    from act_tpu_torch import semantic_segmentation_test
+    if "seg" not in side:
+        fail("ddp (d): the part-seg CLI did not run")
+    rc, out, secs = side["seg"]
+    exp = os.path.join(tmp, "work_dirs", "part_seg", "ddp")
+    files = sorted(os.listdir(exp)) if os.path.isdir(exp) else []
+    print(f"[ddp] (d) part-seg CLI under torch.distributed.run, 2 ranks on one card over "
+          f"{DDP_B[1]}: exit {rc}, {secs:.1f} s (beside phase 37's tracing); "
+          f"its directory holds {files}", flush=True)
+    if rc != 0 or files != ["ckpt-best.pth", "train.log"]:
+        print(out[-3000:], flush=True)
+        fail("ddp (d): the 2-rank part-seg CLI did not write exactly one ckpt-best and one log")
+    steps = torch.load(os.path.join(exp, "ckpt-best.pth"), weights_only=True)["step"]
+    if steps != SEG_RUN_STEPS:
+        fail(f"ddp (d): the part-seg CLI's ckpt-best is at step {steps}, not {SEG_RUN_STEPS}")
+    os.environ["WORLD_SIZE"] = "2"
+    try:
+        semantic_segmentation_test.main(["--root", os.path.join(tmp, "no_data")])
+        said = None
+    except RuntimeError as e:
+        said = str(e)
+    finally:
+        del os.environ["WORLD_SIZE"]
+    print(f"[ddp] (d) whole-scene CLI with WORLD_SIZE 2: raises {said!r}", flush=True)
+    if said != semantic_segmentation_test.WHOLE_SCENE_RANKS:
+        fail("ddp (d): the whole-scene CLI did not refuse 2 ranks")
+
+
 # the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
 # where the profiler's windows are whole
 CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
                 "--export": "export", "--ddp": "ddp"}
 
 
-def in_child(flag, timeout=600):
-    """The phases of ``flag`` in a child process (``chip_smoke.py FLAG OUT``):
-    late windows of a long process come back incomplete, and heavy windows
-    would cost the later phases theirs. The child loads the kernels this
-    process built and writes its timing rows, errors and launch counts to
-    OUT; returns them."""
+def stop_processes(procs) -> None:
+    """Stop each process of ``procs`` still running (SIGTERM, which
+    ``torch.distributed.run`` passes to its ranks, then SIGKILL after 30 s)."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def start_child(flag, env=None):
+    """Start the phases of ``flag`` in a child process (``chip_smoke.py FLAG
+    OUT``, with ``env`` added to the environment): late windows of a long
+    process come back incomplete, and heavy windows would cost the later
+    phases theirs. The child loads the kernels this process built and writes
+    its timing rows, errors and launch counts to OUT. Returns what
+    ``finish_child`` takes."""
     import tempfile
     import torch
     torch.cuda.empty_cache()
     sys.stdout.flush()
     fd, out = tempfile.mkstemp(prefix="chip_smoke_child_", suffix=".json")
     os.close(fd)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, out], cwd=ROOT,
+                            env={**os.environ, **(env or {})})
+    return proc, flag, out
+
+
+def finish_child(started, timeout=600):
+    """Wait for a child of ``start_child``; fails if it fails or outlasts
+    ``timeout`` s. Returns its timing rows, errors and launches."""
+    proc, flag, out = started
     try:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, out],
-                              cwd=ROOT, timeout=timeout)
-        if proc.returncode != 0:
-            fail(f"the {CHILD_PHASES[flag]} phases failed (exit {proc.returncode})")
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            stop_processes([proc])
+            fail(f"the {CHILD_PHASES[flag]} phases did not end within {timeout} s")
+        if rc != 0:
+            fail(f"the {CHILD_PHASES[flag]} phases failed (exit {rc})")
         with open(out) as f:
             got = json.load(f)
     finally:
         os.remove(out)
     return got["rows"], got["errs"], got["launches"]
+
+
+def in_child(flag, timeout=600, env=None):
+    """The phases of ``flag`` in a child process, waited for."""
+    return finish_child(start_child(flag, env), timeout)
 
 
 def child(flag: str, out: str) -> None:
@@ -3851,6 +4337,9 @@ def child(flag: str, out: str) -> None:
 
 def main() -> None:
     t_start = time.perf_counter()
+    import tempfile
+
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -4074,42 +4563,92 @@ def main() -> None:
     # -- 19. the trainers' new launch shapes, timed while the profiler's windows
     # are still whole (late windows of a process have come back incomplete)
     chain_rows, c_errs = chain_shapes(dev, measure)
+    print(f"[time] phases 1-5, 19 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(c_errs)
     # -- 25-28. part and semantic segmentation, also while windows are whole ---------
     seg_rows, seg_errs, seg_launches = segmentation(dev, device_ms, kernel_events, measure)
+    print(f"[time] phases 25-28 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(seg_errs)
 
     # -- 6-10. Stage-II pretraining ----------------------------------------------
     stage2, s2_errs, s2_launches = stage_two(dev, device_ms, kernel_events, measure)
+    print(f"[time] phases 6-10 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(s2_errs)
     # -- 11-14. Stage-I autoencoder training and its metrics ------------------------
     stage1, s1_errs, s1_launches, val_launches = stage_one(dev, device_ms, kernel_events,
                                                            measure)
+    print(f"[time] phases 11-14 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(s1_errs)
     # -- 15-18. classification finetune, validation and the vote ------------------
     ft_rows, ft_errs, ft_launches = finetune(dev, device_ms, kernel_events, measure)
+    print(f"[time] phases 15-18 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(ft_errs)
     # -- 20-24. the Stage-I -> Stage-II -> finetune chain and the loader ---------
     chain_runs, chain_errs = chain(dev)
+    print(f"[time] phases 20-24 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(chain_errs)
     # -- 29-32. ACT_PointBERT, in a process of its own (its profiler windows whole)
     pb_rows, pb_errs, pb_launches = in_child("--pointbert")
+    print(f"[time] phases 29-32 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(pb_errs)
     # -- 33-35. the dVAE tokenizer served, the CLIP and BERT teachers, a process of their own
     tk_rows, tk_errs, tk_launches = in_child("--tokenizer")
+    print(f"[time] phases 33-35 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(tk_errs)
-    # -- 36. t-SNE, and 37. the exported artifacts, each in a process of its own
-    ts_rows, ts_errs, ts_launches = in_child("--tsne")
+    # -- 36. t-SNE, in a process of its own, alone
+    ref = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tsne_ref_"), "feats.npz")
+    ts_rows, ts_errs, ts_launches = in_child("--tsne", env={TSNE_REF_ENV: ref})
+    ref_data = dict(np.load(ref))
+    shutil.rmtree(os.path.dirname(ref), ignore_errors=True)
+    print(f"[time] phase 36 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(ts_errs)
-    ex_rows, ex_errs, ex_launches = in_child("--export", timeout=1000)
-    errs.update(ex_errs)
-    # -- 38. data parallelism over ranks and preemption, in a process of its own
-    _, ddp_errs, ddp_launches = in_child("--ddp")
+    # -- 37. the exported artifacts, in a process of its own. Beside its tracing run
+    # what is checked and not timed: phase 36's CPU t-SNE reference on a thread here,
+    # phase 38's CLIs (legs (c) and (d)) and its run_net legs (``ddp_runs``); its
+    # timed requests wait for them to end
+    ddp_dir, side_procs = tempfile.mkdtemp(prefix="chip_smoke_ddp_"), []
+    try:
+        tsne_ref = {}
+        tsne_thread = threading.Thread(target=lambda: tsne_ref.update(
+            done=tsne_cpu_check(ref_data["feats"], float(ref_data["kl"])) or True), daemon=True)
+        tsne_thread.start()
+        side = ddp_side_start(ddp_dir, side_procs)
+        # phase 38's process starts now: it starts leg (b)'s ranks, and all wait for
+        # phase 37's end before their timed steps
+        ddp_child = start_child("--ddp", env={DDP_TMP_ENV: ddp_dir})
+        side_procs.append(ddp_child[0])
+        quiet = os.path.join(ddp_dir, "quiet")
+
+        def when_quiet():  # the side work has ended and leg (b)'s ranks wait, started
+            tsne_thread.join()
+            side["thread"].join()
+            ready = [os.path.join(ddp_dir, f"ready-b-{r}") for r in (0, 1)]
+            while ddp_child[0].poll() is None and not all(map(os.path.exists, ready)):
+                time.sleep(0.2)
+            open(quiet, "w").close()
+        threading.Thread(target=when_quiet, daemon=True).start()
+        ex_rows, ex_errs, ex_launches = in_child("--export", timeout=1000,
+                                                 env={QUIET_ENV: quiet})
+        print(f"[time] phase 37 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        errs.update(ex_errs)
+        if not tsne_ref.get("done"):
+            fail("phase 36's CPU t-SNE reference failed")
+        # -- 38. data parallelism over ranks and preemption
+        open(os.path.join(ddp_dir, "go"), "w").close()
+        _, ddp_errs, ddp_launches = finish_child(ddp_child, timeout=900)
+        ddp_run_net_check(ddp_dir, side)
+        ddp_preempt_check(ddp_dir, side)
+        ddp_seg_cli_check(ddp_dir, side)
+    finally:
+        stop_processes(side_procs)
+        shutil.rmtree(ddp_dir, ignore_errors=True)
+    print(f"[time] phase 38 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(ddp_errs)
     # kernel -> (its path, the path's timing rows, the launches of its run)
     paths = {k: ("pretrain", stage2, s2_launches) for k in STAGE2_PER_STEP}
     paths.update({k: ("autoencoder", stage1, s1_launches) for k in ("chamfer_nn", "chamfer_bwd")})
     paths["chamfer_nn_min"] = ("validate (a unit is one cloud)", stage1, val_launches)
+    paths["row_gather_bwd"] = ("autoencoder", stage1, s1_launches)
 
     def row_entry(name, kernel, replaces):
         """One kernel's record: launches of its path's run, times summed over
@@ -4172,6 +4711,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--artifacts"]:
         artifacts_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--ddp-rank"]:
-        ddp_rank(sys.argv[2], sys.argv[3])
+        ddp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--ddp-runs"]:
+        ddp_runs(sys.argv[2])
     else:
         main()

@@ -602,7 +602,8 @@ def test_small_autoencoder_steps_card_matches_cpu(cuda):
     _backend.reset_launches()
     card = run_autoencoder_steps(cfg, 2, device=cuda, start_itr=60000)
     assert _backend.LAUNCHES == {**{k: 0 for k in _backend.KERNELS}, "fps": 2, "k_smallest": 6,
-                                 "gather": 4, "chamfer_nn": 4, "chamfer_bwd": 4}
+                                 "gather": 4, "chamfer_nn": 4, "chamfer_bwd": 4,
+                                 "row_gather_bwd": 16}
     cpu = run_autoencoder_steps(cfg, 2, device="cpu", start_itr=60000)
     assert all(np.isfinite(card.losses)) and all(np.isfinite(cpu.losses))
     a, b = card.model.state_dict(), cpu.model.state_dict()
@@ -811,11 +812,12 @@ def test_fps_kernel_segmentation_shape(cuda, B):
 
 def test_three_nn_interpolate_kernel_path_matches_plain(cuda):
     """At the part-seg shapes (16 clouds of 2048 points, 128 FPS centers,
-    1152 features): the kernel path launches the k-smallest kernel once and
-    gives the plain path's values bit for bit (the same indices, the same
-    gathers); the gradients to both coordinate arguments and the features
-    within 1e-5 of each one's largest (the gathers' backward adds by atomics,
-    in a changing order, ~50 f32 terms a center and cloud)."""
+    1152 features): the kernel path launches the k-smallest kernel once in
+    its forward and the row-gather backward three times in its backward, and
+    gives the plain path's values and feature gradients bit for bit (the same
+    indices, the same gathers, the same ascending sums); the gradients to both
+    coordinate arguments within 1e-5 of each one's largest (the coordinate
+    gathers' backward adds by atomics, in a changing order)."""
     _, _, pts, centers = seg_distances(16, 2048, 128, cuda)
     feats = cloud(90, 16, 128, 1152, device=cuda)
     g = cloud(91, 16, 2048, 1152, device=cuda)
@@ -826,12 +828,16 @@ def test_three_nn_interpolate_kernel_path_matches_plain(cuda):
         out = (ops.three_nn_interpolate_ref if plain else ops.three_nn_interpolate)(u, k, f)
         launches = dict(_backend.LAUNCHES)
         out.backward(g)
-        return out.detach(), [t.grad for t in (u, k, f)], launches
-    out_k, grads_k, launches = run(False)
-    out_p, grads_p, plain_launches = run(True)
+        torch.cuda.synchronize()
+        return (out.detach(), [t.grad for t in (u, k, f)], launches,
+                _backend.LAUNCHES["row_gather_bwd"])
+    out_k, grads_k, launches, bwd = run(False)
+    out_p, grads_p, plain_launches, plain_bwd = run(True)
     assert launches == {**{k: 0 for k in _backend.KERNELS}, "k_smallest": 1}
+    assert bwd == 3 and plain_bwd == 0
     assert not any(plain_launches.values())
     assert torch.equal(out_k, out_p)
+    assert torch.equal(grads_k[2], grads_p[2])
     for a, b in zip(grads_k, grads_p):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
@@ -1039,3 +1045,176 @@ def test_nccl_one_rank_all_reduce_and_global_batchnorm(cuda):
                                                         bn.bias), rtol=0, atol=0)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the row-gather backward (csrc/rows.cu): a fixed order of sums
+# ---------------------------------------------------------------------------
+
+def dgcnn_rows(B, G, k, device):
+    """The DGCNN's (B, G * k) neighbour indices of FPS-free random centers."""
+    c = cloud(95 + G, B, G, 3, device=device)
+    return ops.graph_feature_idx(c, c, k).reshape(B, G * k)
+
+
+ROW_SHAPES = {  # name -> (B, M, S, C): the Stage-I DGCNN's four rounds, one 3-NN gather
+    **{f"dgcnn C={C}": (64, 256, 64, C) for C in (128, 256, 512)},
+    "3-NN": (16, 2048, 128, 1152)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ROW_SHAPES))
+def test_row_gather_bwd_kernel_matches_plain(cuda, name, dtype):
+    """At the Stage-I DGCNN's and part seg's 3-NN shapes, in f32 and bf16:
+    the kernel bit-equal to its plain version on the card and on the CPU,
+    and to itself across two launches (the first lists the sources of a
+    shared ``ops.row_index``, the second reads that list) and at a fresh
+    index; each launch counted."""
+    B, M, S, C = ROW_SHAPES[name]
+    if name == "3-NN":
+        _, _, pts, centers = seg_distances(B, M, S, cuda)
+        idx = ops.knn(centers, pts, 3)[1][:, :, 1].contiguous()
+    else:
+        idx = dgcnn_rows(B, S, M // S, cuda)
+    grad = cloud(96, B, M, C, device=cuda).to(dtype)
+    _backend.reset_launches()
+    shared = ops.row_index(idx, S)
+    got = ops.gather_rows_bwd(grad, shared)
+    again = ops.gather_rows_bwd(grad, shared)
+    fresh = ops.gather_rows_bwd(grad, ops.row_index(idx, S))
+    torch.cuda.synchronize()
+    assert _backend.LAUNCHES["row_gather_bwd"] == 3
+    want = ops.gather_rows_bwd_ref(grad, idx, S)
+    assert got.dtype == dtype and got.shape == (B, S, C)
+    assert torch.equal(got, want) and torch.equal(got, again) and torch.equal(got, fresh)
+    assert torch.equal(got.cpu(), ops.gather_rows_bwd_ref(grad.cpu(), idx.cpu(), S))
+
+
+@pytest.mark.parametrize("case", ["one row", "out of range", "no sources", "ragged C",
+                                  "signed zeros, nan, mixed magnitudes", "one cloud",
+                                  "2000 rows"])
+def test_row_gather_bwd_kernel_hard_cases(cuda, case):
+    """Every source on one row; indices past the end and below 0 (they add
+    nothing); M = 0 (zeros); C = 37 and 1; -0, NaN and magnitudes 1e-30 to
+    1e30; B = 1 with S = 8192 (one warp lists the sources); S = 2000 (six
+    warps): bit-equal to the plain version on the card, signs of zeros
+    included, and across two launches at one index."""
+    gen = torch.Generator().manual_seed(7)
+    B, M, S, C = 4, 300, 50, 64
+    if case == "ragged C":
+        C = 37
+    if case == "no sources":
+        M = 0
+    if case == "one cloud":
+        B, M, S, C = 1, 5000, 8192, 1
+    if case == "2000 rows":
+        B, M, S, C = 2, 3000, 2000, 16
+    idx = torch.randint(0, S, (B, M), generator=gen, dtype=torch.int32)
+    grad = torch.randn(B, M, C, generator=gen)
+    if case == "one row":
+        idx.fill_(3)
+    elif case == "out of range":
+        idx[0, :40], idx[1, 40:80] = S, -1
+    elif case == "signed zeros, nan, mixed magnitudes":
+        grad = grad * 10.0 ** torch.randint(-30, 31, grad.shape, generator=gen).float()
+        grad[:, ::3] = -0.0
+        grad[2, 5, 7] = float("nan")
+    for dtype in (torch.float32, torch.bfloat16):
+        g, i = grad.to(dtype).to(cuda), idx.to(cuda)
+        shared = ops.row_index(i, S)
+        got, want = ops.gather_rows_bwd(g, shared), ops.gather_rows_bwd_ref(g, i, S)
+        assert torch.equal(ops.gather_rows_bwd(g, shared).isnan(), got.isnan()), (case, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan()), (case, dtype)
+        got, want = torch.nan_to_num(got.float()), torch.nan_to_num(want.float())
+        assert torch.equal(got, want) and torch.equal(got.signbit(), want.signbit()), (case, dtype)
+
+
+def test_dgcnn_rounds_share_one_listing_and_match_plain(cuda):
+    """A full-width DGCNN (B=8, G=64) forward + backward on the card: its four
+    rounds make one ``ops.row_index``, whose sources the first of the four
+    backward launches lists and the other three read; the input's gradient
+    bit-equal to the plain version's (``ops.gather_rows_ref``)."""
+    from act_tpu_torch.models.common import DGCNN, init_weights
+    net = DGCNN(128, 256)
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(cuda)
+    f0, coor = cloud(98, 8, 64, 128, device=cuda), cloud(99, 8, 64, 3, device=cuda)
+    made, row_index = [], ops.row_index
+
+    def spy(idx, rows):
+        made.append(row_index(idx, rows))
+        return made[-1]
+
+    def grad(**patch):
+        f = f0.clone().requires_grad_()
+        old = {k: getattr(ops, k) for k in patch}
+        for k, v in patch.items():
+            setattr(ops, k, v)
+        try:
+            net(f, coor).square().sum().backward()
+        finally:
+            for k, v in old.items():
+                setattr(ops, k, v)
+        torch.cuda.synchronize()
+        return f.grad
+    _backend.reset_launches()
+    got = grad(row_index=spy)
+    assert _backend.LAUNCHES["row_gather_bwd"] == 4
+    assert len(made) == 1 and made[0].csr is not None
+    assert torch.isfinite(got).all() and torch.equal(got, grad(gather_rows=ops.gather_rows_ref))
+
+
+def test_row_gather_bwd_kernel_rejects_wrong_inputs(cuda):
+    grad = torch.zeros(2, 6, 4, device=cuda)
+    idx = torch.zeros(2, 6, dtype=torch.int32, device=cuda)
+    for bad in (lambda: ops.gather_rows_bwd(grad.half(), ops.RowIndex(idx, 3)),
+                lambda: ops.gather_rows_bwd(grad, ops.RowIndex(idx.long(), 3)),
+                lambda: ops.gather_rows_bwd(grad, ops.RowIndex(idx[:, :5], 3)),
+                lambda: ops.gather_rows_bwd(grad, ops.RowIndex(idx, 9000)),
+                lambda: ops.gather_rows_bwd(grad.transpose(1, 2).contiguous().transpose(1, 2),
+                                            ops.RowIndex(idx, 3))):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_small_stage1_and_partseg_steps_repeat_bit_for_bit(cuda):
+    """Two f32 steps of a small Stage-I dVAE and of a small part-seg model,
+    each run twice from the same seed on the card: every weight, BatchNorm
+    statistic and Adam moment bit-equal (the DGCNN's and the 3-NN blend's
+    gathers add their gradients in a fixed order)."""
+    from act_tpu_torch.engine.runner_autoencoder import run_autoencoder_steps
+    from act_tpu_torch.engine.runner_segmentation import build_seg_state
+    from act_tpu_torch.engine.train_state import seg_step, step_rngs
+    cfg = ConfigDict(dict(
+        optimizer=dict(type="AdamW", kwargs=dict(lr=5e-4, weight_decay=5e-4)),
+        scheduler=dict(type="CosLR", kwargs=dict(epochs=300, initial_epochs=10)),
+        dataset=dict(train=dict(others=dict(npoints=256))), total_bs=4, grad_norm_clip=10,
+        temp=dict(start=1, target=0.0625, ntime=100000),
+        kldweight=dict(start=0, target=0.1, ntime=100000),
+        model=dict(NAME="ACTPromptedDiscreteVAEwithVIT", group_size=8, num_group=16,
+                   encoder_dims=32, num_tokens=64, tokens_dims=32, decoder_dims=32,
+                   visual_embed_dim=48, visual_embed_depth=2, visual_embed_heads=4,
+                   num_prompt_token=4, use_deep_prompt=True, freeze_visual_embed=True)))
+
+    def state(model, opt):
+        return ([t.detach().clone() for t in model.state_dict().values()]
+                + [v.clone() for st in opt.state.values() for v in st.values()
+                   if torch.is_tensor(v)])
+
+    def stage1():
+        run = run_autoencoder_steps(cfg, 2, device=cuda, start_itr=60000)
+        return state(run.model, run.optimizer)
+
+    def partseg():
+        st = build_seg_state("partseg", 10, num_group=16, dtype="f32", device=cuda)
+        pts = cloud(97, 4, 512, 3, device=cuda)
+        seg = torch.randint(0, 50, (4, 512), generator=torch.Generator().manual_seed(2))
+        oh = torch.eye(16)[[0, 3, 7, 15]]
+        for i in range(2):
+            seg_step(st.model, st.optimizer, st.schedule, pts, seg.to(cuda), i,
+                     step_rngs(0, i, cuda), oh.to(cuda))
+        return state(st.model, st.optimizer)
+    for fn in (stage1, partseg):
+        a, b = fn(), fn()
+        assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), fn.__name__

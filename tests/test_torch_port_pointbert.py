@@ -171,17 +171,13 @@ def flat_np(tree):
     return jckpt.flatten_keys(jax.tree_util.tree_map(np.asarray, tree))
 
 
-def test_one_train_step_matches_make_pretrain_step(bert):
-    """The step's loss, q's gradients and AdamW deltas, the EMA'd k, the
-    running statistics of q (two passes), k and the tokenizer, the queue and
-    its pointer, and the frozen tensors (the tolerances of the module
-    docstring)."""
-    pts, cfg, v = bert
-    m = float(cfg.m)
+def jax_bert_grads(pts, cfg, v):
+    """JAX's f32 train-mode loss of ACT_PointBERT on ``pts`` from the
+    variables ``v`` and its gradients: (the loss, the sown (masks, mixup
+    draws), the gradients)."""
     jm = JBERT(cfg)
-    params, stats, bufs = v["params"], v["batch_stats"], v["buffers"]
-    base = jax.random.PRNGKey(7)
-    rngs = jax_step_rngs(base, jnp.int32(0))
+    stats, bufs = v["batch_stats"], v["buffers"]
+    rngs = jax_step_rngs(jax.random.PRNGKey(7), jnp.int32(0))
     rngs.pop("augment")
 
     def loss_fn(p):
@@ -189,15 +185,35 @@ def test_one_train_step_matches_make_pretrain_step(bert):
                             jnp.asarray(pts), train=True, rngs=rngs,
                             mutable=["batch_stats", "buffers", "intermediates"])
         return sum(out), new
-    (j_loss, inter), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    masks, mixup = sown_pins(inter["intermediates"])
-    tcfg = train_cfg(cfg)
+    (j_loss, inter), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    return j_loss, sown_pins(inter["intermediates"]), j_grads
+
+
+def jax_bert_state(pts, cfg, v):
+    """JAX's f32 train step of ACT_PointBERT on ``pts`` from the variables
+    ``v`` (``make_pretrain_step(loss_is_tuple=True, ema_momentum=m)``, the
+    tokenizer and k frozen): (the state after it, the step's loss)."""
+    params = v["params"]
     trainable = jbuilder.freeze_mask_from_paths(params, ["dvae", "transformer_k"])
-    tx, _ = jbuilder.build_optimizer(tcfg, params, 4, trainable)
-    step = make_pretrain_step(jm, transform_fn=None, loss_is_tuple=True, ema_momentum=m,
-                              trainable_mask=trainable)
-    j_state, metrics = step(TrainState.create(v, tx), jnp.asarray(pts), base)
-    assert float(metrics["loss"]) == float(j_loss)
+    tx, _ = jbuilder.build_optimizer(train_cfg(cfg), params, 4, trainable)
+    step = make_pretrain_step(JBERT(cfg), transform_fn=None, loss_is_tuple=True,
+                              ema_momentum=float(cfg.m), trainable_mask=trainable)
+    j_state, metrics = step(TrainState.create(v, tx), jnp.asarray(pts), jax.random.PRNGKey(7))
+    return j_state, float(metrics["loss"])
+
+
+def test_one_train_step_matches_make_pretrain_step(bert):
+    """The step's loss, q's gradients and AdamW deltas, the EMA'd k, the
+    running statistics of q (two passes), k and the tokenizer, the queue and
+    its pointer, and the frozen tensors (the tolerances of the module
+    docstring)."""
+    pts, cfg, v = bert
+    m = float(cfg.m)
+    params, stats = v["params"], v["batch_stats"]
+    j_loss, (masks, mixup), j_grads = jax_bert_grads(pts, cfg, v)
+    j_state, step_loss = jax_bert_state(pts, cfg, v)
+    assert step_loss == float(j_loss)
+    tcfg = train_cfg(cfg)
 
     model = port_bert(cfg, v)
     runner.freeze_tokenizer(model, ConfigDict(dict(model=dict(cfg, frozen_bf16=False))))
@@ -214,8 +230,19 @@ def test_one_train_step_matches_make_pretrain_step(bert):
                          ema_momentum=m)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=0, atol=ATOL)
 
+    check_bert_step({n: p.grad for n, p in model.named_parameters() if p.requires_grad},
+                    before, model.state_dict(), schedule(0), v, j_grads, j_state, m)
+
+
+def check_bert_step(grads, before, after, lr, v, j_grads, j_state, m):
+    """A port ACT_PointBERT step (q's ``grads``, the state dict ``before`` and
+    ``after`` it, at ``lr``) against JAX's from the variables ``v``: q's
+    gradients and AdamW deltas, the EMA'd k, the running statistics, the
+    queue and its pointer, the frozen tokenizer (the tolerances of the module
+    docstring)."""
+    params, stats = v["params"], v["batch_stats"]
     # q's gradients
-    got_g, _ = to_flax({n: p.grad for n, p in model.named_parameters() if p.requires_grad})
+    got_g, _ = to_flax(grads)
     want_g = {k: g for k, g in flat_np(j_grads).items() if k.startswith("transformer_q.")}
     assert sorted(got_g) == sorted(want_g)
     g_max = max(np.abs(g).max() for g in want_g.values())
@@ -227,8 +254,6 @@ def test_one_train_step_matches_make_pretrain_step(bert):
                                        atol=1e-4 * np.abs(want_g[k]).max(), err_msg=k)
 
     # AdamW deltas of q, the EMA of k
-    after = model.state_dict()
-    lr = schedule(0)
     old_p, new_p = flat_np(params), flat_np(j_state.params)
     deltas, _ = to_flax({k: after[k] - before[k] for k in after
                          if k.startswith("transformer_q.") and "running" not in k
