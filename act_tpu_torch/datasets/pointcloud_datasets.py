@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import time
 
 import numpy as np
 
@@ -36,8 +37,9 @@ def shuffle_rows(rng: np.random.Generator, pts: np.ndarray) -> np.ndarray:
 
 
 def farthest_point_sample_np(point: np.ndarray, npoint: int) -> np.ndarray:
-    """Host FPS of one (N, D) cloud on its first three columns, from index 0,
-    for the offline ModelNet cache (reference ModelNetDataset.py:29-50)."""
+    """Host FPS of one (N, D) cloud on its first three columns, from index 0
+    (reference ModelNetDataset.py:29-50): the plain loop that the tests hold
+    the cache's picks to. The cache itself goes through :func:`fps_cache`."""
     xyz = point[:, :3]
     centroids = np.zeros((npoint,), dtype=np.int64)
     distance = np.full((point.shape[0],), np.inf)
@@ -48,6 +50,38 @@ def farthest_point_sample_np(point: np.ndarray, npoint: int) -> np.ndarray:
         distance = np.minimum(distance, dist)
         farthest = int(np.argmax(distance))
     return point[centroids]
+
+
+CACHE_BATCH = 64  # clouds of one FPS launch while the ModelNet cache is built
+
+
+def fps_cache(paths, npoints: int, device="cuda", batch: int = CACHE_BATCH):
+    """The offline FPS cache's clouds: each ``.txt`` of ``paths`` parsed as
+    the JAX dataset parses it (``np.loadtxt(path, delimiter=',')`` in f64,
+    then f32), and its ``npoints`` rows at the FPS picks on the first three
+    columns (``native.fps`` on ``device``: the card's FPS kernel, one launch
+    for up to ``batch`` clouds of one point count, in file order). Returns
+    (the (npoints, C) f32 clouds in file order, the parse's host seconds,
+    the FPS's host seconds with the transfers). The parse runs in this
+    process: ``np.loadtxt`` holds the interpreter lock, so threads do not
+    help, and forked parsers of a multi-threaded trainer (or test) process
+    can deadlock."""
+    from act_tpu_torch import native  # torch, only when a cache is built
+    out, parse_s, fps_s = [], 0.0, 0.0
+    for lo in range(0, len(paths), batch):
+        t0 = time.perf_counter()
+        clouds = [np.loadtxt(p, delimiter=",").astype(np.float32) for p in paths[lo:lo + batch]]
+        parse_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        picked = [None] * len(clouds)
+        for shape in dict.fromkeys(c.shape for c in clouds):
+            members = [i for i, c in enumerate(clouds) if c.shape == shape]
+            idx = native.fps(np.stack([clouds[i][:, :3] for i in members]), npoints, device)
+            for i, ix in zip(members, idx):
+                picked[i] = clouds[i][ix]
+        fps_s += time.perf_counter() - t0
+        out += picked
+    return out, parse_s, fps_s
 
 
 class _SyntheticMixin:
@@ -150,6 +184,20 @@ class ShapeNetImagePoint(ShapeNet):
 
 @DATASETS.register_module()
 class ModelNet(_SyntheticMixin):
+    """ModelNet40 clouds from ``modelnet40_normal_resampled``
+    (``{DATA_PATH}/modelnet40_{subset}.txt``), ``N_POINTS`` of each taken by
+    FPS once and kept in the offline cache
+    ``modelnet{NUM_CATEGORY}_{subset}_{N_POINTS}pts_fps.dat`` beside them: the
+    JAX dataset's file (``pointcloud_datasets.py:211-228``), which either
+    package reads and writes, ``pickle.dump((points, labels))`` of (N_POINTS,
+    6) f32 clouds and (1,) int32 labels in file order. Without it the cache
+    is built here by :func:`fps_cache` on ``FPS_DEVICE`` (the card unless the
+    node says "cpu"; ``builder.dataset_builder`` sets it from the trainer's
+    device), before any loader worker forks. An item is the cloud's xyz (and
+    normals with ``USE_NORMALS``), normalised into the unit sphere, its rows
+    shuffled for ``subset: train``. Without ``DATA_PATH``: the synthetic
+    clouds."""
+
     def __init__(self, config):
         self.root = config.DATA_PATH
         self.npoints = config.N_POINTS
@@ -169,20 +217,29 @@ class ModelNet(_SyntheticMixin):
         shape_names = ["_".join(x.split("_")[0:-1]) for x in shape_ids]
         datapath = [(n, os.path.join(self.root, n, i) + ".txt")
                     for n, i in zip(shape_names, shape_ids)]
-        # offline FPS cache (reference ModelNetDataset.py:86-116)
+        # offline FPS cache (reference ModelNetDataset.py:86-116), the JAX dataset's file
         cache = os.path.join(self.root, f"modelnet{self.num_category}_{self.subset}_"
                                         f"{self.npoints}pts_fps.dat")
         if os.path.exists(cache):
             with open(cache, "rb") as f:
                 self.list_of_points, self.list_of_labels = pickle.load(f)
             return
-        self.list_of_points, self.list_of_labels = [], []
-        for name, path in datapath:
-            point_set = np.loadtxt(path, delimiter=",").astype(np.float32)
-            self.list_of_points.append(farthest_point_sample_np(point_set, self.npoints))
-            self.list_of_labels.append(np.array([classes[name]]).astype(np.int32))
-        with open(cache, "wb") as f:
+        device = config.get("FPS_DEVICE", "cuda")
+        self.list_of_points, parse_s, fps_s = fps_cache([p for _, p in datapath],
+                                                        self.npoints, device)
+        self.list_of_labels = [np.array([classes[n]]).astype(np.int32) for n, _ in datapath]
+        n = len(datapath)
+        self.cache_seconds = {"clouds": n, "parse": parse_s, "fps": fps_s}
+        print(f"[DATASET] ModelNet {self.subset}: cached {n} clouds at {self.npoints} points "
+              f"to {cache}: parse {parse_s:.2f} s ({n / max(parse_s, 1e-9):.1f} clouds/s), "
+              f"FPS on {device} {fps_s:.2f} s ({n / max(fps_s, 1e-9):.1f} clouds/s)",
+              flush=True)
+        # a temporary file of this process, then one rename: ranks that all found no
+        # cache each write a whole one, and a reader never sees a partial file
+        tmp = f"{cache}.tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
             pickle.dump((self.list_of_points, self.list_of_labels), f)
+        os.replace(tmp, cache)
 
     def __len__(self):
         return len(self.list_of_labels)

@@ -7,12 +7,22 @@ freezing of ``act_tpu/engine/runner_autoencoder.py:130-143`` for each teacher ar
 - weight decay on every trainable parameter except 1-D ones and those whose
   name holds 'bias' or 'token' (reference add_weight_decay, tools/builder.py:38-51);
 - freezing is ``requires_grad=False`` and leaving the parameter out of the
-  optimizer (the JAX package masks its updates to zero);
-- CosLR is optax's ``warmup_cosine_decay_schedule``: linear from 1e-6 to
-  the base lr over ``initial_epochs``, then a cosine to 1e-7, per step;
-- AdamW is ``torch.optim.AdamW`` (optax ``adamw``: b1 0.9, b2 0.999, eps
-  1e-8, decoupled decay), with ``clip_grad_norm_`` first when
-  ``grad_norm_clip`` is set;
+  optimizer (the JAX package masks its updates to zero): no update, no moments;
+- the schedules of ``builder.py:75-109``, per step: CosLR is optax's
+  ``warmup_cosine_decay_schedule`` (linear from 1e-6 to the base lr over
+  ``initial_epochs``, then a cosine to 1e-7); LambdaLR is ``base_lr *
+  max(lr_decay ** (epoch / decay_step), lowest_decay)``, StepLR ``base_lr *
+  gamma ** (epoch // step_size)``, ``function`` the constant base lr, with
+  epoch = count // steps_per_epoch;
+- the optimizers of ``builder.py:144-161`` (optax b1 0.9, b2 0.999, eps
+  1e-8): AdamW, and RAdam, as ``torch.optim.AdamW`` (decoupled decay on the
+  decayed group; the JAX package builds RAdam as AdamW too); Adam as
+  ``torch.optim.Adam`` without weight decay, whatever the kwargs say; SGD
+  as ``torch.optim.SGD`` with Nesterov momentum 0.9 and ``weight_decay``
+  added to every trainable parameter's gradient (optax
+  ``add_decayed_weights`` has no mask); ``clip_grad_norm_`` first when
+  ``grad_norm_clip`` is set (``train_state._update``); any other type raises;
+- ``step_per_update`` k > 1 is optax ``MultiSteps`` (:class:`MultiSteps`);
 - the BN-momentum schedule sets each ``BatchNorm.momentum`` (torch's
   convention) for the epoch, what the JAX package's ``apply_bn_ratio``
   retargets its fixed-momentum update to;
@@ -24,7 +34,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -107,33 +117,113 @@ def cos_lr(base_lr: float, warmup_steps: int, decay_steps: int) -> Callable[[int
 
 
 def build_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
-    """The config's scheduler (CosLR only) as a function of the step,
-    with ``build_schedule``'s step counts (``builder.py:75-88``)."""
-    sche = config.scheduler
-    if sche.type != "CosLR":
-        raise NotImplementedError(f"scheduler {sche.type} is not ported yet (CosLR only)")
-    warmup = max(int(sche.kwargs.get("initial_epochs", 0)) * steps_per_epoch, 1)
-    total = max(int(sche.kwargs.epochs) * steps_per_epoch, warmup + 1)
-    return cos_lr(float(config.optimizer.kwargs.lr), warmup, total)
+    """The config's scheduler as a function of the optimizer's update count,
+    with ``build_schedule``'s step counts (``builder.py:75-109``)."""
+    sche, base_lr = config.scheduler, float(config.optimizer.kwargs.lr)
+    k = sche.get("kwargs", {})
+    if sche.type == "CosLR":
+        warmup = max(int(k.get("initial_epochs", 0)) * steps_per_epoch, 1)
+        total = max(int(k.epochs) * steps_per_epoch, warmup + 1)
+        return cos_lr(base_lr, warmup, total)
+    if sche.type == "LambdaLR":
+        decay, decay_step, lowest = float(k.lr_decay), int(k.decay_step), float(k.lowest_decay)
+        return lambda step: base_lr * max(
+            decay ** ((step // steps_per_epoch) / decay_step), lowest)
+    if sche.type == "StepLR":
+        gamma, step_size = float(k.get("gamma", 0.1)), int(k.step_size)
+        return lambda step: base_lr * gamma ** ((step // steps_per_epoch) // step_size)
+    if sche.type == "function":
+        return lambda step: base_lr
+    raise NotImplementedError(sche.type)
 
 
-def build_optimizer(config, model: nn.Module, steps_per_epoch: int
-                    ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
-    """AdamW over the trainable parameters, in a decayed and an undecayed
-    group, and the lr schedule; the caller sets each group's lr to
-    ``schedule(step)`` before a step."""
+class MultiSteps:
+    """optax ``MultiSteps`` (``builder.py:181-183``) around a torch optimizer:
+    gradient accumulation over ``every_k`` micro-steps.
+
+    ``accumulate`` folds a micro-step's gradients into the running mean
+    ``acc += (g - acc) / (n + 1)`` (optax's ``use_grad_mean``); on the k-th
+    it puts the mean into the gradients, resets, and the caller clips and
+    steps the inner optimizer once. In between the weights stay as they
+    are, and the inner optimizer's moments and update count do not move, so
+    the schedule is indexed by ``updates``, the updates taken, while
+    ``steps_per_epoch`` counts batches. The state dict carries the inner
+    optimizer's, the accumulated gradients and both counts, so a save
+    between updates resumes bit for bit."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        self.inner, self.every_k = inner, int(every_k)
+        self.mini_step, self.updates = 0, 0
+        self.acc = [torch.zeros_like(p) for g in inner.param_groups for p in g["params"]]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none)
+
+    @torch.no_grad()
+    def accumulate(self, grads: List[torch.Tensor]) -> bool:
+        """Fold ``grads`` into the mean; True on the k-th micro-step, with
+        the mean of the k written into ``grads`` and the mean reset."""
+        n = self.mini_step
+        torch._foreach_add_(self.acc, torch._foreach_div(torch._foreach_sub(grads, self.acc),
+                                                         float(n + 1)))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return False
+        torch._foreach_copy_(grads, self.acc)
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+        return True
+
+    def step(self) -> None:
+        self.inner.step()
+        self.updates += 1
+
+    def state_dict(self) -> Dict:
+        return {"inner": self.inner.state_dict(), "every_k": self.every_k,
+                "mini_step": self.mini_step, "updates": self.updates,
+                "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if int(state["every_k"]) != self.every_k:
+            raise ValueError(f"the state accumulates over {state['every_k']} micro-steps, "
+                             f"this run over {self.every_k}")
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step, self.updates = int(state["mini_step"]), int(state["updates"])
+        with torch.no_grad():
+            for a, saved in zip(self.acc, state["acc"], strict=True):
+                a.copy_(saved)
+
+
+def build_optimizer(config, model: nn.Module, steps_per_epoch: int):
+    """The config's optimizer over the trainable parameters (the decayed and
+    the undecayed group for AdamW and RAdam), wrapped in :class:`MultiSteps`
+    when ``step_per_update`` > 1, and the lr schedule (update count -> lr);
+    the caller sets each group's lr before a step (``train_state._update``)."""
     opt = config.optimizer
-    if opt.type != "AdamW":
-        raise NotImplementedError(f"optimizer {opt.type} is not ported yet (AdamW only)")
-    if int(config.get("step_per_update", 1)) != 1:
-        raise NotImplementedError("step_per_update > 1 is not ported yet")
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     wd = float(opt.kwargs.get("weight_decay", 0.0))
-    groups = [{"params": [p for n, p in params if decays(n, p)], "weight_decay": wd},
-              {"params": [p for n, p in params if not decays(n, p)], "weight_decay": 0.0}]
     schedule = build_schedule(config, steps_per_epoch)
-    return (torch.optim.AdamW(groups, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8),
-            schedule)
+    lr = schedule(0)
+    if opt.type in ("AdamW", "RAdam"):
+        groups = [{"params": [p for n, p in params if decays(n, p)], "weight_decay": wd},
+                  {"params": [p for n, p in params if not decays(n, p)], "weight_decay": 0.0}]
+        optimizer = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif opt.type == "Adam":
+        optimizer = torch.optim.Adam([p for _, p in params], lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8)
+    elif opt.type == "SGD":
+        optimizer = torch.optim.SGD([p for _, p in params], lr=lr, momentum=0.9,
+                                    nesterov=True, weight_decay=wd)
+    else:
+        raise NotImplementedError(opt.type)
+    every_k = int(config.get("step_per_update", 1))
+    if every_k > 1:
+        optimizer = MultiSteps(optimizer, every_k)
+    return optimizer, schedule
 
 
 def build_bnm_schedule(config) -> Optional[Callable[[int], float]]:
@@ -171,6 +261,8 @@ def dataset_builder(dataset_cfg, seed: int = 0, num_workers: int = 0):
     the in-memory ModelNet pickles' normalise and shuffle), and a thread
     running them holds the interpreter lock that the step's eager kernel
     launches wait on (``python -m act_tpu_torch.loader_sweep``; PERF.md §6).
+    A ModelNet tree without its FPS cache builds it on the node's
+    ``FPS_DEVICE`` (the trainers set it to theirs; default the card).
 
     The configs' batch sizes are global: over R ranks each rank loads
     ``bs // R`` clouds a batch (at least 1) from its share of the index space

@@ -313,14 +313,19 @@ def _loaders(cfg, seed: int, num_workers: int, subsets):
 def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = None,
             max_steps: Optional[int] = None, max_val: Optional[int] = None,
             resume: bool = False, experiment_path: str = "experiments/autoencoder",
-            num_workers: int = 0, logger=None) -> AutoencoderResult:
+            num_workers: int = 0, val_freq: int = 1, train_writer=None,
+            logger=None) -> AutoencoderResult:
     """The Stage-I run (``runner_autoencoder.py:105-287``): ``epochs`` epochs
     (default the config's ``max_epoch``; ``max_steps`` caps the batches of
     an epoch) through the ShapeNet-55 loader, the anneals at iteration
     ``n_itr`` (``start_epoch * len(train_loader)`` after a resume, one more
     each step), the lr schedule at ``len(train_loader)`` steps an epoch;
-    then ``validate`` (``max_val`` clouds, default all), ckpt-best when the
-    metrics are better, and ckpt-last, in ``experiment_path``. Once
+    then, when ``epoch % val_freq == 0`` (``runner_autoencoder.py:270``),
+    ``validate`` (``max_val`` clouds, default all) and ckpt-best when the
+    metrics are better; then ckpt-last, in ``experiment_path``.
+    ``train_writer`` gets the step's reconstruction loss (x1000) at every
+    100th batch of an epoch (``Loss/Batch/Recon`` at ``n_itr``,
+    ``runner_autoencoder.py:250-252``). Once
     ``preemption.GUARD`` is set (checked after every step) it writes
     ckpt-last with the loader's cursor and returns with ``preempted`` set;
     ``resume`` re-enters that epoch at that batch, the anneals at
@@ -363,6 +368,9 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                 res.step += 1
                 res.n_itr += 1
                 n_step += 1
+                if train_writer is not None and idx % 100 == 0:
+                    train_writer.add_scalar("Loss/Batch/Recon", float(pending[-1][0]) * 1000,
+                                            res.n_itr)
                 if GUARD.check(n_step):
                     ckpt_lib.save_checkpoint(
                         model, optimizer, res.step, epoch, None,
@@ -385,12 +393,13 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                       f"Losses(x1000)={[f'{v:.4f}' for v in res.epoch_losses[-1]]} "
                       f"steps={len(pending)} n_itr={res.n_itr} lr={schedule(res.step):.6f}",
                       logger=logger)
-            metrics, _ = validate(model, val_loader, cfg.consider_metric, max_val, logger)
-            if metrics.better_than(res.best_metrics):
-                res.best_metrics = metrics
-                ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch,
-                                         metrics.state_dict(), metrics.state_dict(),
-                                         "ckpt-best", experiment_path)
+            if epoch % val_freq == 0:
+                metrics, _ = validate(model, val_loader, cfg.consider_metric, max_val, logger)
+                if metrics.better_than(res.best_metrics):
+                    res.best_metrics = metrics
+                    ckpt_lib.save_checkpoint(model, optimizer, res.step, epoch,
+                                             metrics.state_dict(), metrics.state_dict(),
+                                             "ckpt-best", experiment_path)
             ckpt_lib.save_checkpoint(
                 model, optimizer, res.step, epoch, None,
                 res.best_metrics.state_dict() if res.best_metrics else None, "ckpt-last",

@@ -77,14 +77,18 @@ def finetune_config(config, way: int = -1, shot: int = -1, fold: int = -1):
     return cfg
 
 
-def loaders(cfg, seed: int = 0, subsets=("train", "val"), num_workers: int = 0):
+def loaders(cfg, seed: int = 0, subsets=("train", "val"), num_workers: int = 0,
+            device=None):
     """The loaders of the named dataset nodes: train at ``total_bs``, val and
     test at twice that (``runner_finetune.py:107-110, 395``), with
-    ``num_workers`` forked workers for real data."""
+    ``num_workers`` forked workers for real data; a ModelNet tree without its
+    FPS cache builds it on ``device``."""
     out = []
     for name in subsets:
         node = cfg.dataset[name]
         node.others.bs = int(cfg.total_bs) * (1 if name == "train" else 2)
+        if device is not None:
+            node.others.FPS_DEVICE = str(device)
         out.append(builder.dataset_builder(node, seed, num_workers)[1])
     return out
 
@@ -172,7 +176,7 @@ def run_finetune_steps(config, steps: int, *, batches: Optional[Iterable] = None
     is the step's time."""
     cfg = finetune_config(config)
     dev = local_device(device)
-    (train_loader,) = loaders(cfg, seed, ("train",))
+    (train_loader,) = loaders(cfg, seed, ("train",), device=dev)
     if batches is None:
         def from_loader():
             for epoch in range(math.ceil(steps / max(len(train_loader), 1))):
@@ -303,11 +307,12 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
             max_steps: Optional[int] = None, vote: bool = False, ckpts=None,
             resume: bool = False, experiment_path: str = "experiments/finetune",
             way: int = -1, shot: int = -1, fold: int = -1, num_workers: int = 0,
-            logger=None) -> FinetuneResult:
+            val_freq: int = 1, logger=None) -> FinetuneResult:
     """The finetune run (``runner_finetune.py:95-295``): ``epochs`` epochs
     (default the config's ``max_epoch``; ``max_steps`` caps the batches of
-    an epoch), each followed by a validation with ckpt-best, the vote
-    behind its gate with ckpt-best_vote, and ckpt-last (the reference
+    an epoch), each followed, when ``epoch % val_freq == 0`` (``--val_freq``,
+    ``runner_finetune.py:265``), by a validation with ckpt-best and the vote
+    behind its gate with ckpt-best_vote, then by ckpt-last (the reference
     runner's cadence). ``ckpts`` starts from pretrained weights;
     ``resume`` continues from the ckpt-last of ``experiment_path``, inside
     the interrupted epoch after a preemption save; ``way``, ``shot``,
@@ -320,7 +325,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     if epochs is not None:
         cfg.max_epoch = int(epochs)
     dev = local_device(device)
-    train_loader, val_loader = loaders(cfg, seed, num_workers=num_workers)
+    train_loader, val_loader = loaders(cfg, seed, num_workers=num_workers, device=dev)
     try:
         named = {"train": train_loader, "val": val_loader}
         st = build_state(cfg, max(len(train_loader), 1), seed, dev, None if resume else ckpts)
@@ -363,20 +368,21 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
             res.epoch_acc.append(acc)
             print_log(f"[Epoch {epoch}] time={time.time() - t0:.1f}s loss={loss:.4f} "
                       f"acc={acc:.2f} lr={st.schedule(res.steps):.6f}", logger)
-            acc = validate(st.model, val_loader, st.npoints, dev, logger)
-            better = acc.better_than(res.best_metrics)
-            if better:
-                res.best_metrics = acc
-                ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch,
-                                         acc.state_dict(), acc.state_dict(), "ckpt-best",
-                                         experiment_path)
-            if vote and (acc.acc > VOTE_ALWAYS or (better and acc.acc > VOTE_IF_BETTER)):
-                vote_acc = validate_vote(st.model, val_loader, st.npoints, seed, device=dev,
-                                         logger=logger)
-                if vote_acc > res.best_metrics.acc:
+            if epoch % val_freq == 0:
+                acc = validate(st.model, val_loader, st.npoints, dev, logger)
+                better = acc.better_than(res.best_metrics)
+                if better:
+                    res.best_metrics = acc
                     ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch,
-                                             {"acc": vote_acc}, res.best_metrics.state_dict(),
-                                             "ckpt-best_vote", experiment_path)
+                                             acc.state_dict(), acc.state_dict(), "ckpt-best",
+                                             experiment_path)
+                if vote and (acc.acc > VOTE_ALWAYS or (better and acc.acc > VOTE_IF_BETTER)):
+                    vote_acc = validate_vote(st.model, val_loader, st.npoints, seed, device=dev,
+                                             logger=logger)
+                    if vote_acc > res.best_metrics.acc:
+                        ckpt_lib.save_checkpoint(
+                            st.model, st.optimizer, res.steps, epoch, {"acc": vote_acc},
+                            res.best_metrics.state_dict(), "ckpt-best_vote", experiment_path)
             ckpt_lib.save_checkpoint(st.model, st.optimizer, res.steps, epoch, None,
                                      res.best_metrics.state_dict(), "ckpt-last",
                                      experiment_path)
@@ -393,7 +399,7 @@ def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = F
     with ``vote`` also the best of ``rounds`` vote rounds as ``.vote``."""
     cfg = finetune_config(config, way)
     dev = local_device(device)
-    (test_loader,) = loaders(cfg, seed, ("test",), num_workers)
+    (test_loader,) = loaders(cfg, seed, ("test",), num_workers, dev)
     try:
         st = build_state(cfg, 1, seed, dev, ckpts)
         broadcast_module(st.model)

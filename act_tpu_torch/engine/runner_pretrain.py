@@ -306,30 +306,33 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
             max_steps: Optional[int] = None, resume: bool = False,
             start_ckpts: Optional[str] = None, experiment_path: str = "experiments/pretrain",
             allow_random_tokenizer: bool = False, num_workers: int = 0,
-            logger=None) -> PretrainResult:
+            val_freq: int = 1, train_writer=None, logger=None) -> PretrainResult:
     """The Stage-II run (``runner_pretrain.py:136-418``): ``epochs`` epochs
     (default the config's ``max_epoch``; ``max_steps`` caps the batches of
     an epoch) of the train split at ``total_bs``, the lr schedule at
     ``len(train_loader)`` steps an epoch, step ``i``'s draws from
-    ``step_rngs(seed, i)``; after each epoch the SVM probe over the
-    ``extra_train`` and ``val`` splits at twice ``total_bs`` with ckpt-best
-    on its accuracy, ckpt-last, and ``ckpt-epoch-NNN`` every 25 epochs from
+    ``step_rngs(seed, i)``; after each epoch with ``epoch % val_freq == 0``
+    (``runner_pretrain.py:394-395``) the SVM probe over the ``extra_train``
+    and ``val`` splits at twice ``total_bs`` with ckpt-best on its accuracy;
+    after every epoch ckpt-last, and ``ckpt-epoch-NNN`` every 25 epochs from
     epoch 250, in ``experiment_path``. ACT_PointBERT's steps end in the EMA
     of its k encoder, and its checkpoints carry the queue and its pointer,
     which ``resume`` restores with the weights. Once ``preemption.GUARD`` is
     set (checked after every step) it writes ckpt-last with the loader's
     cursor and returns with ``preempted`` set; ``resume`` re-enters that
-    epoch at that batch."""
+    epoch at that batch. ``train_writer`` gets the step's loss and lr at
+    every 100th batch of an epoch (``Loss/Batch/Loss``, ``Loss/Batch/LR`` at
+    the steps taken, ``runner_pretrain.py:373-375``)."""
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
     dev = local_device(device)
-    cfg.dataset.train.others.bs = int(cfg.total_bs)
-    train_set, train_loader = builder.dataset_builder(cfg.dataset.train, seed, num_workers)
     probe = "val" in cfg.dataset and "extra_train" in cfg.dataset
+    for name in ("train", "val", "extra_train") if probe else ("train",):
+        cfg.dataset[name].others.bs = (1 if name == "train" else 2) * int(cfg.total_bs)
+        cfg.dataset[name].others.FPS_DEVICE = str(dev)  # where a ModelNet cache is built
+    train_set, train_loader = builder.dataset_builder(cfg.dataset.train, seed, num_workers)
     if probe:
-        for name in ("val", "extra_train"):
-            cfg.dataset[name].others.bs = 2 * int(cfg.total_bs)
         val_loader = builder.dataset_builder(cfg.dataset.val, seed, num_workers)[1]
         extra_loader = builder.dataset_builder(cfg.dataset.extra_train, seed, num_workers)[1]
         val_npoints = int(cfg.dataset.val.others.npoints)
@@ -371,6 +374,9 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                                              m))
                 res.step += 1
                 n_step += 1
+                if train_writer is not None and idx % 100 == 0:
+                    train_writer.add_scalar("Loss/Batch/Loss", float(pending[-1]), res.step)
+                    train_writer.add_scalar("Loss/Batch/LR", schedule(res.step), res.step)
                 if GUARD.check(n_step):
                     ckpt_lib.save_checkpoint(
                         model, optimizer, res.step, epoch, None,
@@ -390,7 +396,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
             print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.3f}s "
                       f"Loss={res.epoch_loss[-1]:.4f} steps={len(pending)} "
                       f"lr={schedule(res.step):.6f}", logger=logger)
-            if probe:
+            if probe and epoch % val_freq == 0:
                 metric = validate(model, extra_loader, val_loader, val_npoints, epoch, logger)
                 res.probes.append(metric)
                 if metric.better_than(res.best_metrics):

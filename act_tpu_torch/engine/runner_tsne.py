@@ -114,6 +114,7 @@ def tsne_net(args, config, max_batches: Optional[int] = None
     seed = getattr(args, "seed", 0) or 0
     npoints = int(config.npoints)
     config.dataset.test.others.bs = config.total_bs
+    config.dataset.test.others.FPS_DEVICE = str(device)  # where a ModelNet cache is built
     _, test_loader = builder.dataset_builder(config.dataset.test, seed)
     try:
         loader = _take(test_loader, max_batches)

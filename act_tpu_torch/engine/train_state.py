@@ -6,8 +6,10 @@ Counterpart of ``act_tpu/engine/train_state.py:54-59, 107-170, 209-283``
 ``make_finetune_step``) and of the train steps of
 ``act_tpu/engine/runner_segmentation.py:209-225, 340-356``: loss in
 training mode (BatchNorm running statistics update as well, frozen ones
-included), backward, then AdamW at the scheduled lr (and, for ACT_PointBERT,
-the EMA of the k encoder). Every random draw of a
+included), backward, then the config's optimizer at the scheduled lr (with
+``step_per_update`` k, only every k-th micro-step updates, on the mean of
+the k gradients) and, for ACT_PointBERT, the EMA of the k encoder after
+every micro-step. Every random draw of a
 step comes from one generator per named stream, seeded from (seed, step,
 stream), on the step's device. ``timed_steps`` is the trainers' step loop.
 Over several ranks a step is the one-process step on the global batch: the
@@ -25,6 +27,7 @@ from torch import nn
 
 from act_tpu_torch.datasets.synthetic import SYNTHETIC_LEN, synthetic_batch
 from act_tpu_torch.datasets.transforms import scale_and_translate
+from act_tpu_torch.engine.builder import MultiSteps
 from act_tpu_torch.models.point_transformer import get_loss_acc
 from act_tpu_torch.models.segmentation import nll_seg_loss
 from act_tpu_torch.parallel import all_reduce_mean
@@ -82,7 +85,7 @@ def pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     loss (detached, still on the device). A model that returns a tuple of
     losses (ACT_PointBERT) trains on their sum. With ``ema_momentum`` m,
     every parameter of ``model.transformer_k`` becomes ``k * m + q * (1 -
-    m)`` of ``model.transformer_q`` after the AdamW step
+    m)`` of ``model.transformer_q`` after the optimizer step (every micro-step)
     (``train_state.py:157-163``); BatchNorm running statistics are not
     averaged."""
     if transform is not None:
@@ -92,7 +95,7 @@ def pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     out = model(pts, rngs=rngs)
     loss = sum(out) if isinstance(out, tuple) else out
     loss.backward()
-    _update(optimizer, schedule(step), grad_norm_clip)
+    _update(optimizer, schedule, step, grad_norm_clip)
     if ema_momentum is not None:
         ema_update(model.transformer_k, model.transformer_q, ema_momentum)
     return loss.detach()
@@ -126,7 +129,7 @@ def autoencoder_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     recon, kld = model.get_loss(ret, pts)
     loss = recon + kld_weight * kld.float()  # an f32 weight times a bf16 KLD is f32 in JAX
     loss.backward()
-    _update(optimizer, schedule(step), grad_norm_clip)
+    _update(optimizer, schedule, step, grad_norm_clip)
     return loss.detach(), recon.detach(), kld.detach()
 
 
@@ -137,7 +140,7 @@ def finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   grad_norm_clip: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One classification train step on the (B, N, 3) batch ``pts`` and its
     (B,) labels: ``transform(pts, rngs['augment'])`` when given, the
-    train-mode forward, CE loss, backward, clip, AdamW at the scheduled lr.
+    train-mode forward, CE loss, backward, clip, the optimizer at the scheduled lr.
     Returns (loss, accuracy in %), detached, still on the device."""
     if transform is not None:
         pts = transform(pts, rngs["augment"])
@@ -145,7 +148,7 @@ def finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=False)
     loss, acc = get_loss_acc(model(pts, rngs=rngs), labels)
     loss.backward()
-    _update(optimizer, schedule(step), grad_norm_clip)
+    _update(optimizer, schedule, step, grad_norm_clip)
     return loss.detach(), acc.detach()
 
 
@@ -165,14 +168,14 @@ def seg_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     inputs = (pts,) if cls_label_one_hot is None else (pts, cls_label_one_hot)
     loss = nll_seg_loss(model(*inputs, rngs=rngs), target, weight)
     loss.backward()
-    _update(optimizer, schedule(step), grad_norm_clip)
+    _update(optimizer, schedule, step, grad_norm_clip)
     return loss.detach()
 
 
-def _update(optimizer: torch.optim.Optimizer, lr: float,
+def _update(optimizer, schedule: Callable[[int], float], step: int,
             grad_norm_clip: Optional[float]) -> None:
     """Average the gradients over the ranks, clip (when set) and take the
-    AdamW step at ``lr``.
+    optimizer's step at ``schedule(step)``.
 
     A trainable parameter that the loss does not reach (the student's unused
     ``cls_head``) gets a zero gradient, so AdamW still decays it, as optax
@@ -180,14 +183,24 @@ def _update(optimizer: torch.optim.Optimizer, lr: float,
     gradients are all-reduced (SUM, then / R, one flattened bucket a dtype;
     no ``DistributedDataParallel`` wrapper, so state-dict keys keep their
     layout) before the clip, which then clips the global gradient as JAX
-    does."""
+    does. With gradient accumulation (``builder.MultiSteps``) the averaged
+    gradients of every micro-step go into the running mean (one all-reduce
+    a micro-step, as JAX's step takes the gradient of the global batch; one
+    a k-step update would differ only in rounding), and only the k-th
+    micro-step clips the mean and steps, at ``schedule(optimizer.updates)``."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    all_reduce_mean(grads)
+    if isinstance(optimizer, MultiSteps):
+        if not optimizer.accumulate(grads):
+            return
+        step = optimizer.updates
+    lr = schedule(step)
     for group in optimizer.param_groups:
         group["lr"] = lr
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    all_reduce_mean([p.grad for g in optimizer.param_groups for p in g["params"]])
     if grad_norm_clip:
-        torch.nn.utils.clip_grad_norm_(
-            [p for g in optimizer.param_groups for p in g["params"]], grad_norm_clip)
+        torch.nn.utils.clip_grad_norm_(params, grad_norm_clip)
     optimizer.step()

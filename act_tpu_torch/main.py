@@ -17,7 +17,9 @@ On N cards: ``python -m torch.distributed.run --nproc_per_node=N -m
 act_tpu_torch.main ...`` (one process a card, NCCL; the configs' batch sizes
 are global). A SIGTERM makes the trainer write ckpt-last with its position
 in the epoch at the next step boundary and exit 0 after a ``[PREEMPT]``
-line; ``--resume`` continues inside that epoch.
+line; ``--resume`` continues inside that epoch. ``--val_freq N`` validates
+(or probes) after every N-th epoch; the train and test TensorBoard writers
+(``utils/writer.py``) go under ``args.tfboard_path``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from act_tpu_torch.engine.preemption import GUARD
 from act_tpu_torch.parallel import destroy_distributed, initialize_distributed
 from act_tpu_torch.utils.logger import get_root_logger, print_log
 from act_tpu_torch.utils.parser import get_args, get_config
+from act_tpu_torch.utils.writer import basic_log, get_writer
 
 
 def setup(argv: Optional[List[str]] = None):
@@ -43,23 +46,31 @@ def setup(argv: Optional[List[str]] = None):
     log_file = os.path.join(args.experiment_path, f"{time.strftime('%Y%m%d_%H%M%S')}.log")
     logger = get_root_logger(log_file=log_file, name=args.log_name)
     config = get_config(args)
-    for key, val in vars(args).items():
-        print_log(f"args.{key} : {val}", logger=logger)
+    basic_log(args, logger)
     if args.sync_bn:
         print_log("[ARGS] --sync_bn: BatchNorm statistics are global over the ranks by "
                   "construction; the flag changes nothing", logger=logger)
     return args, config, logger
 
 
+def writers(args):
+    """The train and test writers of the run (``main.py:29-31``)."""
+    return (get_writer(os.path.join(args.tfboard_path, "train")),
+            get_writer(os.path.join(args.tfboard_path, "test")))
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args, config, logger = setup(argv)
+    train_writer, val_writer = writers(args)
     try:
-        run(args, config, logger)
+        run(args, config, logger, train_writer)
     finally:
+        train_writer.close()
+        val_writer.close()
         destroy_distributed()
 
 
-def run(args, config, logger) -> None:
+def run(args, config, logger, train_writer=None) -> None:
     if args.test:
         from act_tpu_torch.engine import runner_finetune
         runner_finetune.test_net(config, ckpts=args.ckpts, seed=args.seed, device=args.device,
@@ -72,14 +83,16 @@ def run(args, config, logger) -> None:
                                 ckpts=ckpts, resume=args.resume,
                                 experiment_path=args.experiment_path, way=args.way,
                                 shot=args.shot, fold=args.fold,
-                                num_workers=args.num_workers, logger=logger)
+                                num_workers=args.num_workers, val_freq=args.val_freq,
+                                logger=logger)
     else:
         from act_tpu_torch.engine import runner_pretrain
         runner_pretrain.run_net(config, seed=args.seed, device=args.device,
                                 resume=args.resume, start_ckpts=args.start_ckpts,
                                 experiment_path=args.experiment_path,
                                 allow_random_tokenizer=args.allow_random_tokenizer,
-                                num_workers=args.num_workers, logger=logger)
+                                num_workers=args.num_workers, val_freq=args.val_freq,
+                                train_writer=train_writer, logger=logger)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ utils/parser.py) for the flags its runners honour, plus ``--device``. The
 experiment directory is ``./work_dirs/<config stem>/<config's parent
 directory>/<exp_name>`` (``test_`` prepended under ``--test``), the run's
 log file and its copy of the config go there, and ``--resume`` reads that
-copy back (``act_tpu/utils/config.py:97-119``). Not ported: the TPU-only flags
-(``--scan_steps``, ``--h2d_dtype``, ``--mesh_model_parallel``,
-``--ckpt_every``, ``--smoke``), ``--val_freq`` (every epoch validates) and
-the tensorboard directory (no writer). ``--launcher``, ``--local_rank`` and
+copy back (``act_tpu/utils/config.py:97-119``); the TensorBoard writers
+(``utils/writer.py``) write under ``./work_dirs/<config stem>/<config's
+parent directory>/TFBoard/<exp_name>``. ``--val_freq N`` validates (or
+probes) after the epochs with ``epoch % N == 0``, as the JAX runners do. Not
+ported: the TPU-only flags (``--scan_steps``, ``--h2d_dtype``,
+``--mesh_model_parallel``, ``--ckpt_every``, ``--smoke``). ``--launcher``, ``--local_rank`` and
 ``--sync_bn`` are accepted as in the JAX CLI: the process group comes from
 torchrun's environment (``parallel.initialize_distributed``), and BatchNorm
 statistics are global over the ranks by construction, so ``--sync_bn``
@@ -42,6 +44,8 @@ def get_args(argv=None) -> argparse.Namespace:
                         help="weights to start from (.pth)")
     parser.add_argument("--ckpts", type=str, default=None,
                         help="weights to test, validate or finetune from (.pth)")
+    parser.add_argument("--val_freq", type=int, default=1,
+                        help="validate (or probe) after the epochs with epoch %% N == 0")
     parser.add_argument("--vote", action="store_true")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--test", action="store_true")
@@ -65,6 +69,7 @@ def get_args(argv=None) -> argparse.Namespace:
     if args.test:
         args.exp_name = "test_" + args.exp_name
     args.experiment_path = os.path.join("./work_dirs", stem, parent, args.exp_name)
+    args.tfboard_path = os.path.join("./work_dirs", stem, parent, "TFBoard", args.exp_name)
     args.log_name = stem
     os.makedirs(args.experiment_path, exist_ok=True)
     return args

@@ -66,6 +66,15 @@ version at the shapes the path gives it:
   restores the MoCo queue;
 - the Stage-I tokenizer served (``tokenize`` and ``dvae``), Stage I with the
   CLIP and BERT teachers and Stage II on the CLIP tokenizer (phases 33-35);
+- ModelNet40 at 8192 points (phases 39-41, ``--modelnet8k``): the offline FPS
+  cache of a written synthetic ``modelnet40_normal_resampled`` tree built
+  through the FPS kernel, its picks held to the plain version; the shipped
+  ``finetune_modelnet_8k.yaml`` (384 x 12, G=128, B=32) through the kernels
+  at its shapes against the plain versions, train steps, validation, a vote
+  round, ``test_net``, requests at B=1 and 32, and a step each of its linear
+  and mlp-3 variants; SGD with StepLR and ``step_per_update`` 2, its weights
+  still between updates, stopped by the preemption guard between updates and
+  resumed bit-equal;
 - t-SNE at ``tsne_scan_hardest.yaml`` (two 384 x 12 PointTransformers, 2048
   points, seeded weights): both models' features through the kernels and the
   plain versions, ``tsne_net``, the embedding of 2882 features on the card,
@@ -276,6 +285,24 @@ TEACHER_ARCHS = {"clip": dict(visual_embed_type="clip_ViT-B/16"),
                  "bert": dict(NAME="ACTPromptedDiscreteVAEwithBERT",
                               visual_embed_type="bert-base-uncased")}
 TK_S1_STEPS, TK_S2_STEPS = 3, 2
+# phases 39-41 (``--modelnet8k``, a child process): 39, the ModelNet offline FPS
+# cache of a written synthetic modelnet40_normal_resampled tree (CACHE_CLOUDS files
+# of CACHE_FILE_POINTS x 6 rows) through the card's FPS kernel, projected to
+# ModelNet40's MODELNET_CLOUDS; 40, finetune_modelnet_8k.yaml at full width (and
+# its linear and mlp-3 variants for a step each); 41, SGD + StepLR with
+# step_per_update 2 on finetune_modelnet.yaml, stopped and resumed
+CONFIG_8K = "cfgs/finetune_classification/full/finetune_modelnet_8k.yaml"
+CONFIGS_8K_HEADS = ("cfgs/finetune_classification/linear/finetune_modelnet_8k_linear.yaml",
+                    "cfgs/finetune_classification/mlp3/finetune_modelnet_8k_mlp3.yaml")
+CACHE_CLOUDS, CACHE_FILE_POINTS, CACHE_CLASSES, MODELNET_CLOUDS = 64, 10000, 8, 12311
+M8_STEPS, M8_VAL_BATCHES, M8_REQ_ITERS = 3, 2, (20, 10)
+# a train step (and a vote) at 8192 points: the resample is a subset of the cloud
+# itself (_point_all(8192) = 8192: no FPS, one gather, as in JAX), then
+# group_points' FPS, k-smallest and two gathers; a validation batch or a request
+# resamples by FPS 8192 -> 8192 first
+FT8K_PER_STEP = {"fps": 1, "k_smallest": 1, "gather": 3}
+FT8K_PER_EVAL = {"fps": 2, "k_smallest": 1, "gather": 3}
+OPT_STEPS, OPT_EVERY, OPT_STOP = 4, 2, 3
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -411,20 +438,23 @@ def timed(fn, iters, warm=3):
     return e0.elapsed_time(e1) / iters
 
 
-def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1):
+def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1, plain_events=False):
     """Times of one launch shape; ``n`` launches of it a step or request.
 
     A kernel's time is its device time from torch.profiler (CUPTI): at these
     sizes a call's CUDA-event time is the host's dispatch time, which is
     printed beside it as "per call". A window whose records are not all
     there gives no device time (act_tpu_torch/profiling.py); the row then
-    keeps the CUDA-event time and says so."""
+    keeps the CUDA-event time and says so. ``plain_events`` times the plain
+    version on CUDA events only (an FPS of 8191 steps launches ~65 000
+    kernels, more than a profiler window should hold)."""
     from act_tpu_torch.profiling import device_ms
     call = timed(fn, iters)
     dev_ms = device_ms(fn, iters)
     return dict(shape=shape, n=n, ms=call if dev_ms is None else dev_ms, call_ms=call,
                 timing="cuda_events" if dev_ms is None else "profiler",
-                plain_ms=device_ms(plain, plain_iters) or timed(plain, plain_iters, 1),
+                plain_ms=(timed(plain, plain_iters, 1) if plain_events else
+                          device_ms(plain, plain_iters) or timed(plain, plain_iters, 1)),
                 library_ms=None if library is None else
                 (device_ms(library, iters) or timed(library, iters)),
                 bound=bound)
@@ -2837,6 +2867,415 @@ def _tokenizer(dev, device_ms, kernel_events, measure, tmp):
     return rows, errs, launches
 
 
+def modelnet8k(dev, device_ms, kernel_events, measure):
+    """Phases 39-41, ModelNet40 at 8192 points: 39, the offline FPS cache of a
+    written synthetic tree built through the card's FPS kernel (``ModelNet``
+    with ``FPS_DEVICE`` the card), its picks held to the plain version on
+    every cloud, the parse and FPS clouds/s; 40, ``finetune_modelnet_8k.yaml``
+    at full width (384 x 12, G=128 x M=32, B=32, bf16, seeded weights,
+    synthetic clouds): FPS 8192 -> 8192 and -> 128, k-smallest (4096, 8192)
+    and the gathers against their plain versions and timed,
+    ``run_finetune_steps``, ``validate`` and a vote round through the kernels
+    against the plain path, ``test_net``, a step of the linear and mlp-3
+    variants, requests at B=1 and 32; 41, SGD with StepLR and
+    ``step_per_update`` 2 on ``finetune_modelnet.yaml``: weights unchanged
+    between updates, and a ``run_net`` stopped by the preemption guard
+    between updates and resumed, bit-equal to the uninterrupted run. Returns
+    (timing rows by kernel, errors, launches of each run)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m8k_")
+    try:
+        return _modelnet8k(dev, device_ms, kernel_events, measure, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_modelnet_tree(root, clouds, points, classes):
+    """A ``modelnet40_normal_resampled``-shaped tree of ``clouds`` train files
+    of ``points`` rows ``x,y,z,nx,ny,nz`` at %.6f, ``classes`` categories;
+    returns the file paths in list order."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    names = [f"class{c:02d}" for c in range(classes)]
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    ids, paths = [], []
+    for i in range(clouds):
+        name = names[i % classes]
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        xyz = rng.normal(size=(points, 3))
+        nrm = rng.normal(size=(points, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        ids.append(f"{name}_{i // classes + 1:04d}")
+        paths.append(os.path.join(root, name, ids[-1] + ".txt"))
+        np.savetxt(paths[-1], np.concatenate([xyz, nrm], 1), fmt="%.6f", delimiter=",")
+    with open(os.path.join(root, "modelnet40_train.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return paths
+
+
+def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
+    import itertools
+
+    import numpy as np
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets.pointcloud_datasets import CACHE_BATCH, ModelNet
+    from act_tpu_torch.datasets.transforms import scale_and_translate
+    from act_tpu_torch.engine import checkpoint as ckpt_lib
+    from act_tpu_torch.engine import serve
+    from act_tpu_torch.engine.preemption import GUARD
+    from act_tpu_torch.engine.runner_finetune import (VOTE_TIMES, build_state, finetune_config,
+                                                      loaders, predict, run_finetune_steps,
+                                                      run_net, test_net, test_vote_rounds,
+                                                      train_transform, vote_generator,
+                                                      vote_logits)
+    from act_tpu_torch.engine.train_state import finetune_step, step_rngs
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.ops.group import subset_draw
+    from act_tpu_torch.utils.config import ConfigDict
+
+    rows = {"fps": [], "k_smallest": [], "gather": []}
+    errs, launches = {}, {}
+    card = card_line()
+
+    def check_fps(p, S, tag, say=True):
+        """Kernel picks against the plain version's: up to adjacent tie swaps,
+        the same set; returns (the plain picks, the swaps)."""
+        k, r = ops.furthest_point_sample(p, S), ops.furthest_point_sample_ref(p, S)
+        n_sw = tie_swaps(k, r)
+        if n_sw < 0 or not torch.equal(k.sort(-1).values, r.sort(-1).values):
+            fail(f"fps {tag} {tuple(p.shape)}->{S}: kernel picks differ beyond tie swaps")
+        errs[f"fps 8k {tag} {tuple(p.shape)}->{S}"] = float(
+            (ops.gather_points(p, k) - ops.gather_points(p, r)).abs().max())
+        if say:
+            print(f"[check] fps {tag} {tuple(p.shape)}->{S}: equal up to {n_sw} adjacent tie "
+                  f"swaps, same set", flush=True)
+        return r, n_sw
+
+    def fps_row(p, S, n, tag):
+        B_, N_ = p.shape[:2]
+        rows["fps"].append(measure(
+            f"({B_}, {N_}, 3)->{S} ({tag})", lambda: ops.furthest_point_sample(p, S),
+            lambda: ops.furthest_point_sample_ref(p, S), None, 10, 1,
+            bound_ms(p.numel() * 4 + B_ * S * 4, 10.0 * B_ * (S - 1) * N_), n,
+            plain_events=True))
+
+    # -- 39. the offline FPS cache through the card's FPS kernel -------------------
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "modelnet40_normal_resampled")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    paths = write_modelnet_tree(root, CACHE_CLOUDS, CACHE_FILE_POINTS, CACHE_CLASSES)
+    write_s = time.perf_counter() - t0
+    npts = int(finetune_config(CONFIG_8K).npoints)
+    node = ConfigDict(dict(NAME="ModelNet", DATA_PATH=root, N_POINTS=npts, NUM_CATEGORY=40,
+                           USE_NORMALS=False, subset="train", FPS_DEVICE=str(dev)))
+    from act_tpu_torch import native
+    # this process's first FPS launch at the cache's geometry (the CUDA context, the
+    # kernel's module loaded at its first launch), timed apart from the cache
+    t0 = time.perf_counter()
+    native.fps(np.zeros((min(CACHE_BATCH, CACHE_CLOUDS), CACHE_FILE_POINTS, 3), np.float32),
+               npts, dev)
+    first_s = time.perf_counter() - t0
+    _backend.reset_launches()
+    ds = ModelNet(node)
+    torch.cuda.synchronize()
+    launches["cache"] = dict(_backend.LAUNCHES)
+    check_launches("cache build", launches["cache"], {"fps": 1},
+                   -(-CACHE_CLOUDS // CACHE_BATCH))
+    secs = ds.cache_seconds
+    parse_rate, fps_rate = secs["clouds"] / secs["parse"], secs["clouds"] / secs["fps"]
+    stack = np.stack([np.loadtxt(p, delimiter=",").astype(np.float32) for p in paths])
+    xyz = torch.from_numpy(stack[..., :3]).to(dev).contiguous()
+    picks = ops.furthest_point_sample(xyz, npts).long().cpu().numpy()
+    check_fps(xyz, npts, "cache")
+    if not all(np.array_equal(got, cloud[ix]) for got, cloud, ix in
+               zip(ds.list_of_points, stack, picks)):
+        fail("cache: a cloud is not its file's rows at the kernel's picks")
+    again = ModelNet(node)
+    if hasattr(again, "cache_seconds") or not all(
+            np.array_equal(a, b) for a, b in zip(again.list_of_points, ds.list_of_points)):
+        fail("cache: the file read back differs from the clouds built")
+    print(f"[cache] {CACHE_CLOUDS} synthetic files of {CACHE_FILE_POINTS} x 6 rows ({write_s:.1f} "
+          f"s to write): built in launches of {CACHE_BATCH} clouds through the FPS kernel "
+          f"({launches['cache']['fps']} launch(es)); every cloud the file's rows at the "
+          f"kernel's picks, the picks equal to the plain version's up to tie swaps; the "
+          f"file read back equal", flush=True)
+    project = MODELNET_CLOUDS / parse_rate + MODELNET_CLOUDS / fps_rate
+    print(f"[time] cache: parse (np.loadtxt, as JAX) {secs['parse']:.3f} s = {parse_rate:.1f} clouds/s, FPS on the card (with transfers) "
+          f"{secs['fps']:.3f} s = {fps_rate:.1f} clouds/s; projected to ModelNet40's "
+          f"{MODELNET_CLOUDS} clouds {project:.1f} s; the process's first FPS launch at that "
+          f"geometry (CUDA context, module load) {first_s:.2f} s before it ({card})", flush=True)
+    fps_row(xyz, npts, 0, "the cache's launch")
+    del stack, xyz, ds, again
+    print(f"[m8k] phase 39 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 40. finetune_modelnet_8k at full width ------------------------------------
+    t_phase = time.perf_counter()
+    cfg = finetune_config(CONFIG_8K)
+    npoints, G, M = int(cfg.npoints), int(cfg.model.num_group), int(cfg.model.group_size)
+    train_loader, val_loader = loaders(cfg, 0, device=dev)
+    bs, vbs = train_loader.batch_size, val_loader.batch_size
+    batches = list(itertools.islice(train_loader, M8_STEPS))
+    val = list(itertools.islice(val_loader, M8_VAL_BATCHES))
+    clouds = torch.from_numpy(batches[0][2][0]).to(dev)
+    vclouds = torch.from_numpy(val[0][2][0]).to(dev)
+    with torch.inference_mode():
+        sub = subset_draw(bs, npoints, npoints, torch.Generator(device=dev).manual_seed(9), dev)
+        tpts = ops.gather_points(clouds, sub)
+        tc, _ = check_fps(tpts, G, "train groups")
+        centers = ops.gather_points(tpts, tc)
+        td = ops.square_distance(centers, tpts).reshape(bs * G, npoints)
+        (kv, ki), (rv, ri) = ops.k_smallest(td, M), ops.k_smallest_ref(td, M)
+        if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+            fail(f"k_smallest {tuple(td.shape)} k={M}: differs from the plain version")
+        errs[f"k_smallest 8k {tuple(td.shape)}"] = 0.0
+        vres, _ = check_fps(vclouds, npoints, "validation resample (S = N)")
+        if not torch.equal(vres.sort(-1).values,
+                           torch.arange(npoints, device=dev, dtype=vres.dtype).expand_as(vres)):
+            fail("fps S = N: not every point picked once")
+        check_fps(clouds, npoints, "B=32 request resample (S = N)")
+        check_fps(clouds[:1].contiguous(), npoints, "B=1 request resample (S = N)")
+        vpts = ops.gather_points(vclouds, vres)
+        vc, _ = check_fps(vpts, G, "validation groups")
+        vd = ops.square_distance(ops.gather_points(vpts, vc), vpts).reshape(vbs * G, npoints)
+        (kv, ki), (rv, rvi) = ops.k_smallest(vd, M), ops.k_smallest_ref(vd, M)
+        if not (torch.equal(ki, rvi) and torch.equal(kv, rv)):
+            fail(f"k_smallest {tuple(vd.shape)} k={M}: differs from the plain version")
+        errs[f"k_smallest 8k {tuple(vd.shape)}"] = 0.0
+        print(f"[check] k_smallest {tuple(td.shape)} and {tuple(vd.shape)} k={M}: indices "
+              f"equal, values bit-equal", flush=True)
+        gathers = [(clouds, sub, "train resample (a subset of the cloud)", 1),
+                   (tpts, tc, "centers", 1), (tpts, ri.reshape(bs, G * M), "neighbourhoods", 1),
+                   (vclouds, vres, "eval resample (S = N)", 0)]
+        for p, i, tag, _ in gathers:
+            if not torch.equal(ops.gather_coords(p, i), ops.gather_points(p, i)):
+                fail(f"gather {tag} {tuple(p.shape)} by {tuple(i.shape)}: not bit-equal")
+            errs[f"gather 8k {tag}"] = 0.0
+        print("[check] gather: bit-equal at " + ", ".join(
+            f"{tag} {tuple(p.shape)} by {tuple(i.shape)}" for p, i, tag, _ in gathers), flush=True)
+        fps_row(tpts, G, 1, "train groups")
+        fps_row(clouds, npoints, 0, "B=32 request and validation resample")
+        fps_row(clouds[:1].contiguous(), npoints, 0, "B=1 request")
+        for d, n, tag in ((td, 1, "train"), (vd, 0, "validation B=64")):
+            rows["k_smallest"].append(measure(
+                f"({d.shape[0]}, {d.shape[1]}) k={M} ({tag})", lambda d=d: ops.k_smallest(d, M),
+                lambda d=d: ops.k_smallest_ref(d, M),
+                lambda d=d: torch.topk(d, M, dim=-1, largest=False, sorted=True), 50, 10,
+                bound_ms(d.numel() * 4 + d.shape[0] * M * 8, d.numel()), n))
+        for p, i, tag, n in gathers:
+            li = i.long().reshape(p.shape[0], -1, 1).expand(-1, -1, p.shape[-1]).contiguous()
+            rows["gather"].append(measure(
+                f"{tag} {tuple(p.shape)} by {tuple(i.shape)}, {distinct_rows(i)} rows read",
+                lambda p=p, i=i: ops.gather_coords(p, i), lambda p=p, i=i: ops.gather_points(p, i),
+                lambda p=p, li=li: torch.gather(p, 1, li), 200, 200,
+                bound_ms(distinct_rows(i) * p.shape[-1] * 4 + i.numel() * 4
+                         + i.numel() * p.shape[-1] * 4), n))
+    print_times("8k ", rows)
+
+    t0 = time.perf_counter()
+    st = build_state(cfg, len(train_loader), 0, dev)
+    model = st.model
+    print(f"[model] {CONFIG_8K}: {sum(p.numel() for p in model.parameters())} params, "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_launches()
+    run = run_finetune_steps(cfg, M8_STEPS, batches=batches, seed=0, device=dev, state=st)
+    launches["8k steps"] = dict(_backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("8k run_finetune_steps", launches["8k steps"], FT8K_PER_STEP, M8_STEPS)
+    moved = sum(not torch.equal(model.state_dict()[n], init[n])
+                for n, p in model.named_parameters() if p.requires_grad)
+    n_train = sum(p.requires_grad for p in model.parameters())
+    if not all(map(math.isfinite, run.losses)) or moved != n_train:
+        fail(f"8k steps: losses {run.losses}, {moved} of {n_train} trainable tensors moved")
+    med = statistics.median(run.step_ms[1:])
+    step_args = (clouds, torch.from_numpy(batches[0][2][1]).to(dev))
+    busy = busy_line(kernel_events, f"8k finetune step B={bs}", lambda: finetune_step(
+        model, st.optimizer, lambda s: 1e-6, *step_args, 0, step_rngs(0, 0, dev),
+        train_transform(npoints), st.grad_norm_clip), med, iters=2)
+    print(f"[time] 8k finetune step B={bs}: losses {run.losses}; host ms "
+          f"{[round(x, 3) for x in run.step_ms]}, median of steps 2-{M8_STEPS} {med:.3f} ms; "
+          f"{bs / med * 1e3:.1f} clouds/s; device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB ({card})", flush=True)
+
+    model.eval()
+    _backend.reset_launches()
+    t0 = time.perf_counter()
+    logits_k, labs = predict(model, val, npoints, dev)
+    val_ms = (time.perf_counter() - t0) * 1e3
+    launches["8k validate"] = dict(_backend.LAUNCHES)
+    check_launches("8k validate", launches["8k validate"], FT8K_PER_EVAL, len(val))
+    with patched(serve, furthest_point_sample=ops.furthest_point_sample_ref,
+                 gather_coords=ops.gather_points), patched(ops, group_points=ops.group_points_ref):
+        _backend.reset_launches()
+        logits_p, _ = predict(model, val, npoints, dev)
+        if any(_backend.LAUNCHES.values()):
+            fail(f"the plain-version validate launched kernels: {_backend.LAUNCHES}")
+    swaps = 0
+    for b in val:
+        vb = torch.from_numpy(b[2][0]).to(dev)
+        r, n_sw = check_fps(vb, npoints, "validation", False)
+        swaps += n_sw + check_fps(ops.gather_points(vb, r), G, "validation groups", False)[1]
+    diff = float(np.abs(logits_k - logits_p).max())
+    print(f"[check] 8k validate logits ({len(val)} batches of {vbs}): kernel path against plain "
+          f"path max |diff| {diff} (tolerance: bit-equal, or {LOGIT_ATOL} with FPS tie swaps; "
+          f"{swaps} counted); OA {float((logits_k.argmax(-1) == labs).mean()) * 100:.4f}; "
+          f"{len(labs) / val_ms * 1e3:.1f} clouds/s ({val_ms:.1f} ms host)", flush=True)
+    if not (np.array_equal(logits_k, logits_p) or (swaps and diff <= LOGIT_ATOL)):
+        fail("8k validate: kernel path and plain path disagree")
+
+    def fps_subsample_plain(xyz, nf, n_out, gen):
+        sub = subset_draw(xyz.shape[0], min(nf, xyz.shape[1]), n_out, gen, xyz.device)
+        return ops.gather_points(xyz, sub)  # nf = N: the subset of the cloud itself
+    with torch.inference_mode():
+        _backend.reset_launches()
+        probs_k = vote_logits(model, vclouds, npoints, vote_generator(0, 0, 0, dev))
+        launches["8k vote"] = dict(_backend.LAUNCHES)
+        check_launches("8k vote_logits", launches["8k vote"], FT8K_PER_STEP, VOTE_TIMES)
+        with patched(ops, fps_subsample=fps_subsample_plain, group_points=ops.group_points_ref):
+            probs_p = vote_logits(model, vclouds, npoints, vote_generator(0, 0, 0, dev))
+        gen, vswaps = vote_generator(0, 0, 0, dev), 0  # the draws replayed: the swaps
+        for _ in range(VOTE_TIMES):
+            moved = scale_and_translate(fps_subsample_plain(vclouds, npoints, npoints, gen), gen)
+            vswaps += check_fps(moved.contiguous(), G, "vote groups", False)[1]
+    vdiff = float((probs_k - probs_p).abs().max())
+    t0 = time.perf_counter()
+    rounds = test_vote_rounds(model, val[:1], npoints, 0, 1, device=dev)
+    vote_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[check] 8k vote summed probabilities ({VOTE_TIMES} votes, B={vbs}): kernel path "
+          f"against plain path max |diff| {vdiff} (tolerance: bit-equal, or {LOGIT_ATOL} with "
+          f"FPS tie swaps; {vswaps} counted); one vote round on a batch: OA "
+          f"{rounds.tolist()}, {vote_ms:.1f} ms host", flush=True)
+    if (not (vdiff == 0.0 or (vswaps and vdiff <= LOGIT_ATOL))
+            or not all(map(math.isfinite, rounds))):
+        fail("8k vote: kernel path and plain path disagree, or a round is not finite")
+
+    path = ckpt_lib.save_checkpoint(model, st.optimizer, M8_STEPS, 0, None, None, "ckpt-last",
+                                    tmp)
+    t0 = time.perf_counter()
+    _backend.reset_launches()
+    acc = test_net(cfg, ckpts=path, seed=0, device=dev)
+    test_s = time.perf_counter() - t0
+    launches["8k test_net"] = dict(_backend.LAUNCHES)
+    n_test = len(val_loader)
+    check_launches("8k test_net", launches["8k test_net"], FT8K_PER_EVAL, n_test)
+    print(f"[m8k] test_net: OA {acc.acc:.4f}, mAcc {acc.macc:.4f} over {n_test} batches, "
+          f"{test_s:.1f} s with the model's build", flush=True)
+    if not (math.isfinite(acc.acc) and math.isfinite(acc.macc)):
+        fail("8k test_net: metrics not finite")
+
+    infer = serve.build_infer_fn(model, npoints)
+    req = {}
+    for b_, iters in zip((1, bs), M8_REQ_ITERS):
+        x = clouds[:b_].contiguous()
+        _backend.reset_launches()
+        out = infer(x)
+        torch.cuda.synchronize()
+        launches[f"8k request b{b_}"] = dict(_backend.LAUNCHES)
+        check_launches(f"8k request B={b_}", launches[f"8k request b{b_}"], FT8K_PER_EVAL, 1)
+        if tuple(out.shape) != (b_, int(cfg.model.cls_dim)) or not bool(torch.isfinite(out).all()):
+            fail(f"8k request B={b_}: logits {tuple(out.shape)} not finite or misshapen")
+        lat = request_ms(lambda: infer(x), iters)
+        req[b_] = statistics.median(lat)
+        busy = busy_line(kernel_events, f"8k request B={b_}", lambda: infer(x), req[b_])
+        print(f"[time] 8k request B={b_} ({npoints} points each): median {req[b_]:.3f} ms, "
+              f"min {min(lat):.3f}, max {max(lat):.3f} over {iters}; {b_ / req[b_] * 1e3:.1f} "
+              f"clouds/s; device busy {'not measured' if busy is None else f'{busy:.3f} ms'} "
+              f"({card})", flush=True)
+    del model, st, run, infer
+    torch.cuda.empty_cache()
+
+    for yaml in CONFIGS_8K_HEADS:
+        hcfg = finetune_config(yaml)
+        _backend.reset_launches()
+        hrun = run_finetune_steps(hcfg, 1, batches=batches[:1], seed=0, device=dev)
+        tag = f"8k {hcfg.model.transfer_type} step"
+        launches[tag] = dict(_backend.LAUNCHES)
+        check_launches(tag, launches[tag], FT8K_PER_STEP, 1)
+        n_tr = sum(p.numel() for p in hrun.state.model.parameters() if p.requires_grad)
+        print(f"[m8k] {yaml}: one step, loss {hrun.losses[0]:.6f}, {hrun.step_ms[0]:.1f} ms host "
+              f"(the first step); {n_tr} trainable parameters", flush=True)
+        if not math.isfinite(hrun.losses[0]):
+            fail(f"{tag}: loss not finite")
+        del hrun
+        torch.cuda.empty_cache()
+    print(f"[m8k] phase 40 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 41. SGD + StepLR, step_per_update 2; stopped between updates, resumed -----
+    t_phase = time.perf_counter()
+    ocfg = finetune_config(CONFIG)
+    ocfg.optimizer = ConfigDict(dict(type="SGD", kwargs=dict(lr=0.01, weight_decay=1e-4)))
+    ocfg.scheduler = ConfigDict(dict(type="StepLR", kwargs=dict(step_size=1, gamma=0.7)))
+    ocfg.step_per_update = OPT_EVERY
+    (oloader,) = loaders(ocfg, 0, ("train",), device=dev)
+    obatches = list(itertools.islice(oloader, OPT_STEPS))
+    ost = build_state(ocfg, len(oloader), 0, dev)
+    trained = [n for n, p in ost.model.named_parameters() if p.requires_grad]
+    prev = {n: ost.model.get_parameter(n).detach().clone() for n in trained}
+    pattern = []
+    _backend.reset_launches()
+    for i, b in enumerate(obatches):
+        run_finetune_steps(ocfg, 1, batches=[b], seed=0, device=dev, state=ost, start_step=i)
+        now = {n: ost.model.get_parameter(n).detach().clone() for n in trained}
+        pattern.append(sum(not torch.equal(now[n], prev[n]) for n in trained))
+        prev = now
+    launches["options steps"] = dict(_backend.LAUNCHES)
+    check_launches("options steps", launches["options steps"], FINETUNE_PER_STEP, OPT_STEPS)
+    want = [len(trained) if (i + 1) % OPT_EVERY == 0 else 0 for i in range(OPT_STEPS)]
+    opt = ost.optimizer
+    print(f"[opt] SGD + StepLR, step_per_update {OPT_EVERY}: trainable tensors moved after each "
+          f"of {OPT_STEPS} micro-steps {pattern} (expected {want}); updates {opt.updates}, "
+          f"micro-step {opt.mini_step}", flush=True)
+    if pattern != want or (opt.updates, opt.mini_step) != (OPT_STEPS // OPT_EVERY, 0):
+        fail("step_per_update: the weights moved between updates or not on them")
+    del ost, opt
+    GUARD.reset()
+    try:
+        whole = run_net(ocfg, seed=0, device=dev, epochs=1, max_steps=OPT_STEPS,
+                        experiment_path=os.path.join(tmp, "a"))
+        GUARD.at_step = OPT_STOP
+        cut = run_net(ocfg, seed=0, device=dev, epochs=1, max_steps=OPT_STEPS,
+                      experiment_path=os.path.join(tmp, "b"))
+        GUARD.reset()
+        GUARD.at_step = None
+        saved = torch.load(os.path.join(tmp, "b", "ckpt-last.pth"), map_location="cpu",
+                           weights_only=True)["optimizer"]
+        rest = run_net(ocfg, seed=0, device=dev, epochs=1, max_steps=OPT_STEPS - OPT_STOP,
+                       resume=True, experiment_path=os.path.join(tmp, "b"))
+    finally:
+        GUARD.reset()
+        GUARD.at_step = None
+    a, b = whole.state, rest.state
+    same_w = all(torch.equal(x, b.model.state_dict()[k]) for k, x in a.model.state_dict().items())
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    same_o = ((sa["mini_step"], sa["updates"]) == (sb["mini_step"], sb["updates"])
+              and all(torch.equal(x, y) for x, y in zip(sa["acc"], sb["acc"]))
+              and all(torch.equal(s["momentum_buffer"], sb["inner"]["state"][i]["momentum_buffer"])
+                      for i, s in sa["inner"]["state"].items()))
+    print(f"[opt] run_net {OPT_STEPS} micro-steps against one stopped after micro-step "
+          f"{OPT_STOP} (saved between updates: micro-step {saved['mini_step']}, "
+          f"{saved['updates']} update(s), the mean of {saved['mini_step']} gradient(s)) and "
+          f"resumed: preempted {cut.preempted}; weights and statistics bit-equal {same_w}; "
+          f"momentum, accumulated gradients and counts bit-equal {same_o}", flush=True)
+    if not (cut.preempted and (saved["mini_step"], saved["updates"]) == (1, 1) and same_w
+            and same_o and rest.steps == whole.steps == OPT_STEPS):
+        fail("step_per_update: the resume from between updates is not the uninterrupted run")
+    from act_tpu_torch.utils.writer import get_writer
+    writer = get_writer(os.path.join(tmp, "TFBoard"))  # rank 0: SummaryWriter if it imports
+    writer.add_scalar("Loss/Batch/Loss", whole.epoch_loss[0], whole.steps)
+    writer.close()
+    print(f"[opt] the CLIs' writer on this machine: {type(writer).__name__}", flush=True)
+    print(f"[m8k] phase 41 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, errs, launches
+
+
 def _extract_both(model, batches, npoints, runner_tsne):
     """``extract_features`` with logits through the kernels and through the
     plain versions (patched into ``act_tpu_torch.ops``), each run's
@@ -4260,7 +4699,7 @@ def ddp_seg_cli_check(tmp, side) -> None:
 # the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
 # where the profiler's windows are whole
 CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
-                "--export": "export", "--ddp": "ddp"}
+                "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k"}
 
 
 def stop_processes(procs) -> None:
@@ -4595,6 +5034,11 @@ def main() -> None:
     tk_rows, tk_errs, tk_launches = in_child("--tokenizer")
     print(f"[time] phases 33-35 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(tk_errs)
+    # -- 39-41. ModelNet40 at 8192 points (the FPS cache, the 8k configs) and the
+    # trainer options, a process of their own
+    m8_rows, m8_errs, m8_launches = in_child("--modelnet8k")
+    print(f"[time] phases 39-41 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    errs.update(m8_errs)
     # -- 36. t-SNE, in a process of its own, alone
     ref = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tsne_ref_"), "feats.npz")
     ts_rows, ts_errs, ts_launches = in_child("--tsne", env={TSNE_REF_ENV: ref})
@@ -4667,6 +5111,7 @@ def main() -> None:
             "launches_seg": {tag: n[kernel] for tag, n in seg_launches.items()},
             "launches_pointbert": {tag: n[kernel] for tag, n in pb_launches.items()},
             "launches_tokenizer": {tag: n[kernel] for tag, n in tk_launches.items()},
+            "launches_modelnet8k": {tag: n[kernel] for tag, n in m8_launches.items()},
             "launches_tsne": {tag: n[kernel] for tag, n in ts_launches.items()},
             "launches_export": {tag: n[kernel] for tag, n in ex_launches.items()},
             "launches_ddp": {tag: n[kernel] for tag, n in ddp_launches.items()},
@@ -4689,6 +5134,7 @@ def main() -> None:
                                                 ("segmentation", seg_rows.get(kernel, [])),
                                                 ("pointbert", pb_rows.get(kernel, [])),
                                                 ("tokenizer", tk_rows.get(kernel, [])),
+                                                ("modelnet8k", m8_rows.get(kernel, [])),
                                                 ("tsne", ts_rows.get(kernel, [])),
                                                 ("export", ex_rows.get(kernel, [])))
                            for r in group],

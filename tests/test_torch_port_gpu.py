@@ -1218,3 +1218,63 @@ def test_small_stage1_and_partseg_steps_repeat_bit_for_bit(cuda):
     for fn in (stage1, partseg):
         a, b = fn(), fn()
         assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), fn.__name__
+
+
+# ---------------------------------------------------------------------------
+# the ModelNet 8192-point shapes and the offline cache (act_tpu_torch.native)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,S", [(4, 10000, 8192), (2, 8192, 8192)])
+def test_fps_kernel_at_the_modelnet_cache_and_8k_shapes(cuda, B, N, S):
+    """The cache's launch (resampled files of 10000 points to 8192) and the
+    8k eval resample, S = N: every point picked once, the last steps
+    comparing distances a few ulp apart; equal to the plain version up to
+    adjacent tie swaps, the same set."""
+    pts = cloud(40, B, N, 3, device=cuda)
+    got = ops.furthest_point_sample(pts, S)
+    want = ops.furthest_point_sample_ref(pts, S)
+    assert tie_swaps(got, want) >= 0
+    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+    if S == N:
+        assert torch.equal(got.sort(-1).values.cpu(), torch.arange(N).int().expand(B, N))
+
+
+def test_fps_kernel_on_repeated_points(cuda):
+    """A cloud of 50 distinct points repeated to 10000, 8192 picks: after the
+    50th every distance is 0 and the first argmax (index 0) repeats, on the
+    card as in the plain version."""
+    g = torch.Generator().manual_seed(41)
+    base = torch.randn(50, 3, generator=g)
+    pts = base[torch.randint(0, 50, (2, 10000), generator=g)].to(cuda)
+    got = ops.furthest_point_sample(pts, 8192)
+    want = ops.furthest_point_sample_ref(pts, 8192)
+    assert tie_swaps(got, want) >= 0 and bool((got[:, 100:] == 0).all())
+
+
+def test_k_smallest_kernel_at_the_8k_group_knn(cuda):
+    """k=32 on (4096, 8192): the 8k config's group kNN (32 clouds x 128
+    groups over 8192 points)."""
+    pts = cloud(42, 32, 8192, 3, device=cuda)
+    centers = ops.gather_points(pts, ops.furthest_point_sample(pts, 128))
+    d = ops.square_distance(centers, pts).reshape(4096, 8192)
+    got_v, got_i = ops.k_smallest(d, 32)
+    want_v, want_i = ops.k_smallest_ref(d, 32)
+    assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+
+
+def test_native_fps_and_knn_on_the_card_match_their_plain_paths(cuda):
+    """``act_tpu_torch.native`` on the card against ``device="cpu"``."""
+    from act_tpu_torch import native
+    rng = np.random.default_rng(43)
+    clouds = rng.normal(size=(3, 10000, 6)).astype(np.float32)
+    got = native.fps(clouds, 8192)
+    want = native.fps(clouds, 8192, device="cpu")
+    assert got.dtype == np.int64 and tie_swaps(torch.from_numpy(got),
+                                               torch.from_numpy(want)) >= 0
+    ref, query = clouds[:, :4096, :3], clouds[:, 4096:4608, :3]
+    got_d, got_i = native.knn(ref, query, 16)
+    want_d, want_i = native.knn(ref, query, 16, device="cpu")
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(native.normalize(clouds), native.normalize(clouds, device="cpu"),
+                               rtol=0, atol=1e-6)
