@@ -44,7 +44,7 @@ from act_tpu_torch.datasets.loader import DataLoader
 from act_tpu_torch.models.common import BatchNorm
 from act_tpu_torch.models.point_transformer import trainable
 from act_tpu_torch.models.teacher import TEACHER_LAYOUT
-from act_tpu_torch.parallel import process_count, process_index
+from act_tpu_torch.parallel import data_count, data_index
 from act_tpu_torch.utils.misc import bn_momentum_schedule
 
 FROZEN_KEEP_F32 = ("norm", "ln_", "bn", "gn")
@@ -264,15 +264,16 @@ def dataset_builder(dataset_cfg, seed: int = 0, num_workers: int = 0):
     A ModelNet tree without its FPS cache builds it on the node's
     ``FPS_DEVICE`` (the trainers set it to theirs; default the card).
 
-    The configs' batch sizes are global: over R ranks each rank loads
-    ``bs // R`` clouds a batch (at least 1) from its share of the index space
-    (``DataLoader(num_replicas=R, rank=r)``)."""
+    The configs' batch sizes are global: over R data indices each rank
+    loads ``bs // R`` clouds a batch (at least 1) from its data index's
+    share of the index space (``DataLoader(num_replicas=R, rank=r)``; model
+    peers load the same clouds)."""
     dataset = build_dataset_from_cfg(dataset_cfg)
     node = dataset_cfg.others if "others" in dataset_cfg else dataset_cfg
     shuffle = node.subset == "train"
     workers = 0 if getattr(dataset, "synthetic", False) else int(num_workers)
-    R = process_count()
+    R = data_count()
     loader = DataLoader(dataset, batch_size=max(int(node.bs) // R, 1), shuffle=shuffle,
                         drop_last=shuffle, seed=seed, prefetch=2 if workers else 0,
-                        num_workers=workers, num_replicas=R, rank=process_index())
+                        num_workers=workers, num_replicas=R, rank=data_index())
     return dataset, loader

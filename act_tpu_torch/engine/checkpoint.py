@@ -17,7 +17,12 @@ re-enters the interrupted epoch at that batch; it also carries the state of
 the loaders' dataset draws (``DataLoader.rng_state``, one set a rank), which
 the resume puts back on each rank, so a resumed run's items are those of an
 uninterrupted one where batches are built in process (the JAX package
-restarts them).
+restarts them). A model sharded over tensor-parallel model groups
+(``parallel/tp.py``) is saved and loaded in the full, one-process layout:
+its shards and their optimizer moments are gathered before rank 0 writes,
+and a load slices them back, as the JAX runners re-apply
+``shard_params_tp`` on resume (``runner_finetune.py:163-168``); so a file
+of a tensor-parallel run is the file of a one-process run.
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from act_tpu_torch.parallel import (all_gather_objects, barrier, is_main_process,
-                                    process_count, process_index)
+from act_tpu_torch.parallel import (all_gather_objects, barrier, data_count, data_index,
+                                    is_main_process)
+from act_tpu_torch.parallel import tp
 
 STUDENT_PREFIXES = ("ACT_encoder.", "base_model.")
 
@@ -46,8 +52,10 @@ def save_checkpoint(model: nn.Module, optimizer: torch.optim.Optimizer, step: in
     """Write ``{experiment_path}/{prefix}.pth`` on rank 0, then wait for it
     on every rank; returns its path. ``data_iter={'epoch': e, 'next_batch':
     k}`` marks a mid-epoch (preemption) save (``checkpoint.py:68-115``), with
-    the draw states of the named ``loaders``."""
+    the draw states of the named ``loaders`` (one set a data index). Every
+    rank calls it: a sharded model's tensors are gathered first."""
     path = ckpt_path(experiment_path, prefix)
+    base, opt = tp.full_state_dict(model), tp.full_optimizer_state_dict(optimizer)
     draws = None
     if data_iter:  # every rank's draw states, gathered before rank 0 writes
         draws = all_gather_objects({k: s for k, s in ((k, ld.rng_state()) for k, ld in
@@ -56,7 +64,7 @@ def save_checkpoint(model: nn.Module, optimizer: torch.optim.Optimizer, step: in
     if is_main_process():
         os.makedirs(experiment_path, exist_ok=True)
         t0 = time.perf_counter()
-        payload = {"base_model": model.state_dict(), "optimizer": optimizer.state_dict(),
+        payload = {"base_model": base, "optimizer": opt,
                    "step": int(step), "epoch": int(epoch), "metrics": dict(metrics or {}),
                    "best_metrics": dict(best_metrics or {})}
         if data_iter:
@@ -78,23 +86,24 @@ def resume_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     Returns (start epoch, step, best metrics, start batch); (0, 0, None, 0)
     when there is no ckpt-last. A cursor (a preemption save) makes the
     start epoch the interrupted one and the start batch its ``next_batch``,
-    and puts this rank's saved draw states back into the named ``loaders``
-    (when the run has as many ranks as the one saved); an epoch-end save
-    starts the next epoch at batch 0."""
+    and puts this data index's saved draw states back into the named
+    ``loaders`` (when the run has as many data indices as the one saved); an
+    epoch-end save starts the next epoch at batch 0. A sharded model and its
+    optimizer take their shards of the full-layout file."""
     path = ckpt_path(experiment_path, "ckpt-last")
     if not os.path.exists(path):
         print(f"[RESUME] no checkpoint at {path}", flush=True)
         return 0, 0, None, 0
     dev = next(model.parameters()).device
     payload = torch.load(path, map_location=dev, weights_only=True)
-    model.load_state_dict(payload["base_model"], strict=True)
-    optimizer.load_state_dict(payload["optimizer"])
+    tp.load_full_state_dict(model, payload["base_model"], strict=True)
+    tp.load_full_optimizer_state_dict(optimizer, payload["optimizer"])
     start_batch = int((payload.get("data_iter") or {}).get("next_batch", 0))
     if start_batch > 0:
         start_epoch = int(payload["epoch"])
         draws = payload.get("dataset_rng") or []
-        if len(draws) == process_count():
-            for name, state in draws[process_index()].items():
+        if len(draws) == data_count():
+            for name, state in draws[data_index()].items():
                 if loaders and name in loaders:
                     loaders[name].set_rng_state(state)
         print(f"[RESUME] resumed mid-epoch {start_epoch} at batch {start_batch} "
@@ -108,10 +117,10 @@ def resume_state(model: nn.Module, optimizer: torch.optim.Optimizer,
 def load_params_into(model: nn.Module, path: str) -> None:
     """``--start_ckpts``: the weights of the checkpoint at ``path`` into
     ``model``, strictly; the optimizer, step and epoch start fresh
-    (``checkpoint.py:207-212``)."""
+    (``checkpoint.py:207-212``); a sharded model takes its shards."""
     payload = torch.load(path, map_location=next(model.parameters()).device,
                          weights_only=True)
-    model.load_state_dict(payload["base_model"], strict=True)
+    tp.load_full_state_dict(model, payload["base_model"], strict=True)
     print(f"[CKPT] loaded the weights of {path}", flush=True)
 
 

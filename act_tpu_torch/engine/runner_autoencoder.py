@@ -52,8 +52,8 @@ from act_tpu_torch.engine.serve import load_config, recon_forward
 from act_tpu_torch.engine.train_state import (autoencoder_step, step_rngs, steps_per_epoch,
                                               timed_steps)
 from act_tpu_torch.models import MODELS
-from act_tpu_torch.parallel import (broadcast_module, gather_in_index_order, local_device,
-                                    process_count, reduce_mean_scalar)
+from act_tpu_torch.parallel import (broadcast_module, data_count, gather_in_index_order,
+                                    local_device, reduce_mean_scalar, tp)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AverageMeter
 from act_tpu_torch.utils.metrics import Metrics
@@ -164,12 +164,13 @@ def load_teacher_weights(model: nn.Module, model_cfg, logger=None) -> int:
 def prepare_model(cfg, seed: int, device, logger=None) -> nn.Module:
     """The config's dVAE from ``seed``, its teacher from ``teacher_ckpt``
     where there is one, frozen and cast as the JAX runner does it, on
-    ``device``."""
+    ``device``; under a tensor-parallel grid its teacher sharded
+    (``runner_autoencoder.py:143-147``)."""
     model = build_autoencoder_model(cfg.model, seed)
     load_teacher_weights(model, cfg.model, logger)
     if getattr(model, "has_teacher", False) and bool(cfg.model.get("freeze_visual_embed", False)):
         builder.freeze_teacher_backbone(model, bool(cfg.model.get("frozen_bf16", True)))
-    return model.to(device)
+    return tp.shard_module(model.to(device))
 
 
 def run_autoencoder_steps(config, steps: int, *, batches: Optional[Iterable] = None,
@@ -258,7 +259,7 @@ def validate(model: nn.Module, batches: Iterable, consider_metric: str = "CDL1",
                 fine = recon_forward(model, cloud[None])
                 per_cloud.append(Metrics.get(fine[0], cloud))
                 taxonomies.append(t)
-    if process_count() > 1:
+    if data_count() > 1:
         taxonomies, per_cloud = _gather_clouds(batches, taxonomies, per_cloud)
     table, overall = category_table(taxonomies, per_cloud)
     print_log("============================ TEST RESULTS ============================",

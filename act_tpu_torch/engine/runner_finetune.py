@@ -14,8 +14,11 @@ share of each global batch, validation, the vote and the test gather the
 predictions and labels in rank order (padded repeats included, as in JAX),
 the epoch's loss is the ranks' mean, and only rank 0 writes checkpoints.
 ``run_net`` polls the preemption guard (``engine/preemption.py``) after
-every step. Not ported: the TPU workarounds (``--h2d_dtype i16``,
-``--scan_steps``, the kernel mesh, TP sharding).
+every step. Under a tensor-parallel grid (``parallel/tp.py``) the model
+is sharded over each model group and every forward, the evaluation's
+included, runs through the shards; checkpoints keep the full layout. Not
+ported: the TPU workarounds (``--h2d_dtype i16``, ``--scan_steps``, the
+kernel mesh).
 
   python -m act_tpu_torch.engine.runner_finetune \\
       --config cfgs/finetune_classification/full/finetune_modelnet.yaml --steps 3
@@ -49,7 +52,7 @@ from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_state_d
 from act_tpu_torch.engine.train_state import finetune_step, step_rngs
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
-                                    reduce_mean_scalar)
+                                    reduce_mean_scalar, tp)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter, balanced_accuracy
 
@@ -112,7 +115,9 @@ def build_state(cfg, epoch_steps: int, seed: int = 0, device="cuda",
     tensors of ``ckpts`` (a ``.pth`` path or a state dict; student prefixes
     lifted, merged by name and shape) where given; the parameters that
     ``transfer_type`` does not train frozen and left out of AdamW; the lr
-    schedule at ``epoch_steps`` steps an epoch; on ``device``."""
+    schedule at ``epoch_steps`` steps an epoch; on ``device``. Under a
+    tensor-parallel grid the model is sharded (``tp.shard_module``) before
+    the optimizer is built (``runner_finetune.py:62-67, 87-91``)."""
     dev = local_device(device)
     with torch.device("meta"):
         model = MODELS.build(cfg.model)
@@ -121,7 +126,7 @@ def build_state(cfg, epoch_steps: int, seed: int = 0, device="cuda",
     if ckpts is not None:
         ckpt_lib.merge_pretrained(model, ckpt_lib.strip_student_prefix(load_state_dict(ckpts)))
     builder.freeze_transfer(model, cfg.model.get("transfer_type", "full"))
-    model = model.to(dev)
+    model = tp.shard_module(model.to(dev))
     optimizer, schedule = builder.build_optimizer(cfg, model, epoch_steps)
     return FinetuneState(model, optimizer, schedule, builder.build_bnm_schedule(cfg),
                          int(cfg.npoints), cfg.get("grad_norm_clip", None))

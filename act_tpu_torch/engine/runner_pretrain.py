@@ -56,7 +56,7 @@ from act_tpu_torch.engine.train_state import (pretrain_step, step_rngs, steps_pe
                                               timed_steps)
 from act_tpu_torch.models import MODELS
 from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_device,
-                                    reduce_mean_scalar)
+                                    reduce_mean_scalar, tp)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter
 from act_tpu_torch.utils.svm import LinearSVC
@@ -151,7 +151,7 @@ def run_steps(config, steps: int, *, batches: Optional[Iterable] = None, seed: i
     cfg = load_config(config)
     dev = local_device(device)
     model = freeze_tokenizer(build_pretrain_model(cfg.model, seed, state_dict), cfg).to(dev)
-    broadcast_module(model)
+    broadcast_module(tp.shard_module(model))
     optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
     clip, m = cfg.get("grad_norm_clip", None), ema_momentum(cfg)
     losses, step_ms = timed_steps(
@@ -213,11 +213,13 @@ def prepare_model(cfg, seed: int, device, allow_random_tokenizer: bool = False,
     """The config's model from ``seed`` with the Stage-I tokenizer of
     ``dvae_config.ckpt`` (``load_dvae_ckpt``), the tokenizer frozen and its
     matmul weights stored in bf16 (ACT_PointBERT: k a frozen f32 copy of
-    q), on ``device``."""
+    q), on ``device``; under a tensor-parallel grid sharded, the
+    tokenizer's teacher and PointBERT's k encoder too
+    (``runner_pretrain.py:193-198``)."""
     model = build_pretrain_model(cfg.model, seed)
     load_dvae_ckpt(model, cfg.model.dvae_config, allow_random_tokenizer, logger,
                    tokenizer_name(cfg.model))
-    return freeze_tokenizer(model, cfg).to(device)
+    return tp.shard_module(freeze_tokenizer(model, cfg).to(device))
 
 
 def evaluate_svm(train_features, train_labels, test_features, test_labels,

@@ -54,8 +54,9 @@ from act_tpu_torch.engine import checkpoint as ckpt_lib
 from act_tpu_torch.engine.serve import build_infer_fn, load_seg_model, load_state_dict
 from act_tpu_torch.engine.train_state import seg_step, step_rngs
 from act_tpu_torch.ops import resolve_device
-from act_tpu_torch.parallel import (broadcast_module, gather_in_index_order, process_count,
-                                    process_index, reduce_mean_scalar)
+from act_tpu_torch.parallel import (broadcast_module, data_count, data_index,
+                                    gather_in_index_order, model_count, process_count,
+                                    reduce_mean_scalar, tp)
 from act_tpu_torch.utils.config import ConfigDict
 from act_tpu_torch.utils.logger import print_log
 
@@ -69,8 +70,9 @@ def _np_augment(rng: np.random.Generator, pts: np.ndarray) -> np.ndarray:
     """Random scale in [0.8, 1.25) and shift in [-0.1, 0.1) per cloud
     (provider.random_scale_point_cloud + shift_point_cloud,
     part_segmentation/main.py:197-199), drawn for the global batch: over R
-    ranks of b clouds each, R*b of each, and rank r keeps rows [r*b, (r+1)*b)."""
-    R, r, b = process_count(), process_index(), pts.shape[0]
+    data indices of b clouds each, R*b of each, and data index r keeps rows
+    [r*b, (r+1)*b)."""
+    R, r, b = data_count(), data_index(), pts.shape[0]
     s = rng.uniform(0.8, 1.25, (R * b, 1, 1)).astype(np.float32)[r * b:(r + 1) * b]
     t = rng.uniform(-0.1, 0.1, (R * b, 1, 3)).astype(np.float32)[r * b:(r + 1) * b]
     return pts * s + t
@@ -187,11 +189,12 @@ def build_seg_state(task: str, steps_per_epoch: int, *, epoch: int = 300,
     parameter with decay ``weight_decay``, and the CosLR schedule over
     ``epoch`` epochs of ``steps_per_epoch`` steps
     (``runner_segmentation.py:126-134``), on ``device``. ``widths`` narrows
-    the backbone (``serve.seg_config``)."""
+    the backbone (``serve.seg_config``). Under a tensor-parallel grid the
+    model is sharded before AdamW is built (``runner_segmentation.py:186-190``)."""
     model = load_seg_model(task, None, num_group, dtype, seed, device="cpu", widths=widths)
     if ckpts is not None:
         ckpt_lib.merge_pretrained(model, ckpt_lib.strip_student_prefix(load_state_dict(ckpts)))
-    model = model.to(resolve_device(device))
+    model = tp.shard_module(model.to(resolve_device(device)))
     schedule = builder.build_schedule(ConfigDict(dict(
         scheduler=dict(type="CosLR", kwargs=dict(epochs=int(epoch),
                                                  initial_epochs=min(10, int(epoch)))),
@@ -218,16 +221,16 @@ class SegResult:
 def _loader(ds, batch_size: int, train: bool, seed: int, num_workers: int) -> DataLoader:
     """Train: shuffled by (seed, epoch), without the last partial batch. Real
     data may take forked workers; synthetic data is built in process. Over R
-    ranks ``batch_size`` is global: each rank loads ``batch_size / R``
-    samples a batch from its share of the index space; raises unless R
-    divides it."""
-    R = process_count()
+    data indices ``batch_size`` is global: each loads ``batch_size / R``
+    samples a batch from its share of the index space (model peers load
+    the same); raises unless R divides it."""
+    R = process_count() // model_count()  # the data indices
     if int(batch_size) % R:
         raise ValueError(f"batch_size {batch_size} is global and must divide over {R} ranks")
     workers = 0 if getattr(ds, "synthetic", False) else int(num_workers)
     return DataLoader(ds, int(batch_size) // R, shuffle=train, drop_last=train, seed=seed,
                       prefetch=2 if workers else 0, num_workers=workers, num_replicas=R,
-                      rank=process_index())
+                      rank=data_index())
 
 
 def _run(task: str, train_ds, test_ds, *, npoint: int, batch_size: int, epoch: int, learning_rate: float,

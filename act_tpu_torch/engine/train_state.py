@@ -15,6 +15,9 @@ stream), on the step's device. ``timed_steps`` is the trainers' step loop.
 Over several ranks a step is the one-process step on the global batch: the
 gradients are averaged before the clip, BatchNorm takes global statistics
 and each draw is the rank's rows of the global draw (``act_tpu_torch.parallel``).
+Under tensor parallelism each rank holds a shard of the split weights
+(``parallel/tp.py``), the gradients are averaged over the data group only
+and the clip reads the norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from act_tpu_torch.datasets.transforms import scale_and_translate
 from act_tpu_torch.engine.builder import MultiSteps
 from act_tpu_torch.models.point_transformer import get_loss_acc
 from act_tpu_torch.models.segmentation import nll_seg_loss
-from act_tpu_torch.parallel import all_reduce_mean
+from act_tpu_torch.parallel import all_reduce_mean, tp
 
 STREAMS = ("gumbel", "mask", "dropout", "droppath", "augment")
 
@@ -187,7 +190,13 @@ def _update(optimizer, schedule: Callable[[int], float], step: int,
     gradients of every micro-step go into the running mean (one all-reduce
     a micro-step, as JAX's step takes the gradient of the global batch; one
     a k-step update would differ only in rounding), and only the k-th
-    micro-step clips the mean and steps, at ``schedule(optimizer.updates)``."""
+    micro-step clips the mean and steps, at ``schedule(optimizer.updates)``.
+    Under tensor parallelism the all-reduce goes over the data group: a
+    sharded gradient is this rank's own shard, and a replicated one is equal
+    on the model peers; the clip (``tp.clip_grad_norm_``) sums the sharded
+    gradients' squared norms over the model group and counts the replicated
+    ones once; the optimizer's moments and ``MultiSteps``'s running mean are
+    shards like their parameters."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
@@ -202,5 +211,5 @@ def _update(optimizer, schedule: Callable[[int], float], step: int,
     for group in optimizer.param_groups:
         group["lr"] = lr
     if grad_norm_clip:
-        torch.nn.utils.clip_grad_norm_(params, grad_norm_clip)
+        tp.clip_grad_norm_(params, grad_norm_clip)
     optimizer.step()

@@ -15,7 +15,10 @@ runs ``runner_finetune.test_net``. The run is on the card unless
 
 On N cards: ``python -m torch.distributed.run --nproc_per_node=N -m
 act_tpu_torch.main ...`` (one process a card, NCCL; the configs' batch sizes
-are global). A SIGTERM makes the trainer write ckpt-last with its position
+are global); ``--mesh_model_parallel T`` makes model groups of T ranks that
+share one copy of the transformers, each rank a shard of their MLPs and
+attention heads (T must divide the ranks and every sharded width; a
+checkpoint keeps the one-process layout). A SIGTERM makes the trainer write ckpt-last with its position
 in the epoch at the next step boundary and exit 0 after a ``[PREEMPT]``
 line; ``--resume`` continues inside that epoch. ``--val_freq N`` validates
 (or probes) after every N-th epoch; the train and test TensorBoard writers
@@ -28,7 +31,8 @@ import time
 from typing import List, Optional
 
 from act_tpu_torch.engine.preemption import GUARD
-from act_tpu_torch.parallel import destroy_distributed, initialize_distributed
+from act_tpu_torch.parallel import (destroy_distributed, initialize_distributed,
+                                    initialize_model_parallel)
 from act_tpu_torch.utils.logger import get_root_logger, print_log
 from act_tpu_torch.utils.parser import get_args, get_config
 from act_tpu_torch.utils.writer import basic_log, get_writer
@@ -37,12 +41,19 @@ from act_tpu_torch.utils.writer import basic_log, get_writer
 def setup(argv: Optional[List[str]] = None):
     """Parse the flags, install the preemption guard (SIGTERM), join the
     process group of torchrun's environment (``nccl`` on the card, ``gloo``
-    with ``--device cpu``; none without torchrun), open the run's log file in
+    with ``--device cpu``; none without torchrun) and lay it out as the
+    ``--mesh_model_parallel`` grid (a ``ValueError`` unless it divides the
+    ranks), open the run's log file in
     its experiment directory and load the config. Returns (args, config,
     logger)."""
     args = get_args(argv)
     GUARD.install()
     initialize_distributed(args.device)
+    try:
+        initialize_model_parallel(args.mesh_model_parallel)
+    except ValueError:
+        destroy_distributed()
+        raise
     log_file = os.path.join(args.experiment_path, f"{time.strftime('%Y%m%d_%H%M%S')}.log")
     logger = get_root_logger(log_file=log_file, name=args.log_name)
     config = get_config(args)

@@ -31,8 +31,7 @@ from act_tpu_torch.models.common import (Dense, GroupEncoder, LayerNorm, PosEmbe
                                          trunc_normal_)
 from act_tpu_torch.models.dvae import stage_two_tokenizer
 from act_tpu_torch.models.teacher import init_teacher_prompts
-from act_tpu_torch.parallel import (all_gather_cat, all_reduce_sum, process_count,
-                                    process_index)
+from act_tpu_torch.parallel import all_gather_cat, all_reduce_sum, data_count, data_index
 from act_tpu_torch.parallel.mesh import rand_local, randint_local
 from act_tpu_torch.utils.config import as_cfg
 
@@ -257,8 +256,8 @@ class MaskTransformer(nn.Module):
         B, G, C = tokens.shape
         g = rng(rngs, "mask")
         replace = (rand_local((B, G), g) < self.replace_pob) & ~mask
-        perm = torch.randperm(process_count() * B * G, generator=g, device=g.device)
-        rows = perm[process_index() * B * G:(process_index() + 1) * B * G]
+        perm = torch.randperm(data_count() * B * G, generator=g, device=g.device)
+        rows = perm[data_index() * B * G:(data_index() + 1) * B * G]
         shuffled = all_gather_cat(tokens.detach()).reshape(-1, C)[rows].reshape(B, G, C)
         w = replace[:, :, None].to(tokens.dtype)
         return tokens * (1 - w) + shuffled * w, mask | replace
@@ -420,7 +419,7 @@ def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
     gradient (``train_state._update`` averages the gradients)."""
     w = mask.to(logits.dtype)
     total = all_reduce_sum(torch.sum(w).detach())
-    return (torch.sum(_ce_per_item(logits, labels) * w) * process_count()
+    return (torch.sum(_ce_per_item(logits, labels) * w) * data_count()
             / torch.clamp_min(total, 1.0))
 
 
@@ -501,7 +500,7 @@ class ACT_PointBERT(nn.Module):
                   ).to(center.dtype)
         else:
             ratio, mm = draws
-        r = process_index()
+        r = data_index()
 
         def partner(t):
             return torch.flip(all_gather_cat(t), (0,))[r * B:(r + 1) * B]
@@ -522,7 +521,7 @@ class ACT_PointBERT(nn.Module):
         intermediates."""
         if noaug:
             return self.forward_eval(pts)
-        B, R = pts.shape[0], process_count()
+        B, R = pts.shape[0], data_count()
         if self.K % (R * B):
             raise ValueError(f"MoCo queue K={self.K} must be a multiple of the global batch "
                              f"{R} x {B}")
@@ -558,7 +557,7 @@ class ACT_PointBERT(nn.Module):
         k_all = all_gather_cat(k_cls)  # the global batch's keys, in rank order
         if self.cutmix_loss_on:
             ce = torch.cat([mix_cls @ k_all.T, mix_cls @ queue], dim=1) / self.T
-            labels = process_index() * B + torch.arange(B, device=pts.device)
+            labels = data_index() * B + torch.arange(B, device=pts.device)
             cutmix_loss = torch.mean(ratio * _ce_per_item(ce, labels)
                                      + (1 - ratio) * _ce_per_item(ce, R * B - 1 - labels))
         self.enqueue(k_all)

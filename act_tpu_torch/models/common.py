@@ -19,6 +19,15 @@ dropout and drop path draw from the generators passed as ``rngs``
 (``{'dropout': ..., 'droppath': ...}``); nothing uses the global RNG. Over
 several ranks BatchNorm takes the global batch's statistics and each draw is
 the rank's rows of the global batch's draw (``parallel.rand_local``).
+
+Under tensor parallelism (``parallel/tp.py``) the transformer modules
+(:class:`Mlp`, :class:`Attention`, :class:`CLIPAttention`,
+:class:`CLIPBlock`, :class:`PostLNBlock`) hold one shard of their split
+weights and a share of the heads, and their ``model_parallel`` (set by
+``tp.shard_module``) is the size of the model group: their column-parallel
+inputs pass through ``tp.copy_to_model`` and their row-parallel products
+through ``tp.reduce_from_model``, with the bias added once after it. At
+``model_parallel`` 1 they run as they always did.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from act_tpu_torch import ops
-from act_tpu_torch.parallel import all_reduce_sum, process_count, rand_local
+from act_tpu_torch.parallel import all_reduce_sum, data_count, rand_local
+from act_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
 Rngs = Optional[Mapping[str, torch.Generator]]
@@ -62,15 +72,25 @@ def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-          dtype: Optional[torch.dtype]) -> torch.Tensor:
+          dtype: Optional[torch.dtype], model_parallel: int = 1) -> torch.Tensor:
     """flax ``Dense`` casts: x and the (out, in) weight go to ``dtype`` (else
     their promoted type), the product is emitted in it, then the bias is
-    added in it."""
+    added in it. With ``model_parallel`` > 1 the weight is a row-parallel
+    shard: the partial products are summed over the model group
+    (``tp.reduce_from_model``) before the bias."""
     dt = dtype if dtype is not None else torch.promote_types(x.dtype, weight.dtype)
     y = F.linear(x.to(dt), weight.to(dt))
+    if model_parallel > 1:
+        y = reduce_from_model(y)
     if bias is not None:
         y = y + bias.to(dt)
     return y
+
+
+def model_input(x: torch.Tensor, model_parallel: int) -> torch.Tensor:
+    """``x`` as the input of column-parallel weights (``tp.copy_to_model``
+    with ``model_parallel`` > 1)."""
+    return copy_to_model(x) if model_parallel > 1 else x
 
 
 class Dense(nn.Linear):
@@ -128,11 +148,12 @@ def _fast_stats(x32: torch.Tensor, dims, keepdim: bool = False
 
 
 def _global_stats(x32: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_fast_stats`` over the global batch of every rank: the sums of x and
-    x^2 and the count, all-reduced in f32 in one tensor by a differentiable
-    all-reduce (its backward sums the ranks' gradients), then flax's
-    E[x^2] - E[x]^2. One process takes ``_fast_stats`` itself."""
-    if process_count() == 1:
+    """``_fast_stats`` over the global batch of every data index: the sums of
+    x and x^2 and the count, all-reduced in f32 in one tensor by a
+    differentiable all-reduce over the data group (its backward sums the
+    ranks' gradients), then flax's E[x^2] - E[x]^2. One data index takes
+    ``_fast_stats`` itself."""
+    if data_count() == 1:
         return _fast_stats(x32, dims)
     count = x32.new_full((1,), float(math.prod(x32.shape[d] for d in dims)))
     sums = all_reduce_sum(torch.cat([x32.sum(dims), x32.square().sum(dims), count]))
@@ -247,9 +268,12 @@ class Mlp(nn.Module):
         self.fc1 = Dense(in_features, hidden_features, dtype=dtype)
         self.fc2 = Dense(hidden_features, out_features or in_features, dtype=dtype)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+        self.model_parallel = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        tp, fc2 = self.model_parallel, self.fc2
+        h = F.gelu(self.fc1(model_input(x, tp)), approximate=self.approximate)
+        return dense(h, fc2.weight, fc2.bias, fc2.compute_dtype, tp)
 
 
 class Attention(nn.Module):
@@ -260,7 +284,9 @@ class Attention(nn.Module):
     and is cast back to the input's dtype, so the weighted sum of v runs in
     the promoted type, as in ``common.py:186-196``. Explicit products, not
     ``scaled_dot_product_attention``, which rounds elsewhere. ``q_keep_from``
-    restricts the queries, and so the output rows, to ``[q_keep_from:]``."""
+    restricts the queries, and so the output rows, to ``[q_keep_from:]``.
+    Sharded (``model_parallel`` > 1), ``qkv`` holds q | k | v of this rank's
+    ``num_heads`` heads and ``proj`` their input columns."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
@@ -270,29 +296,33 @@ class Attention(nn.Module):
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.model_parallel = 1
 
     def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
-        B, N, C = x.shape
-        H = self.num_heads
+        B, N, _ = x.shape
+        H, tp = self.num_heads, self.model_parallel
         w, b = self.qkv.weight, self.qkv.bias
+        C = w.shape[0] // 3  # this rank's heads' width (the model's at T = 1)
         dt = self.qkv.compute_dtype or w.dtype
+        x_in = model_input(x, tp)
         if q_keep_from:
-            q = dense(x[:, q_keep_from:], w[:C], None if b is None else b[:C], dt)
+            q = dense(x_in[:, q_keep_from:], w[:C], None if b is None else b[:C], dt)
             q = q.reshape(B, N - q_keep_from, H, C // H).transpose(1, 2)
-            k, v = dense(x, w[C:], None if b is None else b[C:], dt).reshape(
+            k, v = dense(x_in, w[C:], None if b is None else b[C:], dt).reshape(
                 B, N, 2, H, C // H).permute(2, 0, 3, 1, 4)
         else:
-            q, k, v = dense(x, w, b, dt).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+            q, k, v = dense(x_in, w, b, dt).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         return head_proj(attend(q, k, v, self.scale, x.dtype), self.proj.weight,
-                         self.proj.bias, self.proj.compute_dtype)
+                         self.proj.bias, self.proj.compute_dtype, tp)
 
 
 def head_proj(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-              dtype: Optional[torch.dtype]) -> torch.Tensor:
+              dtype: Optional[torch.dtype], model_parallel: int = 1) -> torch.Tensor:
     """A projection of the JAX attention (``_QKVProj``, ``_HeadMergeProj``):
     emitted in the compute dtype, else in the weight's (a frozen bf16 weight
-    keeps its dtype under an f32 config)."""
-    return dense(x, weight, bias, dtype or weight.dtype)
+    keeps its dtype under an f32 config); row-parallel with
+    ``model_parallel`` > 1 (:func:`dense`)."""
+    return dense(x, weight, bias, dtype or weight.dtype, model_parallel)
 
 
 def split_heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -352,15 +382,18 @@ class CLIPAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Dense(dim, dim, dtype=dtype)
         self.compute_dtype = dtype
+        self.model_parallel = 1
 
     def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
-        C, H, dt = x.shape[-1], self.num_heads, self.compute_dtype
+        H, dt, tp = self.num_heads, self.compute_dtype, self.model_parallel
         w, b = self.in_proj_weight, self.in_proj_bias
+        C = w.shape[0] // 3  # this rank's heads' width
+        x = model_input(x, tp)
         q, k, v = (split_heads(head_proj(x[:, q_keep_from:] if i == 0 else x,
                                          w[i * C:(i + 1) * C], b[i * C:(i + 1) * C], dt), H)
                    for i in range(3))
         return head_proj(attend(q, k, v, self.scale, x.dtype), self.out_proj.weight,
-                         self.out_proj.bias, dt)
+                         self.out_proj.bias, dt, tp)
 
 
 class CLIPBlock(nn.Module):
@@ -377,11 +410,14 @@ class CLIPBlock(nn.Module):
         self.ln_2 = LayerNorm(dim, eps=1e-5)
         self.mlp = nn.ModuleDict(dict(c_fc=Dense(dim, 4 * dim, dtype=dtype),
                                       c_proj=Dense(4 * dim, dim, dtype=dtype)))
+        self.model_parallel = 1  # of the MLP (the attention has its own)
 
     def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
+        tp, c_proj = self.model_parallel, self.mlp["c_proj"]
         x = x[:, q_keep_from:] + self.attn(self.ln_1(x), q_keep_from)
-        h = self.mlp["c_fc"](self.ln_2(x))
-        return x + self.mlp["c_proj"](h * torch.sigmoid(1.702 * h))
+        h = self.mlp["c_fc"](model_input(self.ln_2(x), tp))
+        return x + dense(h * torch.sigmoid(1.702 * h), c_proj.weight, c_proj.bias,
+                         c_proj.compute_dtype, tp)
 
 
 class PostLNBlock(nn.Module):
@@ -408,18 +444,22 @@ class PostLNBlock(nn.Module):
         self.output = nn.ModuleDict(dict(dense=Dense(hidden, dim, dtype=dtype),
                                          LayerNorm=LayerNorm(dim, eps=ln_eps)))
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+        self.model_parallel = 1
 
     def forward(self, x: torch.Tensor, q_keep_from: int = 0) -> torch.Tensor:
-        H, dt = self.num_heads, self.compute_dtype
+        H, dt, tp = self.num_heads, self.compute_dtype, self.model_parallel
         sa, out = self.attention["self"], self.attention["output"]
-        q, k, v = (split_heads(head_proj(x[:, q_keep_from:] if n == "query" else x,
+        x_in = model_input(x, tp)
+        q, k, v = (split_heads(head_proj(x_in[:, q_keep_from:] if n == "query" else x_in,
                                          sa[n].weight, sa[n].bias, dt), H)
                    for n in ("query", "key", "value"))
         h = head_proj(attend(q, k, v, self.scale, x.dtype), out["dense"].weight,
-                      out["dense"].bias, dt)
+                      out["dense"].bias, dt, tp)
         x = out["LayerNorm"](x[:, q_keep_from:] + h)
-        h = F.gelu(self.intermediate["dense"](x), approximate=self.approximate)
-        return self.output["LayerNorm"](x + self.output["dense"](h))
+        h = F.gelu(self.intermediate["dense"](model_input(x, tp)),
+                   approximate=self.approximate)
+        o = self.output["dense"]
+        return self.output["LayerNorm"](x + dense(h, o.weight, o.bias, o.compute_dtype, tp))
 
 
 def drop_path_rates(rate: float, depth: int) -> List[float]:

@@ -32,7 +32,7 @@ from act_tpu_torch.models.common import (BatchNorm, Conv1x1, Dropout, GroupEncod
                                          LayerNorm, LeakyReLU, PosEmbedMLP, Rngs,
                                          TransformerEncoder, dense, dtype_from_cfg,
                                          init_weights)
-from act_tpu_torch.parallel import all_reduce_sum, process_count
+from act_tpu_torch.parallel import all_reduce_sum, data_count
 from act_tpu_torch.utils.config import as_cfg
 
 NUM_SHAPE_CATEGORIES = 16
@@ -207,4 +207,4 @@ def nll_seg_loss(log_probs: torch.Tensor, target: torch.Tensor,
         return nll.mean()
     w = weight[t]
     total = all_reduce_sum(torch.sum(w).detach())
-    return torch.sum(nll * w) * process_count() / torch.clamp_min(total, 1e-8)
+    return torch.sum(nll * w) * data_count() / torch.clamp_min(total, 1e-8)

@@ -20,7 +20,7 @@ import torch
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops.fps import _sms
 from act_tpu_torch.ops.reference import _MASK32, gumbel_argmax_ref, gumbel_chunk
-from act_tpu_torch.parallel.mesh import process_index
+from act_tpu_torch.parallel.mesh import data_index
 
 DTYPES = (torch.bfloat16, torch.float32)
 MIN_BITS, MAX_BITS = 6, 10  # bucket bits k the kernel takes
@@ -89,17 +89,19 @@ def gumbel_argmax(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 
     logits (..., V) bf16 or f32, seed (2,) int32 on the same device -> (...)
     int32, the first index of the maximum. Forward-value equal to a hard
-    ``gumbel_softmax`` at tau 1; no gradient flows. Rank r of a data-parallel
-    run draws its rows' noise from ``fold_seed(seed, r)``: the one draw of a
-    step that is per rank by design, as the JAX kernel's is per shard."""
+    ``gumbel_softmax`` at tau 1; no gradient flows. Data index r of a
+    data-parallel run draws its rows' noise from ``fold_seed(seed, r)``: the
+    one draw of a step that is per rank by design, as the JAX kernel's is
+    per shard of the mesh's 'data' axis (``axis_index('data')``); model
+    peers hold the same rows and draw alike."""
     if logits.dim() < 1 or logits.shape[-1] < 1:
         raise ValueError(f"logits must be (..., V) with V >= 1, got {tuple(logits.shape)}")
     if seed.shape != (2,) or seed.dtype != torch.int32:
         raise ValueError(f"seed must be a (2,) int32 tensor, got {seed.dtype} {tuple(seed.shape)}")
     if seed.device != logits.device:
         raise ValueError(f"seed on {seed.device}, logits on {logits.device}")
-    if process_index():
-        seed = fold_seed(seed, process_index())
+    if data_index():
+        seed = fold_seed(seed, data_index())
     if logits.device.type == "cpu":
         return gumbel_argmax_ref(logits, seed)
     if logits.dtype not in DTYPES:

@@ -3,8 +3,9 @@
   python -m act_tpu_torch.part_segmentation [--ckpts <pretrained .pth>] \\
       [--batch_size 16] [--epoch 300] [--npoint 2048] [--root <ShapeNetPart dir>]
 
-The JAX CLI's flags without its TPU ones (``--scan_steps``,
-``--mesh_model_parallel``, ``--smoke``); ``--steps N`` caps each epoch's
+The JAX CLI's flags without its TPU ones (``--scan_steps``, ``--smoke``);
+``--mesh_model_parallel T`` shards the transformer over model groups of T
+ranks (``act_tpu_torch/utils/parser.py``); ``--steps N`` caps each epoch's
 train batches and its evaluation at N batches. The run writes ckpt-best and
 its log under ``work_dirs/part_seg/<log_dir>`` and is on the card unless
 ``--device cpu`` is given.
@@ -19,7 +20,8 @@ import argparse
 import os
 from typing import List, Optional
 
-from act_tpu_torch.parallel import destroy_distributed, initialize_distributed, local_device
+from act_tpu_torch.parallel import (destroy_distributed, initialize_distributed,
+                                    initialize_model_parallel, local_device)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -41,6 +43,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="cap each epoch's train batches and its evaluation batches")
     p.add_argument("--num_workers", type=int, default=8, help="forked workers for real data")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh_model_parallel", type=int, default=1,
+                   help="ranks of a tensor-parallel model group (must divide the ranks)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -49,6 +53,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     initialize_distributed(args.device)  # torchrun's group, if launched by it
     try:
+        initialize_model_parallel(args.mesh_model_parallel)
         run(args, local_device(args.device))  # no card: raise before directories and logs
     finally:
         destroy_distributed()

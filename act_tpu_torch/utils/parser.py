@@ -8,9 +8,13 @@ log file and its copy of the config go there, and ``--resume`` reads that
 copy back (``act_tpu/utils/config.py:97-119``); the TensorBoard writers
 (``utils/writer.py``) write under ``./work_dirs/<config stem>/<config's
 parent directory>/TFBoard/<exp_name>``. ``--val_freq N`` validates (or
-probes) after the epochs with ``epoch % N == 0``, as the JAX runners do. Not
-ported: the TPU-only flags (``--scan_steps``, ``--h2d_dtype``,
-``--mesh_model_parallel``, ``--ckpt_every``, ``--smoke``). ``--launcher``, ``--local_rank`` and
+probes) after the epochs with ``epoch % N == 0``, as the JAX runners do.
+``--mesh_model_parallel T`` (default 1) lays the ranks out as a (data,
+model) grid of T ranks a model group and shards the transformers over it
+(``parallel.initialize_model_parallel``, ``parallel/tp.py``); T must divide
+the ranks and every sharded attention's heads and MLP's hidden width
+(else a ``ValueError``). Not ported: the TPU-only flags (``--scan_steps``,
+``--h2d_dtype``, ``--ckpt_every``, ``--smoke``). ``--launcher``, ``--local_rank`` and
 ``--sync_bn`` are accepted as in the JAX CLI: the process group comes from
 torchrun's environment (``parallel.initialize_distributed``), and BatchNorm
 statistics are global over the ranks by construction, so ``--sync_bn``
@@ -58,6 +62,8 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--allow_random_tokenizer", action="store_true",
                         help="pretrain with a random dVAE tokenizer when dvae_config.ckpt is "
                              "missing (otherwise a set but missing path is an error)")
+    parser.add_argument("--mesh_model_parallel", type=int, default=1,
+                        help="ranks of a tensor-parallel model group (must divide the ranks)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.test and args.resume:

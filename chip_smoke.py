@@ -94,7 +94,13 @@ version at the shapes the path gives it:
   Stage II stopped by the step hook and resumed, each bit-equal to an
   uninterrupted run; the part-seg CLI under ``torch.distributed.run`` with
   2 ranks (the CLIs and the ``run_net`` legs run beside phase 37's tracing,
-  every timed section alone on the card);
+  every timed section alone on the card); leg (t): the same two ranks as a
+  tensor-parallel grid of data 1 x model 2 (``--mesh_model_parallel 2``),
+  the six trainers' steps on the whole global batch against the run without
+  a group, replicated tensors bit-equal over the ranks, the kernels of the
+  no-group step launched, each trainer's full-layout checkpoint loaded by a
+  model without a group, and the finetune CLI under
+  ``torch.distributed.run`` at ``--mesh_model_parallel 2``;
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -3801,7 +3807,12 @@ DDP_SEG_B = {"ps": SEG_PART_B, "ss": SEG_SEM_B}
 DDP_PARTS = {"a": ("s1", "ps", "ss", "pb"),
              "b": ("ft", "ft16", "probe", "s2", "s1", "ps", "ss", "pb", "pbq")
              + tuple(DDP_FAULTS),
-             "one": ("ft", "ft16", "probe", "s2", "s1", "ps", "ss", "pb")}
+             "one": ("ft", "ft16", "probe", "s2", "s1", "ps", "ss", "pb"),
+             "t": ("ft", "s2", "s1", "ps", "ss", "pb")}
+# leg (t): leg (b)'s two ranks as a tensor-parallel grid of data 1 x DDP_TP, each rank
+# the whole global batch and half of every split weight, held in f32 to the run
+# without a group within DDP_RTOL (the kinds of DDP_HELD)
+DDP_TP = 2
 PREEMPT_AT = 2  # the finetune CLI gets its SIGTERM after this step, Stage II its hook
 # leg (b)'s device and backend: gloo, both ranks on card 0 (NCCL takes one rank a card)
 DDP_B = ("cuda:0", "gloo")
@@ -3893,7 +3904,9 @@ def ddp_state(model, optimizer, start, full: bool):
     """(the trained tensors' change from ``start``, the BN running statistics,
     Adam's first moments; for ACT_PointBERT also the EMA-moved k encoder's
     change and the MoCo queue) on the host, or per tensor the float64 sum
-    (``ddp_sum``) when not ``full``."""
+    (``ddp_sum``) when not ``full``; a model sharded over a TP grid in the
+    full layout (every rank gathers)."""
+    from act_tpu_torch.parallel import tp
     params = {n: p for n, p in model.named_parameters() if n in start}
     trained = {n: p for n, p in params.items() if p.requires_grad}
     stats = {n: b for n, b in model.named_buffers() if "running" in n}
@@ -3902,6 +3915,7 @@ def ddp_state(model, optimizer, start, full: bool):
     if hasattr(model, "queue"):
         kinds["k"] = {n: p.detach() - start[n] for n, p in params.items() if not p.requires_grad}
         kinds["q"] = {"queue": model.queue}
+    kinds = {tag: tp.full_tensors(model, tensors) for tag, tensors in kinds.items()}
     return {tag: {n: (t.detach().float().cpu().clone() if full else ddp_sum(t))
                   for n, t in tensors.items()} for tag, tensors in kinds.items()}
 
@@ -3917,6 +3931,51 @@ def ddp_sum(t) -> float:
     """A tensor's float64 sum in numpy's pairwise order (the same in every
     process, whatever its threads)."""
     return float(t.detach().double().cpu().numpy().sum())
+
+
+def ddp_part_end(dev, tmp, part, model, optimizer, rec, steps) -> None:
+    """What each held part of phase 38 adds to its record ``rec``: the peak
+    device memory of the part and every parameter's size; under a TP grid
+    (leg (t)) the MB that *f* and *g* all-reduced a step, a digest of every
+    tensor the rank holds (parameters, buffers, Adam's first moments), the
+    full-layout checkpoint ``tp-<part>.pth`` written (``save_checkpoint``)
+    and each rank's shards read back from it; without a group, that
+    checkpoint, where leg (t) wrote it, loaded with ``strict=True``."""
+    import hashlib
+
+    import torch
+    from act_tpu_torch.engine import checkpoint as ckpt_lib
+    from act_tpu_torch.parallel import mesh, tp
+    if dev.type == "cuda":
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec["numels"] = {n: p.numel() for n, p in model.named_parameters()}
+    path = os.path.join(tmp, f"tp-{part}.pth")
+    if tp.is_sharded(model):
+        rec["tp_mb"] = tp.TRAFFIC["bytes"] / 1e6 / steps
+        rec["tp_calls"] = tp.TRAFFIC["calls"] / steps
+
+        def digest(t):
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+            return hashlib.sha1(raw.tobytes()).hexdigest()
+        params = dict(model.named_parameters())
+        held = {**{("p", n): (p, p) for n, p in params.items()},
+                **{("b", n): (b, None) for n, b in model.named_buffers()},
+                **{("m", n): (optimizer.state[p]["exp_avg"], p) for n, p in params.items()
+                   if p in optimizer.state}}
+        rec["digests"] = {k: (digest(t), t.numel(), getattr(p, "tp_split", None))
+                          for k, (t, p) in held.items()}
+        ckpt_lib.save_checkpoint(model, optimizer, steps, 0, None, None, f"tp-{part}", tmp)
+        saved = torch.load(path, map_location="cpu", weights_only=True)["base_model"]
+        T, m = mesh.model_count(), mesh.model_index()
+        rec["ckpt_shards"] = all(
+            torch.equal(tp._shard(saved[n], p.tp_split, T, m) if hasattr(p, "tp_split")
+                        else saved[n], p.detach().cpu()) for n, p in params.items())
+        rec["ckpt_mib"] = os.path.getsize(path) / 2 ** 20
+    elif not mesh.is_distributed() and os.path.exists(path):
+        saved = torch.load(path, map_location=dev, weights_only=True)["base_model"]
+        model.load_state_dict(saved, strict=True)
+        rec["tp_ckpt_strict"] = True
+        os.remove(path)
 
 
 def ddp_f32(cfg):
@@ -3965,19 +4024,27 @@ def ddp_steps(dev, tmp, parts, replay=None):
     from act_tpu_torch.engine.train_state import (autoencoder_step, pretrain_step, step_rngs,
                                                   steps_per_epoch)
     from act_tpu_torch.ops import _backend
-    R, r = parallel.process_count(), parallel.process_index()
+    from act_tpu_torch.parallel import tp
+    R, r = parallel.data_count(), parallel.process_index()
+    d = parallel.data_index()
     inputs = torch.load(os.path.join(tmp, "batches.pt"), weights_only=True)
 
     def rows(t):
         b = t.shape[0] // R
-        return t[r * b:(r + 1) * b].to(dev)
+        return t[d * b:(d + 1) * b].to(dev)
+
+    def begin():
+        _backend.reset_launches()
+        tp.reset_traffic()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
 
     def reduce_ms(params):
         grads = [p.grad for p in params if p.grad is not None]
         return (statistics.median(request_ms(lambda: parallel.all_reduce_mean(grads), 3))
                 if parallel.is_distributed() else None)
 
-    out = {"rank": r, "ranks": R, "backend": torch.distributed.get_backend()
+    out = {"rank": r, "ranks": parallel.process_count(), "backend": torch.distributed.get_backend()
            if parallel.is_distributed() else None}
     # finetune: f32, bf16, the faults
     for part in ("ft", "ft16") + tuple(DDP_FAULTS):
@@ -3990,7 +4057,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
         parallel.broadcast_module(st.model)
         start = ddp_start(st.model)
         reduce = ddp_fault(part) if part in DDP_FAULTS else train_state.all_reduce_mean
-        _backend.reset_launches()
+        begin()
         with patched(train_state, all_reduce_mean=reduce):
             run = rf.run_finetune_steps(cfg, DDP_STEPS, device=dev, state=st,
                                         batches=[(rows(p), rows(y)) for p, y in inputs["ft"]])
@@ -4000,6 +4067,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
                          step_ms=run.step_ms, reduce_ms=reduce_ms(st.model.parameters()),
                          grad_mb=sum(q.numel() * 4 for q in st.model.parameters()
                                      if q.requires_grad) / 1e6)
+        ddp_part_end(dev, tmp, part, st.model, st.optimizer, out[part], DDP_STEPS)
         del run, st, start
         ddp_took(part, t0)
     # Stage II: the probe's features, then the steps
@@ -4007,7 +4075,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
         t0 = time.perf_counter()
         cfg = ddp_f32(load_config(PRETRAIN_CONFIG))
         model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
-        parallel.broadcast_module(model)
+        parallel.broadcast_module(tp.shard_module(model))
         if "probe" in parts:
             node = cfg.dataset.val
             node.others.bs = DDP_PROBE_BS
@@ -4026,7 +4094,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
                     return got
                 calls[0] += 1
                 return replay[calls[0] - 1].to(logits.device)
-            _backend.reset_launches()
+            begin()
             with patched(ops, gumbel_argmax=gumbel):
                 losses, ms, red = ddp_timed_steps(
                     lambda i: pretrain_step(model, optimizer, schedule, rows(inputs["s2"][i]), i,
@@ -4036,6 +4104,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
                              reduce_ms=red, state=ddp_state(model, optimizer, start, r == 0),
                              ids=ids, grad_mb=sum(q.numel() * 4 for q in model.parameters()
                                                   if q.requires_grad) / 1e6)
+            ddp_part_end(dev, tmp, "s2", model, optimizer, out["s2"], DDP_STEPS)
             del optimizer, start
         del model
         torch.cuda.empty_cache()
@@ -4047,7 +4116,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
         parallel.broadcast_module(model)
         optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
         start = ddp_start(model)
-        _backend.reset_launches()
+        begin()
 
         def s1_step(i):
             n = DDP_S1_ITR + i
@@ -4059,10 +4128,11 @@ def ddp_steps(dev, tmp, parts, replay=None):
                          reduce_ms=red, state=ddp_state(model, optimizer, start, r == 0),
                          grad_mb=sum(q.numel() * 4 for q in model.parameters()
                                      if q.requires_grad) / 1e6)
+        ddp_part_end(dev, tmp, "s1", model, optimizer, out["s1"], DDP_S1_STEPS)
         del model, optimizer, start
         torch.cuda.empty_cache()
         ddp_took("s1", t0)
-    out.update(ddp_seg_bert_steps(dev, inputs, parts, rows))
+    out.update(ddp_seg_bert_steps(dev, tmp, inputs, parts, rows, begin))
     return out
 
 
@@ -4084,13 +4154,14 @@ def ddp_timed_steps(step, params, steps=DDP_STEPS):
     return losses, ms, reduce_ms
 
 
-def ddp_seg_bert_steps(dev, inputs, parts, rows):
+def ddp_seg_bert_steps(dev, tmp, inputs, parts, rows, begin):
     """The held f32 steps of part seg ("ps", the runner's augmentation drawn
     for the global batch), sem seg with class weights ("ss") and
     ACT_PointBERT ("pb"; "pbq" with each rank enqueueing its own keys only)
     on this rank's rows of the global batches: losses, state (rank 0 whole),
     launches, the step's host ms and the gradient all-reduce's alone, the
-    all-reduced MB, PointBERT's queue pointer."""
+    all-reduced MB, PointBERT's queue pointer (``ddp_part_end``'s record too).
+    ``begin`` resets the launch and traffic counts and the peak memory."""
     import numpy as np
     import torch
     from act_tpu_torch import parallel
@@ -4100,7 +4171,8 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
     from act_tpu_torch.engine.train_state import (pretrain_step, seg_step, step_rngs,
                                                   steps_per_epoch)
     from act_tpu_torch.ops import _backend
-    R, r = parallel.process_count(), parallel.process_index()
+    from act_tpu_torch.parallel import tp
+    R, r = parallel.data_count(), parallel.data_index()
     out = {}
     for part in ("ps", "ss"):
         if part not in parts:
@@ -4115,7 +4187,7 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
                                                     rows(p).cpu().numpy())).to(dev),
                     rows(y), None if oh is None else rows(oh))
                    for i, (p, y, oh) in enumerate(inputs[part])]
-        _backend.reset_launches()
+        begin()
         losses, ms, reduce_ms = ddp_timed_steps(
             lambda i: seg_step(st.model, st.optimizer, st.schedule, batches[i][0],
                                batches[i][1], i, step_rngs(0, i, dev), batches[i][2], weight),
@@ -4125,6 +4197,7 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
                                                               r == 0),
                          grad_mb=sum(q.numel() * 4 for q in st.model.parameters()
                                      if q.requires_grad) / 1e6)
+        ddp_part_end(dev, tmp, part, st.model, st.optimizer, out[part], DDP_STEPS)
         del st, start
         torch.cuda.empty_cache()
         ddp_took(part, t0)
@@ -4132,7 +4205,7 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
         return out
     cfg = ddp_f32(pointbert_config())
     model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
-    parallel.broadcast_module(model)
+    parallel.broadcast_module(tp.shard_module(model))
     start, clip, m = ddp_start(model), cfg.get("grad_norm_clip", None), rp.ema_momentum(cfg)
     initial = {k: v.clone() for k, v in model.state_dict().items()}
     enqueue, pts = model.enqueue, [rows(p) for p in inputs["pb"]]
@@ -4145,7 +4218,7 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
         if part == "pbq":
             model.enqueue = lambda keys: enqueue(keys.narrow(0, r * (keys.shape[0] // R),
                                                              keys.shape[0] // R))
-        _backend.reset_launches()
+        begin()
         losses, ms, reduce_ms = ddp_timed_steps(
             lambda i: pretrain_step(model, optimizer, schedule, pts[i], i, step_rngs(0, i, dev),
                                     grad_norm_clip=clip, ema_momentum=m),
@@ -4154,6 +4227,8 @@ def ddp_seg_bert_steps(dev, inputs, parts, rows):
                          reduce_ms=reduce_ms, state=ddp_state(model, optimizer, start, r == 0),
                          ptr=int(model.queue_ptr), grad_mb=sum(
                              q.numel() * 4 for q in model.parameters() if q.requires_grad) / 1e6)
+        if part == "pb":
+            ddp_part_end(dev, tmp, part, model, optimizer, out[part], DDP_STEPS)
         del optimizer
         ddp_took(part, t0)
     del model, start, initial
@@ -4190,8 +4265,10 @@ def ddp_rank(tmp: str) -> None:
     """A rank of leg (b) (gloo, two ranks, both on card 0), launched with
     torchrun's variables: it joins the group, loads the kernels, waits for
     ``go-b`` (phase 37 has ended and the batches are written), then takes
-    the steps; writes ``leg-b-<rank>.pt``. A rank that raises exits
-    non-zero."""
+    the steps; writes ``leg-b-<rank>.pt``. Then the ranks form leg (t)'s
+    grid (``initialize_model_parallel(DDP_TP)``) and take the held steps of
+    ``DDP_PARTS['t']`` on the whole global batch; writes ``leg-t-<rank>.pt``.
+    A rank that raises exits non-zero."""
     import torch
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
@@ -4204,8 +4281,21 @@ def ddp_rank(tmp: str) -> None:
     _backend.build_kernels()
     open(os.path.join(tmp, f"ready-b-{parallel.process_index()}"), "w").close()
     wait_for(os.path.join(tmp, "go-b"), "leg (b)'s start")
+    r = parallel.process_index()
     out = ddp_steps(dev, tmp, DDP_PARTS["b"])
-    torch.save(out, os.path.join(tmp, f"leg-b-{parallel.process_index()}.pt"))
+    torch.save(out["s2"]["ids"], os.path.join(tmp, f"ids-b-{r}.pt"))
+    torch.save(out, os.path.join(tmp, f"leg-b-{r}.pt"))
+    del out
+    # leg (t): the same ranks as data 1 x model DDP_TP, leg (b)'s tokenizer ids replayed
+    # as the run without a group replays them
+    parallel.barrier()
+    ids = [torch.load(os.path.join(tmp, f"ids-b-{q}.pt"), weights_only=True) for q in (0, 1)]
+    replay = [torch.cat(pair) for pair in zip(*ids)]
+    parallel.initialize_model_parallel(DDP_TP)
+    t0 = time.perf_counter()
+    out = ddp_steps(dev, tmp, DDP_PARTS["t"], replay)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(tmp, f"leg-t-{r}.pt"))
     parallel.destroy_distributed()
 
 
@@ -4289,6 +4379,61 @@ def ddp_measures(worst) -> str:
     return ", ".join(f"{k} {v[0]:.3e}" for k, v in worst.items())
 
 
+def ddp_tp_check(t, one):
+    """Leg (t) (``DDP_PARTS['t']`` over data 1 x model ``DDP_TP``) against
+    the run without a group: the losses (the same on both ranks) and each
+    kind of ``DDP_HELD`` within ``DDP_RTOL``; every replicated tensor
+    (parameters, buffers, Adam's first moments) bit-equal on the ranks
+    (digests), each split one 1 / ``DDP_TP`` of the no-group model's; the
+    kernels the no-group steps launched; the ranks' shards read back from
+    their full-layout checkpoint, which the no-group model loaded with
+    ``strict=True``. Prints each rank-step's host ms, the MB *f* and *g*
+    all-reduced a step and each rank's peak memory beside the no-group
+    peak. Returns the problems found."""
+    problems = []
+    for model in DDP_PARTS["t"]:
+        r0, r1, want = t[0][model], t[1][model], one[model]
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(r0["losses"], want["losses"]))
+        worst = ddp_compare(f"t {model}", r0["state"], want["state"])
+        bad = [k for k in DDP_HELD[model] if worst[k][0] > DDP_RTOL[model]]
+        rep_diff = [k for k, (h, _, split) in r0["digests"].items()
+                    if split is None and r1["digests"][k][0] != h]
+        split = {k[1]: n for k, (_, n, kind) in r0["digests"].items() if kind and k[0] == "p"}
+        wrong = [k for k, n in r0["numels"].items()
+                 if n * (DDP_TP if k in split else 1) != want["numels"][k]]
+        launches = r0["launches"] == r1["launches"] == want["launches"]
+        ckpt = r0["ckpt_shards"] and r1["ckpt_shards"] and want.get("tp_ckpt_strict", False)
+        print(f"[ddp] (t) {model}: losses {r0['losses']} (rank 1 the same: "
+              f"{r0['losses'] == r1['losses']}; no group {want['losses']}, max relative "
+              f"{loss_err:.3e}); relative norm of the difference: {ddp_measures(worst)} "
+              f"(tolerance {DDP_RTOL[model]} on {', '.join(DDP_HELD[model])}); "
+              f"{sum(kind is None for _, _, kind in r0['digests'].values())} replicated "
+              f"tensors, {len(rep_diff)} "
+              f"differ between the ranks; {len(split)} split parameters at 1/{DDP_TP} of the "
+              f"no-group model's ({len(wrong)} not); launches a rank "
+              f"{ {k: v for k, v in r0['launches'].items() if v} } equal to the no-group "
+              f"run's: {launches}; checkpoint {r0['ckpt_mib']:.1f} MiB, the shards read back "
+              f"and a model without a group loads it strictly: {ckpt}", flush=True)
+        if loss_err > DDP_RTOL[model] or bad or r0["losses"] != r1["losses"]:
+            problems.append(f"(t) {model}: beyond the tolerance: losses {loss_err}, {bad}")
+        if rep_diff or wrong or not split or not launches or not ckpt:
+            problems.append(f"(t) {model}: replicated {rep_diff[:4]}, sizes {wrong[:4]}, "
+                            f"launches {launches}, checkpoint {ckpt}")
+    for model, tag, bs in (("ft", "finetune", 32), ("s2", "Stage-II", 128), ("s1", "Stage-I", 64),
+                           ("ps", "part-seg", SEG_PART_B), ("ss", "sem-seg", SEG_SEM_B),
+                           ("pb", "PointBERT", 128)):
+        for r in (0, 1):
+            res = t[r][model]
+            med = statistics.median(res["step_ms"][1:])
+            print(f"[time] ddp {tag} f32 step, TP data 1 x model {DDP_TP}, B={bs}, gloo rank "
+                  f"{r}: host ms {[round(x, 3) for x in res['step_ms']]}, median after the "
+                  f"first {med:.3f}; f and g all-reduce {res['tp_mb']:.1f} MB a step in "
+                  f"{res['tp_calls']:.0f} calls; peak {res.get('peak_gib', math.nan):.3f} GiB "
+                  f"(no group {one[model].get('peak_gib', math.nan):.3f} GiB)", flush=True)
+    print(f"[ddp] leg (t): {t[0]['seconds']:.1f} s on rank 0", flush=True)
+    return problems
+
+
 def ddp(dev, device_ms, kernel_events, measure):
     """Phase 38, data parallelism and preemption at full width, in the
     directory of ``DDP_TMP_ENV`` (the parent's, where the CLIs of legs (c)
@@ -4301,8 +4446,9 @@ def ddp(dev, device_ms, kernel_events, measure):
     group, then (a) this process as one rank over NCCL: the f32 steps of
     Stage I, part seg, sem seg and PointBERT, held bit for bit to the run
     without a group; (b) held within ``DDP_RTOL`` to the run without a group
-    (PointBERT's queue pointer and unwritten columns exactly); each held step
-    timed, with the gradient all-reduce alone, each leg alone on the card.
+    (PointBERT's queue pointer and unwritten columns exactly); (t) leg (b)'s
+    ranks as data 1 x model 2 (``ddp_tp_check``); each held step timed, with
+    the gradient all-reduce alone, each leg alone on the card.
     The ``run_net`` legs ran beside phase 37 (``ddp_runs``). Returns (no
     timing rows, errors, each leg's launches). Started beside phase 37, it
     starts leg (b)'s ranks and waits for ``go`` (phase 37 has ended)."""
@@ -4324,7 +4470,8 @@ def ddp(dev, device_ms, kernel_events, measure):
     t0 = time.perf_counter()
     open(os.path.join(tmp, "go-b"), "w").close()
     b = ddp_finish_b(tmp, procs)
-    print(f"[ddp] leg (b): 2 ranks over {b[0]['backend']} on one card, "
+    tp_legs = [torch.load(os.path.join(tmp, f"leg-t-{r}.pt"), weights_only=False) for r in (0, 1)]
+    print(f"[ddp] legs (b) and (t): 2 ranks over {b[0]['backend']} on one card, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r, res in enumerate(b):
         for model, n in steps.items():
@@ -4424,6 +4571,7 @@ def ddp(dev, device_ms, kernel_events, measure):
         problems.append(f"(b) ft in bf16: 2 ranks farther from f32 than {DDP_BF16_FACTOR} x one "
                         f"rank's bf16: {bad}")
     errs["ddp ft bf16"] = got["m"][0]
+    problems += ddp_tp_check(tp_legs, one)
     if problems:
         fail("ddp: " + "; ".join(problems))
     # the probe's features gathered in rank order against one rank's
@@ -4514,11 +4662,14 @@ def ddp_side_start(tmp, started):
     process of their own), leg (c)'s finetune CLI for one epoch
     (``--scratch_model``) stopped by a real SIGTERM after step
     ``PREEMPT_AT`` and then ``--resume``d to the epoch's end, leg (d)'s
-    part-seg CLI under ``torch.distributed.run`` with 2 ranks on the card;
-    each process appended to ``started``. Returns {"thread", and once it
-    ends "cut", "rest" (each the CLI's exit code, output lines and seconds),
-    "seg" (the torchrun process's exit code, output and seconds), "runs"
-    (the run_net legs' exit code)}."""
+    part-seg CLI under ``torch.distributed.run`` with 2 ranks on the card,
+    and beside it leg (t)'s finetune CLI under ``torch.distributed.run`` at
+    ``--mesh_model_parallel 2`` (``TP_CLI_STEPS`` steps; its output to
+    ``tp_cli.log``); each process
+    appended to ``started``. Returns {"thread", and once it ends "cut",
+    "rest" (each the CLI's exit code, output lines and seconds), "seg" and
+    "tp" (each torchrun process's exit code, output and seconds, the TP
+    CLI's until the seg CLI's end), "runs" (the run_net legs' exit code)}."""
     import signal
     cfg_dir = os.path.join(tmp, "cfgs", "full")
     os.makedirs(cfg_dir)
@@ -4528,9 +4679,11 @@ def ddp_side_start(tmp, started):
     yaml = os.path.join(cfg_dir, "finetune_modelnet.yaml")
     with open(yaml, "w") as f:
         f.write(text)
-    wrapper = os.path.join(tmp, "seg_cli.py")
+    wrapper, tp_wrapper = os.path.join(tmp, "seg_cli.py"), os.path.join(tmp, "tp_cli.py")
     with open(wrapper, "w") as f:
         f.write(SEG_CLI_WRAPPER)
+    with open(tp_wrapper, "w") as f:
+        f.write(TP_CLI_WRAPPER)
     env, side = {**os.environ, "ACT_ROOT": ROOT}, {}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
@@ -4563,12 +4716,23 @@ def ddp_side_start(tmp, started):
              "--num_workers", "0"], cwd=tmp, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         started.append(seg)
+        tp_log, t_tp = open(os.path.join(tmp, "tp_cli.log"), "w+"), time.perf_counter()
+        tp_run = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+             tp_wrapper, DDP_B[0], DDP_B[1], "--config", yaml, "--finetune_model",
+             "--mesh_model_parallel", str(DDP_TP), "--exp_name", "tp", "--device", DDP_B[0],
+             "--num_workers", "0"], cwd=tmp, env=env, stdout=tp_log, stderr=subprocess.STDOUT)
+        started.append(tp_run)
         try:
             side["cut"] = cli("cut", PREEMPT_AT)
             side["rest"] = cli("cut", 0, "--resume")
         finally:
             out = seg.communicate(timeout=600)[0]
             side["seg"] = (seg.returncode, out, time.perf_counter() - t0)
+            rc = tp_run.wait(timeout=600)
+            tp_log.seek(0)
+            side["tp"] = (rc, tp_log.read(), time.perf_counter() - t_tp)
+            tp_log.close()
             side["runs"] = runs.wait(timeout=600)
     side["thread"] = threading.Thread(target=run, daemon=True)
     side["thread"].start()
@@ -4648,6 +4812,21 @@ def ddp_preempt_check(tmp, side) -> None:
         fail("ddp (c): the resumed finetune differs from the uninterrupted run")
 
 
+# runs ``act_tpu_torch.main`` with argv[3:] in a process group of device argv[1]
+# and backend argv[2] made first, its finetune ``run_net`` capped at 2 steps an epoch
+TP_CLI_WRAPPER = r"""
+import functools, os, sys
+sys.path.insert(0, os.environ["ACT_ROOT"])
+from act_tpu_torch import parallel
+parallel.initialize_distributed(sys.argv[1], backend=sys.argv[2])
+from act_tpu_torch import main
+from act_tpu_torch.engine import runner_finetune
+runner_finetune.run_net = functools.partial(runner_finetune.run_net, max_steps=2)
+main.main(sys.argv[3:])
+"""
+TP_CLI_STEPS = 2
+
+
 # runs ``act_tpu_torch.part_segmentation`` with argv[3:] in a process group of
 # device argv[1] and backend argv[2] made first (two ranks share the one card: NCCL
 # takes one rank a card, so they join over gloo)
@@ -4659,6 +4838,33 @@ parallel.initialize_distributed(sys.argv[1], backend=sys.argv[2])
 from act_tpu_torch import part_segmentation
 part_segmentation.main(sys.argv[3:])
 """
+
+
+def ddp_tp_cli_check(tmp, side) -> None:
+    """Leg (t)'s CLI: the finetune CLI under ``torch.distributed.run`` with 2
+    ranks on the card at ``--mesh_model_parallel 2`` (one epoch of
+    ``TP_CLI_STEPS`` steps, its validation) exits 0, and its ckpt-best loads
+    with ``strict=True`` into a model without a group."""
+    import torch
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.models import MODELS
+    if "tp" not in side:
+        fail("ddp (t): the tensor-parallel finetune CLI did not run")
+    rc, out, secs = side["tp"]
+    path = os.path.join(tmp, "work_dirs", "finetune_modelnet", "full", "tp", "ckpt-best.pth")
+    if rc != 0 or not os.path.exists(path):
+        print(out[-3000:], flush=True)
+        fail(f"ddp (t): the finetune CLI at --mesh_model_parallel {DDP_TP} exited {rc} "
+             f"without a ckpt-best")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    model = MODELS.build(rf.finetune_config(CONFIG).model)
+    model.load_state_dict(payload["base_model"], strict=True)
+    print(f"[ddp] (t) finetune CLI under torch.distributed.run, 2 ranks at "
+          f"--mesh_model_parallel {DDP_TP} on one card over {DDP_B[1]}: exit {rc}, done within "
+          f"{secs:.1f} s (beside phase 37's tracing and the part-seg CLI); its ckpt-best (step {payload['step']}) loads "
+          f"strictly into a model without a group", flush=True)
+    if payload["step"] != TP_CLI_STEPS:
+        fail(f"ddp (t): the CLI's ckpt-best is at step {payload['step']}, not {TP_CLI_STEPS}")
 
 
 def ddp_seg_cli_check(tmp, side) -> None:
@@ -5083,6 +5289,7 @@ def main() -> None:
         ddp_run_net_check(ddp_dir, side)
         ddp_preempt_check(ddp_dir, side)
         ddp_seg_cli_check(ddp_dir, side)
+        ddp_tp_cli_check(ddp_dir, side)
     finally:
         stop_processes(side_procs)
         shutil.rmtree(ddp_dir, ignore_errors=True)
