@@ -38,6 +38,10 @@ from act_tpu_torch.parallel import (all_gather_objects, barrier, data_count, dat
 from act_tpu_torch.parallel import tp
 
 STUDENT_PREFIXES = ("ACT_encoder.", "base_model.")
+# how a JAX package's orbax checkpoint becomes the port's .pth (in an
+# environment with JAX, never on the card's machine)
+BRIDGE_HINT = ("convert it where JAX is installed with `python tools/convert_checkpoint_to_torch.py "
+               "--config <yaml> --src <orbax dir> --dst <.pth> [--weights_only]`")
 
 
 def ckpt_path(experiment_path: str, prefix: str) -> str:
@@ -114,10 +118,15 @@ def resume_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     return start_epoch, int(payload["step"]), payload.get("best_metrics"), start_batch
 
 
-def load_params_into(model: nn.Module, path: str) -> None:
-    """``--start_ckpts``: the weights of the checkpoint at ``path`` into
-    ``model``, strictly; the optimizer, step and epoch start fresh
-    (``checkpoint.py:207-212``); a sharded model takes its shards."""
+def load_params_into(model: nn.Module, path) -> None:
+    """``--start_ckpts``: the weights of the checkpoint at ``path`` (or a
+    state dict) into ``model``, strictly; the optimizer, step and epoch
+    start fresh (``checkpoint.py:207-212``); a sharded model takes its
+    shards."""
+    if isinstance(path, Mapping):
+        tp.load_full_state_dict(model, path, strict=True)
+        print("[CKPT] loaded the weights of a state dict", flush=True)
+        return
     payload = torch.load(path, map_location=next(model.parameters()).device,
                          weights_only=True)
     tp.load_full_state_dict(model, payload["base_model"], strict=True)

@@ -413,9 +413,9 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
 
 def _eval_model(cfg, ckpts, seed: int, dev, logger=None) -> nn.Module:
     """The config's dVAE on ``dev`` with the weights of ``ckpts`` (a ``.pth``
-    checkpoint), or drawn from ``seed`` without one."""
+    checkpoint or a state dict), or drawn from ``seed`` without one."""
     model = prepare_model(cfg, seed, dev, logger)
-    if ckpts:
+    if ckpts is not None:
         ckpt_lib.load_params_into(model, ckpts)
     broadcast_module(model)
     return model

@@ -34,6 +34,7 @@ data root is absent.
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import time
 from dataclasses import dataclass, field
@@ -110,10 +111,11 @@ class FinetuneState:
 
 
 def build_state(cfg, epoch_steps: int, seed: int = 0, device="cuda",
-                ckpts=None) -> FinetuneState:
+                ckpts=None, strict: bool = False) -> FinetuneState:
     """``cfg.model`` with weights drawn from ``seed``, then the pretrained
     tensors of ``ckpts`` (a ``.pth`` path or a state dict; student prefixes
-    lifted, merged by name and shape) where given; the parameters that
+    lifted, merged by name and shape; with ``strict`` loaded as they are,
+    every key of the model and no other) where given; the parameters that
     ``transfer_type`` does not train frozen and left out of AdamW; the lr
     schedule at ``epoch_steps`` steps an epoch; on ``device``. Under a
     tensor-parallel grid the model is sharded (``tp.shard_module``) before
@@ -123,7 +125,9 @@ def build_state(cfg, epoch_steps: int, seed: int = 0, device="cuda",
         model = MODELS.build(cfg.model)
     model = model.to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(seed))
-    if ckpts is not None:
+    if ckpts is not None and strict:
+        model.load_state_dict(load_state_dict(ckpts), strict=True)
+    elif ckpts is not None:
         ckpt_lib.merge_pretrained(model, ckpt_lib.strip_student_prefix(load_state_dict(ckpts)))
     builder.freeze_transfer(model, cfg.model.get("transfer_type", "full"))
     model = tp.shard_module(model.to(dev))
@@ -397,16 +401,31 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     return res
 
 
+class FirstBatches:
+    """The first ``n`` batches of ``loader`` (all of them for None), each
+    time it is iterated."""
+
+    def __init__(self, loader: Iterable, n: Optional[int]):
+        self.loader, self.n = loader, n
+
+    def __iter__(self):
+        return itertools.islice(iter(self.loader), self.n)
+
+
 def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = False,
              rounds: int = 300, way: int = -1, num_workers: int = 0,
+             max_batches: Optional[int] = None, strict: bool = False,
              logger=None) -> AccMetric:
     """Test OA of the weights in ``ckpts`` (``runner_finetune.py:387-423``);
-    with ``vote`` also the best of ``rounds`` vote rounds as ``.vote``."""
+    with ``vote`` also the best of ``rounds`` vote rounds as ``.vote``.
+    ``max_batches`` keeps the first test batches; ``strict`` loads ``ckpts``
+    as a whole model (``build_state``)."""
     cfg = finetune_config(config, way)
     dev = local_device(device)
-    (test_loader,) = loaders(cfg, seed, ("test",), num_workers, dev)
+    (loader,) = loaders(cfg, seed, ("test",), num_workers, dev)
+    test_loader = FirstBatches(loader, max_batches)
     try:
-        st = build_state(cfg, 1, seed, dev, ckpts)
+        st = build_state(cfg, 1, seed, dev, ckpts, strict)
         broadcast_module(st.model)
         acc = validate(st.model, test_loader, st.npoints, dev, logger)
         print_log(f"[TEST] OA = {acc.acc:.4f}", logger)
@@ -418,7 +437,7 @@ def test_net(config, *, ckpts=None, seed: int = 0, device="cuda", vote: bool = F
                 print_log(f"[TEST_VOTE] round {r} acc={a:.4f} best={best:.4f}", logger)
             acc.vote = best
     finally:
-        test_loader.close()
+        loader.close()
     return acc
 
 

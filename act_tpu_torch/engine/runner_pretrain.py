@@ -194,7 +194,7 @@ def load_dvae_ckpt(model: nn.Module, dvae_cfg, allow_random: bool = False,
     if os.path.isdir(path) or not str(path).endswith(".pth"):
         raise ValueError(f"dvae_config.ckpt = '{path}': the port reads a .pth checkpoint "
                          "(the port's Stage-I ckpt-best.pth or a reference .pth), not an "
-                         "orbax directory")
+                         f"orbax directory; {ckpt_lib.BRIDGE_HINT}")
     loaded = {k: v for k, v in load_state_dict(path).items() if not k.startswith("decoder.")}
     tokenizer = getattr(model, tokenizer)
     want = tokenizer.state_dict()

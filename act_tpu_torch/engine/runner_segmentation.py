@@ -351,7 +351,8 @@ def batched_blocks(ds: WholeSceneDataset, scene: int, eval_bs: int):
 def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROOT,
                      npoint: int = 2048, test_area: int = 5, ckpts=None, num_group: int = 128,
                      dtype: str = "bf16", eval_batch_size: int = 16, vote_num: int = 3,
-                     seed: int = 0, device="cuda", logger=None
+                     seed: int = 0, device="cuda", max_scenes: Optional[int] = None,
+                     logger=None
                      ) -> Tuple[Dict[str, float], List[np.ndarray]]:
     """The sliding-window vote over the rooms of ``test_area``
     (``runner_segmentation.py:397-477``, reference main_test.py:54-139):
@@ -359,8 +360,8 @@ def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROO
     rounds, each block's probabilities added to its points' votes
     (``np.add.at``). ``model`` (eval mode, on ``device``), else the semseg
     model of ``ckpts`` (else seeded). Returns (OA/mAcc/mIoU, each scene's
-    (points, 13) votes). It runs on one process, as the JAX vote does on one
-    device."""
+    (points, 13) votes). ``max_scenes`` keeps the first scenes. It runs on
+    one process, as the JAX vote does on one device."""
     dev = resolve_device(device)
     if model is None:
         model = load_seg_model("semseg", ckpts, num_group, dtype, seed, dev)
@@ -372,7 +373,7 @@ def whole_scene_eval(model: Optional[nn.Module] = None, *, root: str = S3DIS_ROO
     eval_bs = int(eval_batch_size or 16)
     stats = np.zeros((3, S3DIS_NUM_CLASSES))
     votes = []
-    for scene in range(len(ds)):
+    for scene in range(len(ds) if max_scenes is None else min(len(ds), int(max_scenes))):
         pool = np.zeros((len(ds.semantic_labels[scene]), S3DIS_NUM_CLASSES))
         for _ in range(vote_num):
             for stacked, sels, n_real in batched_blocks(ds, scene, eval_bs):

@@ -74,7 +74,7 @@ def _build_and_load(model_cfg, ckpt_path, npoints: int, seed: int, device="cuda"
     del npoints
     if ckpt_path and (os.path.isdir(ckpt_path) or not str(ckpt_path).endswith(".pth")):
         raise ValueError(f"checkpoint '{ckpt_path}': the port reads a .pth checkpoint, not an "
-                         "orbax directory")
+                         f"orbax directory; {ckpt_lib.BRIDGE_HINT}")
     model = load_model({"model": model_cfg}, None, seed=seed or 0, device=device)
     if ckpt_path:
         ckpt_lib.merge_pretrained(model, ckpt_lib.strip_student_prefix(load_state_dict(ckpt_path)))

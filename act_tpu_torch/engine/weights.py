@@ -292,14 +292,16 @@ def student_state(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
     return sd
 
 
-def distillation_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
+def distillation_state_dict(params: Mapping, batch_stats: Mapping,
+                            arch: str = "vit") -> StateDict:
     """A JAX ACT_PointDistillation's (params, batch_stats) -> the port's
     state dict, the inverse of ``torch_convert.act_distillation_rules``
-    (``torch_convert.py:346-443``); unrolled or scanned stacks."""
+    (``torch_convert.py:346-443``); unrolled or scanned stacks; the
+    tokenizer's teacher of ``arch``."""
     bs = batch_stats
     sd = student_state(params["ACT_encoder"], bs["ACT_encoder"], "ACT_encoder")
     sd.update(tokenizer_state(params["dvae_tokenizer"], bs["dvae_tokenizer"],
-                              "dvae_tokenizer"))
+                              "dvae_tokenizer", arch))
     if "proj_head" in params:
         sd.update(dense_state(params["proj_head"], "proj_head"))
     if "mask_token" in params:
@@ -313,7 +315,7 @@ def distillation_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
 
 
 def pointbert_state_dict(params: Mapping, batch_stats: Mapping,
-                         buffers: Optional[Mapping] = None) -> StateDict:
+                         buffers: Optional[Mapping] = None, arch: str = "vit") -> StateDict:
     """A JAX ACT_PointBERT's (params, batch_stats, buffers) -> the port's
     state dict, the inverse of ``torch_convert.act_pointbert_rules`` and
     ``pointbert_buffers`` (``torch_convert.py:497-525``); unrolled or scanned
@@ -327,7 +329,7 @@ def pointbert_state_dict(params: Mapping, batch_stats: Mapping,
         sd.update(student_state(p, batch_stats[name], name))
         sd[f"{name}.mask_token"] = _t(p["mask_token"])
         sd.update(dense_state(p["lm_head"], f"{name}.lm_head"))
-    sd.update(tokenizer_state(params["dvae"], batch_stats["dvae"], "dvae"))
+    sd.update(tokenizer_state(params["dvae"], batch_stats["dvae"], "dvae", arch))
     if buffers:
         sd["queue"] = _t(buffers["queue"])
         sd["queue_ptr"] = torch.tensor(np.asarray(buffers["queue_ptr"]).reshape(1),

@@ -6,7 +6,10 @@
 The flags and experiment directory of the port's other CLIs
 (``act_tpu_torch/utils/parser.py``). The pretrained and finetuned
 checkpoints are ``ckpt_pretrained`` and ``ckpt_finetuned`` in the YAML, or
-``--ckpts`` for the finetuned one, read as ``.pth`` (an orbax name raises);
+``--ckpts`` for the finetuned one, read as ``.pth`` (an orbax name raises:
+convert a JAX package's orbax checkpoint first, where JAX is installed, with
+``python tools/convert_checkpoint_to_torch.py --config <yaml> --src <orbax dir>
+--dst <.pth> --weights_only``);
 without them both models keep the weights drawn from ``--seed``.
 ``--max_batches N`` keeps the first N test batches and 2 vote rounds (the JAX
 CLI's ``--smoke`` keeps 2). The embeddings go to ``tsne_pretrained.npz`` and

@@ -102,6 +102,14 @@ version at the shapes the path gives it:
   model without a group, and the finetune CLI under
   ``torch.distributed.run`` at ``--mesh_model_parallel 2``;
 
+- the MODEL_ZOO parity protocol (phase 42, ``--parity``, beside phase 37's
+  tracing): fabricated full-width released-layout ``.pth`` files through every
+  row of ``act_tpu_torch.parity_protocol`` (the three ScanObjectNN rows,
+  ModelNet40 with and without ``--from_pretrain --vote``, fold 0 of the four
+  few-shot rows, S3DIS, the dVAE) on synthetic data, length cut only, each row's
+  kernels launched, the ``scan_hardest`` test OA against a CPU run of the same
+  batches, and the part-seg dumps of ``part_segmentation_vis``;
+
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
 train steps.
@@ -309,6 +317,31 @@ M8_STEPS, M8_VAL_BATCHES, M8_REQ_ITERS = 3, 2, (20, 10)
 FT8K_PER_STEP = {"fps": 1, "k_smallest": 1, "gather": 3}
 FT8K_PER_EVAL = {"fps": 2, "k_smallest": 1, "gather": 3}
 OPT_STEPS, OPT_EVERY, OPT_STOP = 4, 2, 3
+# phase 42 (``--parity``, a child process beside phase 37's tracing): every
+# MODEL_ZOO row of ``act_tpu_torch.parity_protocol`` on fabricated full-width
+# released-layout .pth files and synthetic data, length cut only: PARITY_BATCHES
+# test batches, PARITY_ROUNDS vote rounds, fold 0 of the few-shot rows for one
+# epoch of PARITY_STEPS steps, one S3DIS scene with one vote round, PARITY_DVAE
+# validation clouds; then the part-seg dumps of PARITY_SHAPES shapes
+PARITY_BATCHES, PARITY_ROUNDS, PARITY_STEPS, PARITY_DVAE, PARITY_SHAPES = 2, 2, 2, 4, 2
+# row -> (released file, protocol flags); the files are fabricated from seeds
+PARITY_ROWS = {
+    "scan_hardest": ("scan_hardest", {}),
+    "scan_objbg": ("scan_objbg", {"vote": True}),
+    "scan_objonly": ("scan_objonly", {}),
+    "modelnet": ("modelnet", {}),
+    "modelnet --from_pretrain --vote": ("pretrain", {"from_pretrain": True, "vote": True}),
+    "fewshot_modelnet_5w10s": ("pretrain", {}),
+    "fewshot_modelnet_5w20s": ("pretrain", {}),
+    "fewshot_modelnet_10w10s": ("pretrain", {}),
+    "fewshot_modelnet_10w20s": ("pretrain", {}),
+    "s3dis": ("s3dis", {}),
+    "dvae": ("dvae", {}),
+}
+# the kernels each kind of row must launch on the card (a S3DIS forward: FPS, the
+# k=32 kNN and the k=3 3-NN, two gathers)
+PARITY_KERNELS = {"cls": ("fps", "k_smallest", "gather"), "s3dis": ("fps", "k_smallest", "gather"),
+                  "dvae": ("fps", "k_smallest", "gather", "chamfer_nn_min")}
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -3282,6 +3315,141 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
     return rows, errs, launches
 
 
+def parity(dev, device_ms, kernel_events, measure):
+    """Phase 42, the MODEL_ZOO parity protocol (``act_tpu_torch.parity_protocol``)
+    on the card: fabricated full-width files in the released layouts (a
+    PointTransformer for each ScanObjectNN config and for ModelNet40, a
+    Stage-II ``ACT_PointDistillation`` with ``ACT_encoder.`` keys, a
+    ``SemSegTransformer`` in ``{'model_state_dict': ...}`` with the head keys of
+    the released file, the prompted-ViT dVAE), every row of ``PARITY_ROWS`` on
+    synthetic data with the length bounds above, each row's result finite and
+    in range and the kernels of ``PARITY_KERNELS`` launched; the
+    ``scan_hardest`` test OA against a CPU run of the same file and batches
+    (within one cloud; both in f32, TF32 off); the part-seg dumps of
+    ``part_segmentation_vis``. Checked and untimed: it runs beside phase 37's
+    tracing. Returns (no timing rows, no errors, each row's launches)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    try:
+        return {}, {}, _parity(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parity_files(tmp):
+    """The fabricated released files of phase 42, from seeds: name -> path."""
+    import torch
+    from act_tpu_torch import parity_protocol as pp
+    from act_tpu_torch.engine import serve
+    from act_tpu_torch.engine.runner_autoencoder import build_autoencoder_model
+    from act_tpu_torch.engine.runner_finetune import finetune_config
+    from act_tpu_torch.engine.runner_pretrain import build_pretrain_model
+    from act_tpu_torch.models import MODELS
+
+    def classifier(cfg_path, seed):
+        with torch.device("meta"):
+            model = MODELS.build(finetune_config(cfg_path).model)
+        model = model.to_empty(device="cpu")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        return {"base_model": model.state_dict()}
+
+    def dvae(seed):
+        cfg = serve.load_config(pp.DVAE_TASKS["dvae"])
+        return {"base_model": build_autoencoder_model(cfg.model, seed).state_dict()}
+
+    made = {task: (lambda c=cfg, i=i: classifier(c, 20 + i))
+            for i, (task, (cfg, _)) in enumerate(pp.TASKS.items())}
+    made["pretrain"] = lambda: {"base_model": build_pretrain_model(
+        serve.load_config(PRETRAIN_CONFIG).model, 30).state_dict()}
+    made["s3dis"] = lambda: {"model_state_dict": serve.load_seg_model(
+        "semseg", None, 128, "f32", 31, "cpu").state_dict(), "epoch": 59}
+    made["partseg"] = lambda: {"base_model": serve.load_seg_model(
+        "partseg", None, 128, "f32", 32, "cpu").state_dict()}
+    made["dvae"] = lambda: dvae(33)
+    paths = {}
+    for name, make in made.items():
+        paths[name] = os.path.join(tmp, f"released_{name}.pth")
+        torch.save(make(), paths[name])
+    return paths
+
+
+def _parity(dev, tmp):
+    import numpy as np
+    from act_tpu_torch import parity_protocol as pp
+    from act_tpu_torch import part_segmentation_vis
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.ops import _backend
+
+    t_phase = time.perf_counter()
+    files = parity_files(tmp)
+    print(f"[parity] fabricated {len(files)} full-width released files "
+          f"({sum(os.path.getsize(p) for p in files.values()) / 2 ** 20:.1f} MiB): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    bounds = dict(max_batches=PARITY_BATCHES, vote_rounds=PARITY_ROUNDS, folds=[0], epochs=1,
+                  max_steps=PARITY_STEPS)
+    launches, results = {}, {}
+    for row, (file, flags) in PARITY_ROWS.items():
+        task = row.split()[0]
+        kw = dict(bounds, **flags)
+        if task == "s3dis":
+            kw.update(max_batches=1, vote_rounds=1)
+        elif task == "dvae":
+            kw.update(max_batches=PARITY_DVAE)
+        t0 = time.perf_counter()
+        _backend.reset_launches()
+        res = pp.run_protocol(task, files[file], device=dev, work_dir=tmp,
+                              exp_name="parity_" + row.replace(" ", "").replace("-", "_"), **kw)
+        launches[row] = dict(_backend.LAUNCHES)
+        secs = time.perf_counter() - t0
+        results[row] = res
+        print(f"[parity] {row} {secs:.1f} s", flush=True)
+        print(f"[parity] {row}: {json.dumps(res)}", flush=True)
+        kind = task if task in ("s3dis", "dvae") else "cls"
+        missing = [k for k in PARITY_KERNELS[kind] if launches[row][k] == 0]
+        if missing:
+            fail(f"parity {row}: the kernels {missing} were not launched ({launches[row]})")
+        values = list(res["metrics"].values()) if task == "dvae" else [res["ours"]]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"parity {row}: a result is not finite: {res}")
+        if task != "dvae" and not 0.0 <= res["ours"] <= 100.0:
+            fail(f"parity {row}: {res['ours']} is not a percentage")
+        if task == "s3dis":  # each S3DIS forward: 1 FPS, the k=32 kNN and the k=3 3-NN
+            got = launches[row]
+            if got["k_smallest"] != 2 * got["fps"]:
+                fail(f"parity s3dis: {got['k_smallest']} k-smallest launches for {got['fps']} "
+                     "forwards, not the kNN and the 3-NN of each")
+        if task == "dvae":
+            check_launches("parity dvae", launches[row], VALIDATE_PER_CLOUD, PARITY_DVAE)
+    t0 = time.perf_counter()
+    cpu = pp.run_protocol("scan_hardest", files["scan_hardest"], device="cpu", work_dir=tmp,
+                          exp_name="parity_scan_hardest_cpu", **bounds)
+    card = results["scan_hardest"]["ours"]
+    clouds = PARITY_BATCHES * 2 * int(load_config(pp.TASKS["scan_hardest"][0]).total_bs)
+    print(f"[parity] scan_hardest test OA over {clouds} clouds: card {card:.4f}, CPU "
+          f"{cpu['ours']:.4f} (f32, TF32 off; the CPU run {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if abs(card - cpu["ours"]) > 100.0 / clouds + 1e-9:
+        fail("parity scan_hardest: the card's test OA is more than one cloud from the CPU's")
+    t0 = time.perf_counter()
+    _backend.reset_launches()
+    out = os.path.join(tmp, "vis")
+    written = part_segmentation_vis.main(["--ckpts", files["partseg"], "--out", out,
+                                          "--num_shapes", str(PARITY_SHAPES),
+                                          "--device", str(dev)])
+    launches["part_segmentation_vis"] = dict(_backend.LAUNCHES)
+    npoint = part_segmentation_vis.parse_args([]).npoint
+    shapes = [np.loadtxt(p).shape for p in written]
+    print(f"[parity] part_segmentation_vis {time.perf_counter() - t0:.1f} s: {len(written)} "
+          f"dumps {[os.path.basename(p) for p in written]} of shapes {shapes}", flush=True)
+    if len(written) != PARITY_SHAPES or any(s != (npoint, 5) for s in shapes):
+        fail(f"parity: the dumps are not {PARITY_SHAPES} files of {npoint} rows x 5 columns")
+    if any(launches["part_segmentation_vis"][k] == 0 for k in SEG_PER_FORWARD):
+        fail(f"parity dumps: kernels not launched ({launches['part_segmentation_vis']})")
+    print(f"[parity] phase 42 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def _extract_both(model, batches, npoints, runner_tsne):
     """``extract_features`` with logits through the kernels and through the
     plain versions (patched into ``act_tpu_torch.ops``), each run's
@@ -4905,7 +5073,8 @@ def ddp_seg_cli_check(tmp, side) -> None:
 # the phases that run in a child process of their own (``chip_smoke.py FLAG OUT``),
 # where the profiler's windows are whole
 CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
-                "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k"}
+                "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k",
+                "--parity": "parity"}
 
 
 def stop_processes(procs) -> None:
@@ -5267,11 +5436,15 @@ def main() -> None:
         # phase 37's end before their timed steps
         ddp_child = start_child("--ddp", env={DDP_TMP_ENV: ddp_dir})
         side_procs.append(ddp_child[0])
+        # -- 42. the MODEL_ZOO parity protocol, checked and untimed, beside the tracing
+        parity_child = start_child("--parity")
+        side_procs.append(parity_child[0])
         quiet = os.path.join(ddp_dir, "quiet")
 
         def when_quiet():  # the side work has ended and leg (b)'s ranks wait, started
             tsne_thread.join()
             side["thread"].join()
+            parity_child[0].wait()
             ready = [os.path.join(ddp_dir, f"ready-b-{r}") for r in (0, 1)]
             while ddp_child[0].poll() is None and not all(map(os.path.exists, ready)):
                 time.sleep(0.2)
@@ -5283,6 +5456,10 @@ def main() -> None:
         errs.update(ex_errs)
         if not tsne_ref.get("done"):
             fail("phase 36's CPU t-SNE reference failed")
+        _, par_errs, par_launches = finish_child(parity_child, timeout=600)
+        print(f"[time] phase 42 done at {time.perf_counter() - t_start:.1f} s (beside phase "
+              "37's tracing)", flush=True)
+        errs.update(par_errs)
         # -- 38. data parallelism over ranks and preemption
         open(os.path.join(ddp_dir, "go"), "w").close()
         _, ddp_errs, ddp_launches = finish_child(ddp_child, timeout=900)
@@ -5322,6 +5499,7 @@ def main() -> None:
             "launches_tsne": {tag: n[kernel] for tag, n in ts_launches.items()},
             "launches_export": {tag: n[kernel] for tag, n in ex_launches.items()},
             "launches_ddp": {tag: n[kernel] for tag, n in ddp_launches.items()},
+            "launches_parity": {tag: n[kernel] for tag, n in par_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
