@@ -476,8 +476,8 @@ class ACT_PointBERT(nn.Module):
                 enc.cls_pos.normal_(0.0, 1.0, generator=generator)
                 trunc_normal_(enc.mask_token, 0.02, generator)
             self.dvae.codebook.normal_(0.0, 1.0, generator=generator)
-            self.queue.copy_(_normalize(torch.randn(self.cls_dim, self.K, generator=generator),
-                                        dim=0))
+            self.queue.copy_(_normalize(torch.randn(self.cls_dim, self.K, generator=generator,
+                                                    device=generator.device), dim=0))
             self.queue_ptr.zero_()
         init_teacher_prompts(self.dvae, generator)
 

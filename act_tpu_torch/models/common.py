@@ -532,6 +532,7 @@ class GroupEncoder(nn.Module):
     act on the per-group global feature, [256:] on the points. The JAX
     package's conv1/conv3 carry no bias (the BatchNorm after each absorbs
     it); the port keeps the reference keys and never trains those two."""
+    FOLDED_BIASES = ("first_conv.0.bias", "second_conv.0.bias")
 
     def __init__(self, encoder_channel: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -543,8 +544,8 @@ class GroupEncoder(nn.Module):
         self.second_conv = nn.Sequential(
             Conv1x1(512, 512, dtype), BatchNorm(512, dtype), nn.ReLU(),
             Conv1x1(512, encoder_channel, dtype))
-        self.first_conv[0].bias.requires_grad_(False)
-        self.second_conv[0].bias.requires_grad_(False)
+        for name in self.FOLDED_BIASES:
+            self.get_parameter(name).requires_grad_(False)
 
     def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
         B, G, M, _ = point_groups.shape
@@ -624,6 +625,7 @@ class FoldingDecoder(nn.Module):
     the reference's bias keys; the JAX package folds them into the BatchNorm
     means, so they are zero and never trained. ``mlp.4`` and ``final_conv.6``
     run in f32 (no compute dtype), so coarse and fine come out f32."""
+    FOLDED_BIASES = ("final_conv.0.bias", "final_conv.3.bias")
 
     def __init__(self, encoder_channel: int, num_fine: int, grid_size: int = 2,
                  dtype: Optional[torch.dtype] = None):
@@ -639,8 +641,8 @@ class FoldingDecoder(nn.Module):
         self.final_conv = nn.Sequential(
             Conv1x1(encoder_channel + 3 + 2, 512, dtype), BatchNorm(512, dtype), nn.ReLU(),
             Conv1x1(512, 512, dtype), BatchNorm(512, dtype), nn.ReLU(), Conv1x1(512, 3))
-        self.final_conv[0].bias.requires_grad_(False)
-        self.final_conv[3].bias.requires_grad_(False)
+        for name in self.FOLDED_BIASES:
+            self.get_parameter(name).requires_grad_(False)
 
     def forward(self, feature_global: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, G, C = feature_global.shape

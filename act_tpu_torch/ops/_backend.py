@@ -31,6 +31,7 @@ from pathlib import Path
 from typing import Callable, Dict
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -180,12 +181,14 @@ def custom_op(name: str) -> Callable:
                                    device_types="cuda")
 
 
-def register_op(op, cpu_impl: Callable, fake_impl: Callable) -> None:
+def register_op(op, cpu_impl: Callable, fake_impl: Callable, flops: Callable) -> None:
     """Give a registered kernel op its CPU implementation (the plain
     version), its fake implementation (output shapes and dtypes, for
-    tracing), and a backward that passes no gradient: a kernel's output is
-    not differentiated on the card (indices, and gathered coordinates of
-    clouds that take no gradient)."""
+    tracing), a backward that passes no gradient (a kernel's output is
+    not differentiated on the card: indices, and gathered coordinates of
+    clouds that take no gradient), and its ``FlopCounterMode`` formula
+    ``flops`` (``ops/work.py``)."""
+    register_flop_formula(op._opoverload._overloadpacket)(flops)
     op.register_kernel("cpu")(cpu_impl)
     op.register_fake(fake_impl)
     op.register_autograd(lambda ctx, *grads: (None,) * ctx.n_inputs,

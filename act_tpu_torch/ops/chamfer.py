@@ -24,7 +24,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.fps import _sms
 from act_tpu_torch.ops.reference import chamfer_bwd_ref, chamfer_min_ref, chamfer_ref
 
@@ -108,6 +108,7 @@ def nn_pair(x: torch.Tensor, y: torch.Tensor
     """x (B, N, 3), y (B, M, 3) -> (d1 (B, N), d2 (B, M), i1 (B, N) int32,
     i2 (B, M) int32); the kernel takes f32."""
     _check_clouds(x, y)
+    work.record("chamfer_nn", *x.shape[:2], y.shape[1])
     if x.device.type == "cpu":
         return chamfer_ref(x, y)
     _backend.check_cuda_input(x, "chamfer x", torch.float32)
@@ -128,6 +129,7 @@ def nn_pair(x: torch.Tensor, y: torch.Tensor
 def nn_pair_min(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The distances of :func:`nn_pair` alone: (d1 (B, N), d2 (B, M))."""
     _check_clouds(x, y)
+    work.record("chamfer_nn_min", *x.shape[:2], y.shape[1])
     if x.device.type == "cpu":
         return chamfer_min_ref(x, y)
     _backend.check_cuda_input(x, "chamfer x", torch.float32)
@@ -154,6 +156,7 @@ def chamfer_bwd(x: torch.Tensor, y: torch.Tensor, i1: torch.Tensor, i2: torch.Te
         raise ValueError(f"chamfer_bwd: i1, g1 must be {tuple(x.shape[:2])} and i2, g2 "
                          f"{tuple(y.shape[:2])}, got {tuple(i1.shape)}, {tuple(g1.shape)}, "
                          f"{tuple(i2.shape)}, {tuple(g2.shape)}")
+    work.record("chamfer_bwd", *x.shape[:2], y.shape[1])
     if x.device.type == "cpu":
         return chamfer_bwd_ref(x, y, i1, i2, g1, g2)
     for t, what, dt in ((x, "x", torch.float32), (y, "y", torch.float32),

@@ -14,7 +14,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.reference import furthest_point_sample_ref
 
 MAX_POINTS = 16 * 1024  # the cloud in a block's shared memory; 16 points a thread
@@ -93,6 +93,7 @@ def furthest_point_sample(points: torch.Tensor, n_samples: int,
         if B and not bool(((start_idx >= 0) & (start_idx < N)).all()):
             raise ValueError(f"start_idx outside [0, {N})")
     if points.device.type == "cpu":
+        work.record("fps", B, N, n_samples)
         return furthest_point_sample_ref(points, n_samples, start_idx)
     _backend.check_cuda_input(points, "furthest_point_sample points", torch.float32)
     if N > MAX_POINTS:
@@ -121,7 +122,7 @@ def _fps_op(points: torch.Tensor, start: torch.Tensor, n_samples: int) -> torch.
 _backend.register_op(
     _fps_op, lambda points, start, n_samples: furthest_point_sample_ref(points, n_samples, start),
     lambda points, start, n_samples: points.new_empty(points.shape[0], n_samples,
-                                                      dtype=torch.int32))
+                                                      dtype=torch.int32), work.fps_op)
 
 
 def tie_swaps(got: torch.Tensor, want: torch.Tensor) -> int:

@@ -10,7 +10,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.reference import gather_points
 
 MAX_CHANNELS = 8
@@ -44,6 +44,7 @@ def gather_coords(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"idx must be (B, ...) with B={points.shape[0]}, "
                          f"got {tuple(idx.shape)}")
     if points.device.type == "cpu":
+        work.record("gather", idx.shape[0], idx.numel() // max(idx.shape[0], 1), points.shape[-1])
         return gather_points(points, idx)
     _backend.check_cuda_input(points, "gather_coords points", torch.float32)
     _backend.check_cuda_input(idx, "gather_coords idx", torch.int32)
@@ -64,7 +65,8 @@ def _gather_op(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 _backend.register_op(_gather_op, gather_points,
-                     lambda points, idx: points.new_empty(*idx.shape, points.shape[-1]))
+                     lambda points, idx: points.new_empty(*idx.shape, points.shape[-1]),
+                     work.gather_op)
 
 
 def check_gather_cases(fn: Callable, device) -> List[str]:

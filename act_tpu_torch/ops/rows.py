@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.reference import (RowGather, RowIndex, gather_rows_bwd_ref, row_index,
                                          take_rows)
 
@@ -35,6 +35,7 @@ def gather_rows_bwd(grad: torch.Tensor, index: RowIndex) -> torch.Tensor:
     if grad.dim() != 3 or idx.shape != grad.shape[:2]:
         raise ValueError(f"gather_rows_bwd: grad (B, M, C) and idx (B, M), got "
                          f"{tuple(grad.shape)} and {tuple(idx.shape)}")
+    work.record("row_gather_bwd", *grad.shape)
     if grad.device.type == "cpu":
         return gather_rows_bwd_ref(grad, idx, rows)
     if grad.dtype not in DTYPES:

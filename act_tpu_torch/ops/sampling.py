@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.fps import _sms
 from act_tpu_torch.ops.reference import _MASK32, gumbel_argmax_ref, gumbel_chunk
 from act_tpu_torch.parallel.mesh import data_index
@@ -102,6 +102,7 @@ def gumbel_argmax(logits: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"seed on {seed.device}, logits on {logits.device}")
     if data_index():
         seed = fold_seed(seed, data_index())
+    work.record("gumbel_argmax", logits.numel() // logits.shape[-1], logits.shape[-1])
     if logits.device.type == "cpu":
         return gumbel_argmax_ref(logits, seed)
     if logits.dtype not in DTYPES:

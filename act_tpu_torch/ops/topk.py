@@ -10,7 +10,7 @@ from typing import Tuple
 
 import torch
 
-from act_tpu_torch.ops import _backend
+from act_tpu_torch.ops import _backend, work
 from act_tpu_torch.ops.reference import k_smallest_ref
 
 MAX_N = 2 ** 31 - 32  # int32 indices; a row too long for shared memory is read from L2
@@ -24,6 +24,7 @@ def k_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if not 1 <= k <= n:
         raise ValueError(f"k must be in [1, N={n}], got {k}")
     if d.device.type == "cpu":
+        work.record("k_smallest", d.numel() // n, n, k)
         return k_smallest_ref(d, k)
     _backend.check_cuda_input(d, "k_smallest d", torch.float32)
     if n > MAX_N:
@@ -48,4 +49,4 @@ def _k_smallest_op(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
 _backend.register_op(
     _k_smallest_op, lambda d, k: tuple(t.contiguous() for t in k_smallest_ref(d, k)),
     lambda d, k: (d.new_empty(*d.shape[:-1], k),
-                  d.new_empty(*d.shape[:-1], k, dtype=torch.int32)))
+                  d.new_empty(*d.shape[:-1], k, dtype=torch.int32)), work.k_smallest_op)

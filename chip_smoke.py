@@ -83,7 +83,9 @@ version at the shapes the path gives it:
 - every serving forward exported (``engine/export.py``) on the card at B=32
   and with a symbolic batch, reloaded in a process that imports no model
   code, bit-equal to its direct call, its kernels in the call's profile,
-  served over HTTP (``serve_http``; the first through ``--src``) (phase 37);
+  served over HTTP (``serve_http``; the first through ``--src``) (phase 37;
+  every kind but the classifier with its transformers at 2 blocks, widths
+  kept);
 - data parallelism and preemption (phase 38, ``--ddp``): the finetune (B=32),
   Stage-II (B=128), Stage-I (B=64), part-seg (B=16), sem-seg (B=32) and
   ACT_PointBERT (B=128, its MoCo queue) steps over two ranks sharing the
@@ -100,7 +102,8 @@ version at the shapes the path gives it:
   a group, replicated tensors bit-equal over the ranks, the kernels of the
   no-group step launched, each trainer's full-layout checkpoint loaded by a
   model without a group, and the finetune CLI under
-  ``torch.distributed.run`` at ``--mesh_model_parallel 2``;
+  ``torch.distributed.run`` at ``--mesh_model_parallel 2``; every model of
+  phase 38 with its transformers at 2 blocks (segmentation 4), widths kept;
 
 - the MODEL_ZOO parity protocol (phase 42, ``--parity``, beside phase 37's
   tracing): fabricated full-width released-layout ``.pth`` files through every
@@ -108,7 +111,19 @@ version at the shapes the path gives it:
   ModelNet40 with and without ``--from_pretrain --vote``, fold 0 of the four
   few-shot rows, S3DIS, the dVAE) on synthetic data, length cut only, each row's
   kernels launched, the ``scan_hardest`` test OA against a CPU run of the same
-  batches, and the part-seg dumps of ``part_segmentation_vis``;
+  batches, and the part-seg dumps of ``part_segmentation_vis``; then the
+  linear and mlp-3 variants of the 1k ModelNet, the ScanObjectNN and the
+  few-shot configs, each for two steps and a test batch (phase 46);
+- Point-BERT's plain ``DiscreteVAE`` at ``pointbert_dvae.yaml`` uncut (phase
+  43, ``--plain-dvae``): its kernels at the path's shapes, one loss and
+  backward through the kernels and the plain versions, timed
+  ``run_autoencoder_steps``, a rerun bit-equal, ``validate``; and beside
+  phase 37's tracing (phase 44, ``--plain-dvae-cli``) its CLI trained,
+  resumed and tested, the checkpoint served as ``tokenize`` and ``dvae``
+  over HTTP against the plain path;
+- ``act_tpu_torch.get_flops`` on every shipped model YAML, on the card and
+  on the CPU, the counts equal exactly (phase 45, ``--flops``, beside phase
+  37's tracing);
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -180,11 +195,6 @@ FT_GRAD_KEYS = ("cls_head_finetune.8.weight", "cls_head_finetune.0.weight",
                 "cls_pos", "pos_embed.0.weight", "encoder.first_conv.0.weight")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
-GUMBEL_OPS = 24  # operations an element, counted in the note of csrc/gumbel.cu
-# operations a pair: 8 for its squared distance (3 subtractions, 3 products,
-# 2 sums), computed once as the function needs it, and 1 compare a direction
-CHAMFER_OPS = 10
-CHAMFER_BWD_OPS = 15  # operations a point: 3 subtractions, 6 products, 6 sums
 # the TPU kernel (its pallas_call function) that each port kernel replaces
 REPLACES = {"fps": "act_tpu/ops/fps.py:98", "k_smallest": "act_tpu/ops/topk.py:33",
             "gather": "act_tpu/ops/gather.py:25", "gumbel_argmax": "act_tpu/ops/sampling.py:50",
@@ -287,6 +297,16 @@ TSNE_PER_BATCH = {"fps": 3, "k_smallest": 2, "gather": 5}
 # phase 37, the artifacts: the fixed batch, the largest relative difference
 # allowed where an exported graph decomposes an op, request timing iterations
 EXPORT_B, EXPORT_RTOL, EXPORT_ITERS = 32, 1e-5, 20
+# the paths that run their transformers (the students, the frozen teachers) at CUT_DEPTH
+# blocks, widths kept (``cut_depth``; a segmentation backbone at CUT_SEG_WIDTHS), so that
+# the script keeps within its budget: the chain (phases 20-24) and PointBERT's run_net
+# (phase 32), whose checks (hand-overs, checkpoints, resumes) do not depend on depth;
+# every artifact but the classifier (phase 37: the host replays each block's nodes in a
+# call, so the depth sets the tracing, save and load seconds, not what the artifact
+# checks); phase 38, whose held steps against one rank, faults and checkpoints do not
+# depend on depth and whose gloo steps' times are not what DP and TP cost on NVLink
+CUT_DEPTH = 2
+CUT_SEG_WIDTHS = dict(depth=4, fetch_idx=[1, 2, 3])
 # the file whose existence tells phase 37's child that the work the parent ran
 # beside its tracing (phase 36's CPU t-SNE, phase 38's CLIs) has ended, so that
 # its timed requests run alone (an environment variable holding a path)
@@ -342,6 +362,32 @@ PARITY_ROWS = {
 # k=32 kNN and the k=3 3-NN, two gathers)
 PARITY_KERNELS = {"cls": ("fps", "k_smallest", "gather"), "s3dis": ("fps", "k_smallest", "gather"),
                   "dvae": ("fps", "k_smallest", "gather", "chamfer_nn_min")}
+# phase 46, in phase 42's child: the linear and mlp-3 variants of the 1k ModelNet and
+# the three ScanObjectNN finetune configs and the two few-shot ones (at VARIANT_FEWSHOT:
+# way, shot, fold), each at full width from its file for VARIANT_STEPS steps and a
+# test batch
+VARIANT_CONFIGS = tuple(f"cfgs/finetune_classification/{head}/finetune_{data}_{head}.yaml"
+                        for data in ("modelnet", "scan_hardest", "scan_objbg", "scan_objonly")
+                        for head in ("linear", "mlp3")) + tuple(
+    f"cfgs/finetune_classification/few_shot/fewshot_modelnet_{head}.yaml"
+    for head in ("linear", "mlp3"))
+VARIANT_STEPS, VARIANT_FEWSHOT = 2, (5, 10, 0)
+# phases 43-44: Point-BERT's plain DiscreteVAE (pointbert_dvae.yaml uncut: B=64, G=64 x
+# M=32, 8192 codes, 384 wide, bf16; no teacher). 43 (``--plain-dvae``, a child alone on
+# the card): its kernels at the path's shapes, phase 12's check (its upstream gradients
+# PD_UPSTREAM_KEYS), run_autoencoder_steps from S1_START_ITR (the soft-Gumbel
+# temperature and the KLD weight annealed), a step rerun, validate on PD_VAL_CLOUDS;
+# 44 (``--plain-dvae-cli``, beside phase 37's tracing): main_autoencoder for
+# PD_CLI_STEPS steps, resumed for as many, --test on PD_TEST_CLOUDS with PD_DUMPS
+# dumps, and its ckpt-best served as tokenize and dvae at B=1 and PD_HTTP_B
+PLAIN_DVAE_CONFIG = "cfgs/autoencoder/pointbert_dvae.yaml"
+PD_UPSTREAM_KEYS = ("codebook", "dgcnn_1.layer5.0.weight", "encoder.first_conv.0.weight")
+PD_VAL_CLOUDS, PD_CLI_STEPS, PD_TEST_CLOUDS, PD_DUMPS, PD_HTTP_B = 16, 2, 16, 2, 32
+# phase 45 (``--flops``, beside phase 37's tracing): act_tpu_torch.get_flops on every
+# shipped model YAML, on the card and on the CPU (FLOPS_CPU_THREADS threads)
+FLOPS_DIRS = ("autoencoder", "pretrain", "finetune_classification/full",
+              "finetune_classification/linear", "finetune_classification/mlp3")
+FLOPS_CONFIGS, FLOPS_CPU_THREADS = 18, 4
 # TPU kernels that a port kernel of another name covers: row -> (kernel, replaces)
 COVERED = {"fps_start0": ("fps", "act_tpu/ops/fps.py:29")}
 
@@ -387,18 +433,20 @@ def check_launches(tag: str, launches, per_unit, units: int) -> None:
 
 def chamfer_bounds(x, y, index: bool):
     """``bound_ms`` of one chamfer_nn (``index``) or chamfer_nn_min launch:
-    both clouds read, distances (and indices) written, ``CHAMFER_OPS``
-    operations a pair."""
+    both clouds read, distances (and indices) written, the operations of
+    ``ops/work.py``."""
+    from act_tpu_torch.ops import work
     (B, N, _), M = x.shape, y.shape[1]
     out = (8 if index else 4) * B * (N + M)
-    return bound_ms(12 * B * (N + M) + out, CHAMFER_OPS * float(B * N * M))
+    return bound_ms(12 * B * (N + M) + out, work.chamfer_nn(B, N, M))
 
 
 def chamfer_bwd_bounds(x, y):
     """``bound_ms`` of one chamfer_bwd launch: x, y, the indices and the
     output gradients read, dx, dy written."""
+    from act_tpu_torch.ops import work
     (B, N, _), M = x.shape, y.shape[1]
-    return bound_ms(12 * B * (N + M) * 2 + 8 * B * (N + M), CHAMFER_BWD_OPS * B * (N + M))
+    return bound_ms(12 * B * (N + M) * 2 + 8 * B * (N + M), work.chamfer_bwd(B, N, M))
 
 
 def distinct_rows(idx) -> int:
@@ -544,6 +592,17 @@ def patched(module, **attrs):
         for k, v in old.items():
             setattr(module, k, v)
 
+def cut_depth(cfg):
+    """``cfg`` with its transformers (the student, the teacher of a dVAE or a
+    tokenizer) at ``CUT_DEPTH`` blocks (``CUT_DEPTH``'s note says where)."""
+    m = cfg.model
+    for node in (m, m.get("transformer_config"), m.get("dvae_config")):
+        if node is not None:
+            for key in ("depth", "visual_embed_depth"):
+                if key in node:
+                    node[key] = CUT_DEPTH
+    return cfg
+
 
 def stage_two(dev, device_ms, kernel_events, measure):
     """Phases 6-10: the Stage-II kernels against their plain versions at the
@@ -558,7 +617,7 @@ def stage_two(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.engine.serve import load_config
     from act_tpu_torch.engine.train_state import pretrain_step, step_rngs
     from act_tpu_torch.models.teacher import teacher_forward
-    from act_tpu_torch.ops import _backend, sampling
+    from act_tpu_torch.ops import _backend, sampling, work
     from act_tpu_torch.ops.fps import _sms, tie_swaps
 
     cfg = load_config(PRETRAIN_CONFIG)
@@ -765,11 +824,11 @@ def stage_two(dev, device_ms, kernel_events, measure):
             "gumbel_argmax": [measure(
                 f"({bs * G}, {V}) bf16", lambda: ops.gumbel_argmax(logits, seeds[0]),
                 lambda: ops.gumbel_argmax_ref(logits, seeds[0]), None, 50, 3,
-                bound_ms(logits.numel() * 2 + bs * G * 4, GUMBEL_OPS * logits.numel()))],
+                bound_ms(logits.numel() * 2 + bs * G * 4, work.gumbel_argmax(bs * G, V)))],
             "fps": [measure(
                 f"({bs}, {npts}, 3)->{G}", lambda: ops.furthest_point_sample(clouds, G),
                 lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
-                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+                bound_ms(clouds.numel() * 4 + bs * G * 4, work.fps(bs, npts, G)))],
             "k_smallest": [measure(
                 f"({d.shape[0]}, {d.shape[1]}) k={kk}", lambda d=d, kk=kk: ops.k_smallest(d, kk),
                 lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
@@ -788,20 +847,21 @@ def stage_two(dev, device_ms, kernel_events, measure):
     return rows, errs, launches
 
 
-def stage1_paths_agree(model, clouds, temp, kldw, dev, tag) -> None:
+def stage1_paths_agree(model, clouds, temp, kldw, dev, tag, upstream=UPSTREAM_KEYS) -> None:
     """Phase 12's check of a full-width Stage-I dVAE: one train-mode loss and
     backward through the kernels (launches checked) and one through the plain
     versions (patched into ``act_tpu_torch.ops`` and ``ops.chamfer``), from
     the same generators; the losses within LOSS_ATOL, the gradients of
-    DOWNSTREAM_KEYS within GRAD_RTOL and those of UPSTREAM_KEYS within
-    SPREAD_FACTOR times the spread of two kernel-path runs."""
+    DOWNSTREAM_KEYS within GRAD_RTOL and those of ``upstream`` (the
+    teacher's side) within SPREAD_FACTOR times the spread of two kernel-path
+    runs, never below GRAD_RTOL."""
     import torch
     from act_tpu_torch import ops
     from act_tpu_torch.engine.train_state import step_rngs
     from act_tpu_torch.ops import _backend
     from act_tpu_torch.ops import chamfer as chamfer_mod
 
-    grad_keys = DOWNSTREAM_KEYS + UPSTREAM_KEYS
+    grad_keys = DOWNSTREAM_KEYS + tuple(upstream)
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
@@ -857,7 +917,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
     from act_tpu_torch.engine.train_state import autoencoder_step, step_rngs
     from act_tpu_torch.models.common import gumbel_softmax_from_u
     from act_tpu_torch.models.teacher import teacher_forward
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.ops import chamfer as chamfer_mod
     from act_tpu_torch.ops.fps import _sms, tie_swaps
     from act_tpu_torch.ops.reference import take_rows
@@ -1113,7 +1173,7 @@ def stage_one(dev, device_ms, kernel_events, measure):
             "fps": [measure(
                 f"({bs}, {npts}, 3)->{G}", lambda: ops.furthest_point_sample(clouds, G),
                 lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
-                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+                bound_ms(clouds.numel() * 4 + bs * G * 4, work.fps(bs, npts, G)))],
             "k_smallest": [measure(
                 f"({d.shape[0]}, {d.shape[1]}) k={kk}", lambda d=d, kk=kk: ops.k_smallest(d, kk),
                 lambda d=d, kk=kk: ops.k_smallest_ref(d, kk),
@@ -1183,7 +1243,7 @@ def finetune(dev, device_ms, kernel_events, measure):
                                                       vote_generator, vote_logits)
     from act_tpu_torch.engine.train_state import step_rngs
     from act_tpu_torch.models.point_transformer import get_loss_acc
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.engine.train_state import finetune_step
     from act_tpu_torch.ops import fps as fps_mod
     from act_tpu_torch.ops.fps import tie_swaps
@@ -1310,7 +1370,7 @@ def finetune(dev, device_ms, kernel_events, measure):
             fps_rows.append(measure(
                 f"({B_}, {N_}, 3)->{S}", lambda p=p, S=S: ops.furthest_point_sample(p, S),
                 lambda p=p, S=S: ops.furthest_point_sample_ref(p, S), None, 20, 1,
-                bound_ms(p.numel() * 4 + B_ * S * 4, 10.0 * B_ * (S - 1) * N_), n))
+                bound_ms(p.numel() * 4 + B_ * S * 4, work.fps(B_, N_, S)), n))
         rows = {
             "fps": fps_rows,
             "k_smallest": [measure(
@@ -1520,6 +1580,7 @@ def chain_shapes(dev, measure):
     from act_tpu_torch import ops
     from act_tpu_torch.datasets import build_dataset_from_cfg, synthetic_cloud
     from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.ops import work
     from act_tpu_torch.ops.fps import tie_swaps
 
     cfg = load_config(PRETRAIN_CONFIG)
@@ -1577,7 +1638,7 @@ def chain_shapes(dev, measure):
                 lambda p=p, S=S: ops.furthest_point_sample(p, S),
                 lambda p=p, S=S: ops.furthest_point_sample_ref(p, S), None, 10, 1,
                 bound_ms(p.numel() * 4 + p.shape[0] * S * 4,
-                         10.0 * p.shape[0] * (S - 1) * p.shape[1]))
+                         work.fps(p.shape[0], p.shape[1], S)))
                 for p, S in ((clouds, npts), (pts.contiguous(), G))],
             "k_smallest": [measure(
                 f"({d.shape[0]}, {d.shape[1]}) k={M} (probe)", lambda: ops.k_smallest(d, M),
@@ -1595,7 +1656,7 @@ def chain_shapes(dev, measure):
                 f"({G}, {V}) bf16 (one cloud's tokenizer)",
                 lambda: ops.gumbel_argmax(logits, seeds[0]),
                 lambda: ops.gumbel_argmax_ref(logits, seeds[0]), None, 100, 10,
-                bound_ms(logits.numel() * 2 + G * 4, GUMBEL_OPS * logits.numel()), 0)],
+                bound_ms(logits.numel() * 2 + G * 4, work.gumbel_argmax(G, V)), 0)],
         }
     print_times("chain ", rows)
     return rows, errs
@@ -1603,8 +1664,9 @@ def chain_shapes(dev, measure):
 
 def chain(dev):
     """Phases 20-24: the user's pipeline through the trainers' entry points
-    at full width, every checkpoint under a temporary directory deleted
-    afterwards. 20: Stage I, ``runner_autoencoder.run_net`` for one epoch of
+    at full width, the transformers at ``CUT_DEPTH`` blocks (``cut_depth``),
+    every checkpoint under a temporary directory deleted afterwards. 20:
+    Stage I, ``runner_autoencoder.run_net`` for one epoch of
     at most 4 steps through the ShapeNet-55 loader, validation on 16 test
     clouds, ckpt-best and ckpt-last; its resume for one more epoch; then
     ``test_net`` of ckpt-best with its dumps. 21: Stage II,
@@ -1664,9 +1726,9 @@ def chain(dev):
         # -- 20. Stage I: run_net, resume, test_net ----------------------------
         t_phase = time.perf_counter()
         s1 = os.path.join(tmp, "stage1")
-        acfg = load_config(AUTOENCODER_CONFIG)
+        acfg = cut_depth(load_config(AUTOENCODER_CONFIG))
         res1 = counted("Stage-I run_net", lambda: runner_autoencoder.run_net(
-            AUTOENCODER_CONFIG, device=dev, epochs=1, max_steps=S1_RUN_STEPS,
+            acfg, device=dev, epochs=1, max_steps=S1_RUN_STEPS,
             max_val=S1_RUN_VAL, experiment_path=s1))
         expect("Stage-I run_net", (STAGE1_PER_STEP, S1_RUN_STEPS),
                (VALIDATE_PER_CLOUD, S1_RUN_VAL))
@@ -1683,7 +1745,7 @@ def chain(dev):
                 fail(f"Stage-I run_net: no {name}")
         epoch_steps = 512 // int(acfg.total_bs)  # the synthetic ShapeNet-55 at B=64
         res1b = counted("Stage-I resume", lambda: runner_autoencoder.run_net(
-            AUTOENCODER_CONFIG, device=dev, epochs=2, max_steps=S1_RUN_STEPS,
+            acfg, device=dev, epochs=2, max_steps=S1_RUN_STEPS,
             max_val=S1_RESUME_VAL, resume=True, experiment_path=s1))
         expect("Stage-I resume", (STAGE1_PER_STEP, S1_RUN_STEPS),
                (VALIDATE_PER_CLOUD, S1_RESUME_VAL))
@@ -1699,7 +1761,7 @@ def chain(dev):
             fail("Stage-I resume: epoch, step or anneal iteration did not continue")
         best1 = ckpt_lib.ckpt_path(s1, "ckpt-best")
         m_test = counted("Stage-I test_net", lambda: runner_autoencoder.test_net(
-            AUTOENCODER_CONFIG, ckpts=best1, device=dev, experiment_path=s1,
+            acfg, ckpts=best1, device=dev, experiment_path=s1,
             max_batches=S1_TEST_CLOUDS, max_dumps=S1_TEST_CLOUDS))
         expect("Stage-I test_net", (VALIDATE_PER_CLOUD, S1_TEST_CLOUDS),
                (RECON_PER_CLOUD, S1_TEST_CLOUDS))
@@ -1715,7 +1777,7 @@ def chain(dev):
         # -- 21. Stage II on the Stage-I tokenizer ----------------------------
         t_phase = time.perf_counter()
         s2 = os.path.join(tmp, "stage2")
-        pcfg = load_config(PRETRAIN_CONFIG)
+        pcfg = cut_depth(load_config(PRETRAIN_CONFIG))
         pcfg.model.dvae_config.ckpt = best1
         source = load_state_dict(best1)
         before = runner_pretrain.prepare_model(pcfg, 0, dev)
@@ -1778,7 +1840,7 @@ def chain(dev):
         # -- 23. one finetune step from the Stage-II checkpoint ------------------
         t_phase = time.perf_counter()
         best2 = ckpt_lib.ckpt_path(s2, "ckpt-best")
-        fcfg = runner_finetune.finetune_config(CONFIG)
+        fcfg = cut_depth(runner_finetune.finetune_config(CONFIG))
         st = runner_finetune.build_state(fcfg, 1, 0, dev, ckpts=best2)
         saved = load_state_dict(best2)
         student = [k for k in saved if k.startswith("ACT_encoder.")
@@ -1877,7 +1939,7 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
     from act_tpu_torch.engine.serve import build_infer_fn, load_seg_model
     from act_tpu_torch.engine.train_state import seg_step, step_rngs
     from act_tpu_torch.models.segmentation import nll_seg_loss
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.ops import interpolate as interp_mod
     from act_tpu_torch.ops.fps import tie_swaps
     from act_tpu_torch.ops.reference import take_rows
@@ -1964,7 +2026,7 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
             rows.append(measure(f"({B}, {N}, 3)->{G} ({tag})",
                                 lambda p=pts: ops.furthest_point_sample(p, G),
                                 lambda p=pts: ops.furthest_point_sample_ref(p, G), None, 20, 1,
-                                bound_ms(pts.numel() * 4 + B * G * 4, 10.0 * B * (G - 1) * N), n))
+                                bound_ms(pts.numel() * 4 + B * G * 4, work.fps(B, N, G)), n))
             for d, kk in ((d32, M), (d3, 3)):
                 shapes.setdefault("k_smallest", []).append(measure(
                     f"({d.shape[0]}, {d.shape[1]}) k={kk} ({tag})",
@@ -2284,7 +2346,7 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     from act_tpu_torch.engine import runner_pretrain as rp
     from act_tpu_torch.engine.serve import build_features_fn
     from act_tpu_torch.engine.train_state import ema_update, pretrain_step, step_rngs
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.ops.fps import tie_swaps
 
     cfg = pointbert_config()
@@ -2545,7 +2607,7 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
                 f"({bs}, {npts}, 3)->{G} (pointbert)",
                 lambda: ops.furthest_point_sample(clouds, G),
                 lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
-                bound_ms(clouds.numel() * 4 + bs * G * 4, 10.0 * bs * (G - 1) * npts))],
+                bound_ms(clouds.numel() * 4 + bs * G * 4, work.fps(bs, npts, G)))],
             "k_smallest": [measure(
                 f"({d.shape[0]}, {d.shape[1]}) k={kk} (pointbert)",
                 lambda d=d, kk=kk: ops.k_smallest(d, kk),
@@ -2569,7 +2631,10 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     # -- 32. run_net through the loader with the SVM probe, ckpt-last and --resume ---
     t_phase = time.perf_counter()
     exp = os.path.join(tmp, "pointbert")
-    res = counted("run_net", lambda: rp.run_net(pointbert_config(), device=dev, epochs=1,
+
+    def run_cfg():
+        return cut_depth(pointbert_config())
+    res = counted("run_net", lambda: rp.run_net(run_cfg(), device=dev, epochs=1,
                                                max_steps=PB_RUN_STEPS, experiment_path=exp))
     # the probe's batches: the train split drops its last partial batch
     n_probe = sum((len(build_dataset_from_cfg(cfg.dataset[n])) + pad) // PROBE_BATCH
@@ -2586,7 +2651,7 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     if not (res.step == PB_RUN_STEPS and all(map(math.isfinite, res.epoch_loss))
             and math.isfinite(probe.acc) and probe.svm_rel_grad <= 1e-6):
         fail("pointbert run_net: steps, loss or probe wrong")
-    again = counted("run_net resume", lambda: rp.run_net(pointbert_config(), device=dev,
+    again = counted("run_net resume", lambda: rp.run_net(run_cfg(), device=dev,
                                                         epochs=1, resume=True,
                                                         experiment_path=exp))
     want_sd, got_sd = res.model.state_dict(), again.model.state_dict()
@@ -2647,7 +2712,7 @@ def _tokenizer(dev, device_ms, kernel_events, measure, tmp):
                                             load_model)
     from act_tpu_torch.engine.train_state import autoencoder_step, pretrain_step, step_rngs
     from act_tpu_torch.models.teacher import TEACHER_LAYOUT
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.ops.fps import tie_swaps
 
     cfg = load_config(AUTOENCODER_CONFIG)
@@ -2764,7 +2829,7 @@ def _tokenizer(dev, device_ms, kernel_events, measure, tmp):
                 f"({TOK_B}, {npts}, 3)->{G} (tokenize, recon)",
                 lambda: ops.furthest_point_sample(clouds, G),
                 lambda: ops.furthest_point_sample_ref(clouds, G), None, 50, 3,
-                bound_ms(clouds.numel() * 4 + TOK_B * G * 4, 10.0 * TOK_B * (G - 1) * npts))],
+                bound_ms(clouds.numel() * 4 + TOK_B * G * 4, work.fps(TOK_B, npts, G)))],
             "k_smallest": [measure(
                 f"({d.shape[0]}, {d.shape[1]}) k={kk} (tokenize x{n}, recon x{n + r})",
                 lambda d=d, kk=kk: ops.k_smallest(d, kk),
@@ -2971,7 +3036,7 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
                                                       train_transform, vote_generator,
                                                       vote_logits)
     from act_tpu_torch.engine.train_state import finetune_step, step_rngs
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.ops.fps import tie_swaps
     from act_tpu_torch.ops.group import subset_draw
     from act_tpu_torch.utils.config import ConfigDict
@@ -2999,7 +3064,7 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
         rows["fps"].append(measure(
             f"({B_}, {N_}, 3)->{S} ({tag})", lambda: ops.furthest_point_sample(p, S),
             lambda: ops.furthest_point_sample_ref(p, S), None, 10, 1,
-            bound_ms(p.numel() * 4 + B_ * S * 4, 10.0 * B_ * (S - 1) * N_), n,
+            bound_ms(p.numel() * 4 + B_ * S * 4, work.fps(B_, N_, S)), n,
             plain_events=True))
 
     # -- 39. the offline FPS cache through the card's FPS kernel -------------------
@@ -3447,7 +3512,467 @@ def _parity(dev, tmp):
     if any(launches["part_segmentation_vis"][k] == 0 for k in SEG_PER_FORWARD):
         fail(f"parity dumps: kernels not launched ({launches['part_segmentation_vis']})")
     print(f"[parity] phase 42 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(finetune_variants(dev))
+    print(f"[variant] phase 46 {time.perf_counter() - t0:.1f} s ({len(VARIANT_CONFIGS)} configs)",
+          flush=True)
     return launches
+
+
+def dvae_tsne(dev, device_ms, kernel_events, measure):
+    """Phases 43 and 36 (``plain_dvae``, then ``tsne``), each alone on the
+    card, in one child process: a child's start-up (CUDA, the kernels' lazy
+    loading) cost 12-17 s (NVIDIA H100 80GB HBM3, 700 W). Phase 43 opens one profiler
+    window, so phase 36's come early in the process (a window late in a
+    process loses records: after phases 43 and 39-41 every t-SNE row fell
+    back to CUDA events). Returns (timing rows and launches by phase name,
+    errors)."""
+    out = {name: globals()[name](dev, device_ms, kernel_events, measure)
+           for name in ("plain_dvae", "tsne")}
+    errs = {k: v for r in out.values() for k, v in r[1].items()}
+    return {n: r[0] for n, r in out.items()}, errs, {n: r[2] for n, r in out.items()}
+
+
+def finetune_variants(dev):
+    """Phase 46 (in phase 42's child, checked and untimed): each config of
+    ``VARIANT_CONFIGS`` at full width from its file (the few-shot ones at
+    ``VARIANT_FEWSHOT``), with the trainable set its transfer type gives:
+    ``run_finetune_steps`` for ``VARIANT_STEPS`` steps on its train loader's
+    batches (the kernels launched, the frozen tensors bit-unchanged, the
+    head's last layer moved, the losses finite), then one test batch's
+    logits through the kernels against the plain path (the eval resample's
+    FPS and gather patched into ``engine.serve``, ``group_points`` into
+    ``act_tpu_torch.ops``) within LOGIT_ATOL. Returns each run's launches."""
+    import itertools
+
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.engine import serve
+    from act_tpu_torch.engine.runner_finetune import (build_state, finetune_config, loaders,
+                                                      predict, run_finetune_steps)
+    from act_tpu_torch.ops import _backend
+
+    launches = {}
+    for yaml in VARIANT_CONFIGS:
+        t0 = time.perf_counter()
+        few = "few_shot" in yaml
+        cfg = finetune_config(yaml, *VARIANT_FEWSHOT) if few else finetune_config(yaml)
+        name = os.path.basename(yaml)[:-len(".yaml")]
+        train, test = loaders(cfg, 0, ("train", "val"), device=dev)
+        batches = list(itertools.islice(train, VARIANT_STEPS))
+        st = build_state(cfg, len(train), 0, dev)
+        before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+        _backend.reset_launches()
+        run = run_finetune_steps(cfg, VARIANT_STEPS, batches=batches, seed=0, device=dev,
+                                 state=st)
+        torch.cuda.synchronize()
+        launches[f"variant {name} steps"] = dict(_backend.LAUNCHES)
+        params = dict(st.model.named_parameters())
+        frozen = [n for n, p in params.items() if not p.requires_grad]
+        trained = [n for n, p in params.items() if p.requires_grad]
+        frozen_same = all(torch.equal(params[n], before[n]) for n in frozen)
+        moved = [n for n in trained if not torch.equal(params[n], before[n])]
+        head = [n for n in trained if n.startswith("cls_head_finetune.")][-2]  # last weight
+        npoints = int(cfg.npoints)
+        batch = next(iter(test))
+        _backend.reset_launches()
+        logits_k, _ = predict(st.model, [batch], npoints, dev)
+        launches[f"variant {name} test batch"] = dict(_backend.LAUNCHES)
+        with patched(serve, furthest_point_sample=ops.furthest_point_sample_ref,
+                     gather_coords=ops.gather_points), \
+                patched(ops, group_points=ops.group_points_ref):
+            _backend.reset_launches()
+            logits_p, _ = predict(st.model, [batch], npoints, dev)
+            plain_launched = any(_backend.LAUNCHES.values())
+        diff = float(abs(logits_k - logits_p).max())
+        agree = bool((logits_k.argmax(-1) == logits_p.argmax(-1)).all())
+        unlaunched = [k for k in SERVE_KERNELS
+                      if not (launches[f"variant {name} steps"][k]
+                              and launches[f"variant {name} test batch"][k])]
+        split = ", %d-way %d-shot fold %d" % VARIANT_FEWSHOT if few else ""
+        print(f"[variant] {yaml} ({cfg.model.transfer_type}{split}): losses {run.losses}; "
+              f"{len(frozen)} frozen tensors bit-unchanged {frozen_same}, "
+              f"{len(moved)} of {len(trained)} trained tensors moved (the head's {head}: "
+              f"{head in moved}); test batch {tuple(logits_k.shape)} logits through the kernels "
+              f"against the plain path: max |diff| {diff} (tolerance {LOGIT_ATOL}), argmax "
+              f"agree {agree}; launches {launches[f'variant {name} steps']} (steps), "
+              f"{launches[f'variant {name} test batch']} (test batch); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not (all(map(math.isfinite, run.losses)) and frozen_same and head in moved
+                and diff <= LOGIT_ATOL and not plain_launched and not unlaunched):
+            fail(f"variant {yaml}: a loss not finite, a frozen tensor moved, the head did not, "
+                 f"the paths disagree, the plain path launched kernels or a kernel was not "
+                 f"launched ({unlaunched})")
+        del run, st, before, params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def plain_dvae(dev, device_ms, kernel_events, measure):
+    """Phase 43, Point-BERT's plain ``DiscreteVAE`` at ``pointbert_dvae.yaml``
+    uncut (``chip_smoke.py --plain-dvae``, a child alone on the card): FPS,
+    k-smallest (k=32, k=4), the gathers, the Chamfer kernels at the recon and
+    validation shapes and the row-gather backward at the DGCNN's rounds
+    against their plain versions; phase 12's loss and backward through the
+    kernels and the plain versions; ``run_autoencoder_steps`` for
+    ``S1_WARM_STEPS`` + ``S1_TIMED_STEPS`` steps from ``S1_START_ITR`` (host
+    ms, device ms, idle share, peak GiB), a step rerun from one state
+    bit-equal; ``validate`` on ``PD_VAL_CLOUDS`` clouds against the plain
+    path. Returns (no timing rows, errors, launches)."""
+    import torch
+    from act_tpu_torch import ops
+    from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.engine.runner_autoencoder import (get_kld_weight, get_temp,
+                                                         prepare_model, run_autoencoder_steps,
+                                                         validate)
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.engine.train_state import autoencoder_step, step_rngs
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import chamfer as chamfer_mod
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    t_phase = time.perf_counter()
+    cfg = load_config(PLAIN_DVAE_CONFIG)
+    bs, npts = int(cfg.total_bs), int(cfg.dataset.train.others.npoints)
+    G, M = int(cfg.model.num_group), int(cfg.model.group_size)
+    temp, kldw = get_temp(cfg, S1_START_ITR), get_kld_weight(cfg, S1_START_ITR)
+    clouds = torch.from_numpy(synthetic_batch(0, bs, npts)).to(dev)
+    errs, launches = {}, {}
+
+    # the kernels at the path's shapes against their plain versions
+    g = torch.Generator(device=dev).manual_seed(43)
+    with torch.inference_mode():
+        kc, rc = ops.furthest_point_sample(clouds, G), ops.furthest_point_sample_ref(clouds, G)
+        n_sw = tie_swaps(kc, rc)
+        if n_sw < 0 or not torch.equal(kc.sort(-1).values, rc.sort(-1).values):
+            fail(f"plain dvae fps ({bs}, {npts}, 3)->{G}: picks differ beyond tie swaps")
+        errs["fps plain dvae"] = 0.0
+        centers = ops.gather_points(clouds, rc)
+        d_grp = ops.square_distance(centers, clouds).reshape(bs * G, npts)
+        d_dg = ops.square_distance(centers, centers).reshape(bs * G, G)
+        for d, kk in ((d_grp, M), (d_dg, 4)):
+            (kv, ki), (rv, ri) = ops.k_smallest(d, kk), ops.k_smallest_ref(d, kk)
+            if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+                fail(f"plain dvae k_smallest {tuple(d.shape)} k={kk}: differs")
+        errs["k_smallest plain dvae"] = 0.0
+        nbr_idx = ops.k_smallest_ref(d_grp, M)[1].reshape(bs, -1)
+        for i in (rc, nbr_idx):
+            if not torch.equal(ops.gather_coords(clouds, i), ops.gather_points(clouds, i)):
+                fail(f"plain dvae gather by {tuple(i.shape)}: not bit-equal")
+        errs["gather plain dvae"] = 0.0
+        gt = ops.gather_points(clouds, nbr_idx).reshape(bs * G, M, 3)
+        pairs = {"recon coarse": ((gt[:, ::4] + 0.01 * torch.randn(
+            bs * G, M // 4, 3, generator=g, device=dev)).contiguous(), gt),
+            "recon fine": ((gt + 0.01 * torch.randn(gt.shape, generator=g, device=dev)), gt)}
+        for tag, (x, y) in pairs.items():
+            k, r = chamfer_mod.nn_pair(x, y), ops.chamfer_ref(x, y)
+            g1 = torch.randn(x.shape[:2], generator=g, device=dev)
+            g2 = torch.randn(y.shape[:2], generator=g, device=dev)
+            kb = chamfer_mod.chamfer_bwd(x, y, r[2], r[3], g1, g2)
+            rb = ops.chamfer_bwd_ref(*(t.cpu() for t in (x, y, r[2], r[3], g1, g2)))
+            if not (all(torch.equal(a, b) for a, b in zip(k, r))
+                    and all(torch.equal(a.cpu(), b) for a, b in zip(kb, rb))):
+                fail(f"plain dvae chamfer {tag}: kernel and plain version differ")
+        x, y = 0.5 * torch.randn(1, G * M, 3, generator=g, device=dev), clouds[:1].contiguous()
+        if not all(torch.equal(a, b) for a, b in zip(chamfer_mod.nn_pair_min(x, y),
+                                                    ops.chamfer_min_ref(x, y))):
+            fail("plain dvae chamfer_nn_min at the validation shape: differs")
+        for name in ("chamfer_nn", "chamfer_bwd", "chamfer_nn_min"):
+            errs[f"{name} plain dvae"] = 0.0
+        dg_idx = ops.graph_feature_idx(centers, centers, 4).reshape(bs, G * 4)
+        for c in sorted(set(DGCNN_ROUND_C)):
+            check_row_gather(f"plain dVAE DGCNN C={c}",
+                             torch.randn(bs, G * 4, c, generator=g, device=dev), dg_idx, G, errs)
+    print(f"[plain dvae] kernels against their plain versions at the path's shapes: fps "
+          f"({bs}, {npts}, 3)->{G} ({n_sw} tie swaps), k_smallest ({bs * G}, {npts}) k={M} and "
+          f"({bs * G}, {G}) k=4, the two gathers, chamfer_nn and chamfer_bwd at "
+          f"{[tuple(x.shape) for x, _ in pairs.values()]} x {tuple(gt.shape)}, chamfer_nn_min "
+          f"(1, {G * M}) x (1, {npts}): bit-equal (tolerance: exact)", flush=True)
+
+    # the full-width model: phase 12's check
+    t0 = time.perf_counter()
+    model = prepare_model(cfg, 0, dev)
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"[model] {PLAIN_DVAE_CONFIG}: {cfg.model.NAME}, {n_all} params, no teacher, dtype "
+          f"{cfg.model.dtype}, built in {time.perf_counter() - t0:.2f} s; synthetic clouds "
+          f"{tuple(clouds.shape)}; temperature {temp}, KLD weight {kldw} (iteration "
+          f"{S1_START_ITR})", flush=True)
+    if getattr(model, "has_teacher", True):
+        fail(f"plain dvae: {cfg.model.NAME} built a teacher")
+    stage1_paths_agree(model, clouds, temp, kldw, dev, "plain dvae", PD_UPSTREAM_KEYS)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+
+    # run_autoencoder_steps, timed
+    steps = S1_WARM_STEPS + S1_TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_launches()
+    run = run_autoencoder_steps(PLAIN_DVAE_CONFIG, steps, seed=0, start_itr=S1_START_ITR,
+                                device=dev)
+    launches["run_autoencoder_steps"] = dict(_backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("plain dvae run_autoencoder_steps", launches["run_autoencoder_steps"],
+                   STAGE1_PER_STEP, steps)
+    after = run.model.state_dict()
+    moved_keys = ("codebook", "decoder.final_conv.6.weight", "encoder.first_conv.0.weight",
+                  "dgcnn_1.layer5.0.weight", "encoder.first_conv.1.running_mean")
+    moved = {k: not torch.equal(after[k], init[k]) for k in moved_keys}
+    print(f"[plain dvae] run_autoencoder_steps losses {run.losses}; recon {run.recon}; kld "
+          f"{run.kld}; temperature {run.temps[0]:.5f}, KLD weight {run.kld_weights[0]:.5f}; "
+          f"launches {launches['run_autoencoder_steps']} in {steps} steps; moved {moved}",
+          flush=True)
+    if not (all(math.isfinite(x) for x in run.losses + run.recon + run.kld)
+            and all(moved.values())):
+        fail("plain dvae run_autoencoder_steps: a loss not finite or a tensor did not move")
+    med = statistics.median(run.step_ms[S1_WARM_STEPS:])
+
+    def step(i):
+        return autoencoder_step(run.model, run.optimizer, lambda s: 1e-6, clouds, i,
+                                step_rngs(0, i, dev), temp, kldw, cfg.get("grad_norm_clip"))
+    print(f"[time] card: {card_line()}", flush=True)
+    busy = busy_line(kernel_events, f"plain dVAE step B={bs}", lambda: step(steps), med, top_n=8)
+    print(f"[time] plain dVAE step B={bs}: host median {med:.3f} ms, min "
+          f"{min(run.step_ms[S1_WARM_STEPS:]):.3f}, max {max(run.step_ms[S1_WARM_STEPS:]):.3f} "
+          f"over {S1_TIMED_STEPS} (after {S1_WARM_STEPS} warm-up); {bs / med * 1e3:.1f} "
+          f"clouds/s; device busy {'not measured' if busy is None else f'{busy:.3f} ms'}, idle "
+          f"share {'not measured' if busy is None else f'{1 - busy / med:.3f}'}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    same, n_t = rerun_bit_equal(run.model, run.optimizer, lambda: step(steps + 2))
+    print(f"[plain dvae] one step (B={bs}, bf16) run twice from one state: every weight, BN "
+          f"statistic and Adam moment bit-equal: {same} ({n_t} tensors)", flush=True)
+    if not same:
+        fail("plain dvae: a step rerun from the same state differs")
+
+    # validate, kernel path against plain path
+    val = [torch.from_numpy(c) for c in synthetic_batch(1, PD_VAL_CLOUDS, npts)]
+    _backend.reset_launches()
+    metrics, per_cloud = validate(run.model, val)
+    launches["validate"] = dict(_backend.LAUNCHES)
+    check_launches("plain dvae validate", launches["validate"], VALIDATE_PER_CLOUD,
+                   PD_VAL_CLOUDS)
+    _backend.reset_launches()
+    with patched(ops, group_points=ops.group_points_ref,
+                 graph_feature_idx=ops.graph_feature_idx_ref), \
+            patched(chamfer_mod, nn_pair_min=ops.chamfer_min_ref):
+        metrics_p, per_cloud_p = validate(run.model, val)
+    if any(_backend.LAUNCHES.values()):
+        fail(f"the plain-version validate launched kernels: {_backend.LAUNCHES}")
+    worst = max(abs(a - b) / max(abs(b), 1e-12) for ra, rb in zip(per_cloud, per_cloud_p)
+                for a, b in zip(ra, rb))
+    print(f"[plain dvae] validate on {PD_VAL_CLOUDS} clouds: {metrics.state_dict()} through the "
+          f"kernels, {metrics_p.state_dict()} through the plain versions; worst relative "
+          f"difference of a cloud's metric {worst} (tolerance {METRIC_RTOL}); launches "
+          f"{launches['validate']}", flush=True)
+    if not (all(math.isfinite(x) for row in per_cloud for x in row) and worst <= METRIC_RTOL):
+        fail("plain dvae validate: metrics not finite or kernel path and plain path disagree")
+    print(f"[plain dvae] phase 43 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {}, errs, launches
+
+
+def plain_dvae_cli(dev, device_ms, kernel_events, measure):
+    """Phase 44 (``chip_smoke.py --plain-dvae-cli``, checked and untimed,
+    beside phase 37's tracing): ``act_tpu_torch.main_autoencoder.main`` (the
+    CLI's entry point, called in this process: as three processes its runs
+    took 127 s beside the tracing, NVIDIA H100 80GB HBM3, 700 W) with
+    ``--config`` a copy of
+    ``pointbert_dvae.yaml`` for one epoch of ``PD_CLI_STEPS`` steps
+    (``run_net`` capped, its validation at ``PD_TEST_CLOUDS`` clouds),
+    ``--resume``d for a second, then ``--test`` of its ckpt-best on
+    ``PD_TEST_CLOUDS`` clouds with ``PD_DUMPS`` ``.txt`` dumps; that checkpoint
+    served by ``serve_http.serve`` as ``tokenize`` and ``dvae`` at B=1 and
+    ``PD_HTTP_B``, the answers against the plain path on the same weights
+    (ids equal, the reconstruction bit-equal, as phase 33 holds them).
+    Returns (no timing rows, no errors, the requests' launches)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plain_dvae_")
+    try:
+        return {}, {}, _plain_dvae_cli(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _plain_dvae_cli(dev, tmp):
+    import contextlib
+    import functools
+    import io
+
+    import numpy as np
+    import torch
+    from act_tpu_torch import main_autoencoder, ops, serve_http
+    from act_tpu_torch.datasets import synthetic_batch
+    from act_tpu_torch.engine import runner_autoencoder as ra
+    from act_tpu_torch.engine.serve import (build_recon_fn, build_tokenize_fn, load_config,
+                                            load_model)
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, PLAIN_DVAE_CONFIG)) as f:
+        text = f.read().replace("max_epoch: 300", "max_epoch: 1")
+    yaml = os.path.join(tmp, "pointbert_dvae.yaml")
+    with open(yaml, "w") as f:
+        f.write(text.replace("_base_: cfgs/", f"_base_: {ROOT}/cfgs/"))
+    tested, test_net = [], ra.test_net  # the test run's metrics
+    capped = dict(run_net=functools.partial(ra.run_net, max_steps=PD_CLI_STEPS,
+                                            max_val=PD_TEST_CLOUDS),
+                  test_net=lambda *a, **k: tested.append(test_net(
+                      *a, max_batches=PD_TEST_CLOUDS, max_dumps=PD_DUMPS, **k)))
+
+    def cli(*flags):
+        """The CLI's ``main`` in ``tmp`` (the experiment directories are made
+        under the working directory); returns what it printed and its seconds."""
+        t0, said, cwd = time.perf_counter(), io.StringIO(), os.getcwd()
+        os.chdir(tmp)
+        try:
+            with patched(ra, **capped), contextlib.redirect_stdout(said):
+                main_autoencoder.main(["--config", yaml, "--exp_name", "pd", "--device",
+                                       str(dev), *flags])
+        finally:
+            os.chdir(cwd)
+        print(said.getvalue(), end="", flush=True)
+        return said.getvalue(), time.perf_counter() - t0
+    exp = os.path.join(tmp, "work_dirs", "pointbert_dvae", os.path.basename(tmp), "pd")
+    _, s_train = cli()
+    last = torch.load(os.path.join(exp, "ckpt-last.pth"), map_location="cpu", weights_only=True)
+    first = (last["epoch"], last["step"])
+    cfg_file = os.path.join(exp, "config.yaml")
+    with open(cfg_file) as f:
+        saved = f.read()
+    with open(cfg_file, "w") as f:
+        f.write(saved.replace("max_epoch: 1", "max_epoch: 2"))
+    said, s_resume = cli("--resume")
+    last = torch.load(os.path.join(exp, "ckpt-last.pth"), map_location="cpu", weights_only=True)
+    best = os.path.join(exp, "ckpt-best.pth")
+    _, s_test = cli("--test", "--ckpts", best)
+    vis = os.path.join(tmp, "work_dirs", "pointbert_dvae", os.path.basename(tmp), "test_pd",
+                       "vis")
+    dumps = sorted(os.listdir(vis)) if os.path.isdir(vis) else []
+    cfg = load_config(PLAIN_DVAE_CONFIG)
+    npts, G, M = int(cfg.npoints), int(cfg.model.num_group), int(cfg.model.group_size)
+    shapes = sorted({np.loadtxt(os.path.join(vis, d)).shape for d in dumps})
+    print(f"[plain dvae cli] main_autoencoder: {PD_CLI_STEPS} steps ({s_train:.1f} s), "
+          f"ckpt-last at (epoch, step) {first}; --resume ({s_resume:.1f} s): at "
+          f"{(last['epoch'], last['step'])}; --test of ckpt-best ({s_test:.1f} s): "
+          f"{tested[0].state_dict() if tested else None}, {len(dumps)} dumps of shapes {shapes}",
+          flush=True)
+    wrong = {"the first run's ckpt-last": first != (0, PD_CLI_STEPS),
+             "the resumed run's ckpt-last": (last["epoch"], last["step"]) != (1, 2 * PD_CLI_STEPS),
+             "no [RESUME] line": "[RESUME] resumed at epoch 1" not in said,
+             "no finite test metrics": not (tested and all(
+                 math.isfinite(v) for v in tested[0].state_dict().values())),
+             "the dumps": (len(dumps) != 2 * PD_DUMPS
+                           or shapes != sorted({(G * M, 3), (npts, 3)})),
+             "a teacher in the checkpoint": any(k.startswith("visual_embed")
+                                                for k in last["base_model"])}
+    if any(wrong.values()):
+        fail(f"plain dvae CLI: {[k for k, v in wrong.items() if v]}")
+
+    # the ckpt-best served over HTTP, against the plain path on the same weights
+    model = load_model(cfg, best, device=dev)
+    fns = {"tokenize": build_tokenize_fn(model, npts), "dvae": build_recon_fn(model, npts)}
+    config_path = os.path.join(ROOT, PLAIN_DVAE_CONFIG)
+    clouds = torch.from_numpy(synthetic_batch(3, PD_HTTP_B, npts))
+    launches = {}
+    for kind, fn in fns.items():
+        server = serve_http.serve(config_path, best, "127.0.0.1", 0, device=dev,
+                                  kind=None if kind == "tokenize" else kind)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            for b in (1, PD_HTTP_B):
+                x = clouds[:b]
+                _backend.reset_launches()
+                with urllib.request.urlopen(urllib.request.Request(
+                        url, data=json.dumps({"points": x.tolist()}).encode()),
+                        timeout=300) as resp:
+                    code, answer = resp.status, json.loads(resp.read())
+                launches[f"http {kind} B={b}"] = dict(_backend.LAUNCHES)
+                key = "tokens" if kind == "tokenize" else "recon"
+                got = torch.tensor(answer[key], dtype=torch.int32 if kind == "tokenize"
+                                   else torch.float32)
+                with patched(ops, group_points=ops.group_points_ref,
+                             graph_feature_idx=ops.graph_feature_idx_ref):
+                    want = fn(x.to(dev)).cpu()
+                xd = x.to(dev)
+                n_sw = tie_swaps(ops.furthest_point_sample(xd, G),
+                                 ops.furthest_point_sample_ref(xd, G))
+                if n_sw == 0:
+                    same = torch.equal(got, want)
+                elif kind == "tokenize":
+                    same = torch.equal(got.sort(-1).values, want.sort(-1).values)
+                else:
+                    same = torch.equal(got.reshape(b, G, M, 3).sort(1).values,
+                                       want.reshape(b, G, M, 3).sort(1).values)
+                per = TOKENIZE_PER_REQUEST if kind == "tokenize" else RECON_PER_REQUEST
+                print(f"[plain dvae cli] {kind} over HTTP B={b}: {code}, {tuple(got.shape)} "
+                      f"against the plain path on ckpt-best: {'equal' if same else 'DIFFERENT'} "
+                      f"(tolerance: exact; {n_sw} FPS tie swaps); launches "
+                      f"{launches[f'http {kind} B={b}']}", flush=True)
+                if code != 200 or not same:
+                    fail(f"plain dvae {kind} over HTTP B={b}: {code}, the plain path differs")
+                check_launches(f"plain dvae http {kind} B={b}", launches[f"http {kind} B={b}"],
+                               per, 1)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    print(f"[plain dvae cli] phase 44 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def flops(dev, device_ms, kernel_events, measure):
+    """Phase 45 (``chip_smoke.py --flops``, checked and untimed, beside phase
+    37's tracing): ``act_tpu_torch.get_flops`` on every shipped model YAML
+    (``FLOPS_DIRS``): the model built once on the card and counted there
+    (the kernels), then moved to the CPU and counted again (the plain
+    versions); the two counts equal exactly (a count depends on shapes alone,
+    so a difference is a formula that fired on one path only), and the
+    kernels the card's forward launched are the kernels it counted. Prints
+    each config's four lines. Returns (no timing rows, no errors, each
+    config's launches)."""
+    import glob
+
+    import torch
+    from act_tpu_torch import get_flops
+    from act_tpu_torch.ops import _backend
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(FLOPS_CPU_THREADS)
+    paths = sorted(p for d in FLOPS_DIRS
+                   for p in glob.glob(os.path.join("cfgs", d, "*.yaml")))
+    if len(paths) != FLOPS_CONFIGS:
+        fail(f"get_flops: {len(paths)} model YAMLs under {FLOPS_DIRS}, not {FLOPS_CONFIGS}")
+    launches = {}
+    for path in paths:
+        model = get_flops.build(path, device=dev)
+        _backend.reset_launches()
+        card = get_flops.count(model)
+        torch.cuda.synchronize()
+        launches[path] = dict(_backend.LAUNCHES)
+        cpu = get_flops.count(model.cpu())
+        launched = {k for k, v in launches[path].items() if v}
+        print(f"[flops] {path}: " + "; ".join(get_flops.report(card))
+              + f"; aten {card.aten_flops}, kernels {card.kernel_flops}; launches "
+              f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
+        if not (card == cpu and launched == set(card.kernel_flops)):
+            fail(f"get_flops {path}: the card's count {card} differs from the CPU's {cpu}, or "
+                 f"the kernels launched {sorted(launched)} are not the kernels counted "
+                 f"{sorted(card.kernel_flops)}")
+        del model
+        torch.cuda.empty_cache()
+    for path in ("cfgs/finetune_classification/few_shot/fewshot_modelnet.yaml",
+                 TSNE_CONFIG):
+        try:
+            get_flops.build(path, device=dev)
+            fail(f"get_flops {path}: no error")
+        except ValueError as e:
+            print(f"[flops] {path}: ValueError: {e}", flush=True)
+    print(f"[flops] phase 45 {time.perf_counter() - t_phase:.1f} s ({len(paths)} configs, each "
+          f"counted on the card and on the CPU)", flush=True)
+    return {}, {}, launches
 
 
 def _extract_both(model, batches, npoints, runner_tsne):
@@ -3520,7 +4045,7 @@ def _tsne(dev, device_ms, kernel_events, measure, tmp):
     from act_tpu_torch.datasets.synthetic import synthetic_cloud
     from act_tpu_torch.engine import builder, runner_tsne
     from act_tpu_torch.engine.serve import load_config
-    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops import _backend, work
     from act_tpu_torch.utils import tsne as tsne_lib
 
     t_phase = time.perf_counter()
@@ -3565,12 +4090,12 @@ def _tsne(dev, device_ms, kernel_events, measure, tmp):
                                 lambda: ops.furthest_point_sample(clouds, npoints),
                                 lambda: ops.furthest_point_sample_ref(clouds, npoints), None,
                                 20, 1, bound_ms(clouds.numel() * 4 + bs * npoints * 4,
-                                                10.0 * bs * (npoints - 1) * npoints), n=3),
+                                                work.fps(bs, npoints, npoints)), n=3),
                         measure(f"({bs}, {npoints}, 3)->{G} (t-SNE groups)",
                                 lambda: ops.furthest_point_sample(rs, G),
                                 lambda: ops.furthest_point_sample_ref(rs, G), None, 50, 3,
                                 bound_ms(rs.numel() * 4 + bs * G * 4,
-                                         10.0 * bs * (G - 1) * npoints), n=2)],
+                                         work.fps(bs, npoints, G)), n=2)],
                 "gather": [measure(f"{tuple(clouds.shape)} by {tuple(idx.shape)} (t-SNE "
                                    f"resample), {distinct_rows(idx)} rows read",
                                    lambda: ops.gather_coords(clouds, idx),
@@ -3676,11 +4201,12 @@ def tsne_cpu_check(feats, card_kl) -> None:
 
 def export(dev, device_ms, kernel_events, measure):
     """Phase 37, the serving artifacts: each of the five kinds of
-    ``engine/export.py`` exported on the card from the full-width configs
-    this script serves (the ModelNet classifier on 8192-point clouds, the
+    ``engine/export.py`` exported on the card from the configs this script
+    serves (the full-width ModelNet classifier on 8192-point clouds; the
     Stage-II model's features and the Stage-I dVAE's tokens and
     reconstruction on 1024-point clouds, part and semantic segmentation on
-    2048-point clouds; seeded weights) with a symbolic batch (the
+    2048-point clouds, each at its widths with its transformers cut,
+    ``cut_depth`` and ``CUT_SEG_WIDTHS``; seeded weights) with a symbolic batch (the
     reconstruction at B=``EXPORT_B``: a symbolic batch raises, checked),
     saved, and reloaded in a fresh process that imports no
     model module (``chip_smoke.py --artifacts``): there each artifact's
@@ -3710,14 +4236,15 @@ def _export_phase(dev, kernel_events, tmp):
 
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(37)
-    cls_cfg, pre_cfg, ae_cfg = (load_config(c) for c in (CONFIG, PRETRAIN_CONFIG,
-                                                          AUTOENCODER_CONFIG))
+    cls_cfg = load_config(CONFIG)
+    pre_cfg, ae_cfg = (cut_depth(load_config(c)) for c in (PRETRAIN_CONFIG, AUTOENCODER_CONFIG))
     npts_f = features_npoints(pre_cfg)
     models = {"classifier": load_model(cls_cfg, seed=0, device=dev),
               "features": build_pretrain_model(pre_cfg.model, 0).to(dev).eval(),
               "tokenize": load_model(ae_cfg, seed=0, device=dev)}
     models["dvae"] = models["tokenize"]
-    models.update({t: load_seg_model(t, seed=0, device=dev) for t in ("partseg", "semseg")})
+    models.update({t: load_seg_model(t, seed=0, device=dev, widths=CUT_SEG_WIDTHS)
+                   for t in ("partseg", "semseg")})
     direct = {
         "classifier": build_infer_fn(models["classifier"], int(cls_cfg.npoints)),
         "features": build_features_fn(models["features"], npts_f),
@@ -3739,11 +4266,16 @@ def _export_phase(dev, kernel_events, tmp):
         "features": lambda b: ex.export_features(pre_cfg, batch=b, device=dev),
         "tokenize": lambda b: ex.export_dvae_tokenize(ae_cfg, batch=b, device=dev),
         "dvae": lambda b: ex.export_dvae_recon(ae_cfg, batch=b, device=dev),
-        "partseg": lambda b: ex.export_segmentation("partseg", SEG_NPOINT, batch=b, device=dev),
-        "semseg": lambda b: ex.export_segmentation("semseg", SEG_NPOINT, batch=b, device=dev),
+        "partseg": lambda b: ex.export_segmentation("partseg", SEG_NPOINT, batch=b, device=dev,
+                                                    widths=CUT_SEG_WIDTHS),
+        "semseg": lambda b: ex.export_segmentation("semseg", SEG_NPOINT, batch=b, device=dev,
+                                                   widths=CUT_SEG_WIDTHS),
     }
-    batches = {k: (None,) for k in makers}
+    # the full-depth classifier last: the first artifact's server (``serve(src=)``) loads
+    # its artifact once more
+    batches = {k: (None,) for k in makers if k != "classifier"}
     batches["dvae"] = (EXPORT_B,)
+    batches["classifier"] = (None,)
     try:
         makers["dvae"](None)
         fail("export_dvae_recon with a symbolic batch did not raise")
@@ -4146,6 +4678,25 @@ def ddp_part_end(dev, tmp, part, model, optimizer, rec, steps) -> None:
         os.remove(path)
 
 
+
+def ddp_warm(dev) -> None:
+    """One eval-mode forward and backward of phase 38's finetune model on
+    random clouds, nothing kept and no collective: a process's first CUDA
+    work (cuBLAS's set-up, the kernels' lazy loading; ~9 s of the first held
+    part, NVIDIA H100 80GB HBM3, 700 W) done beside phase 37's tracing, before the
+    process says it is ready, so that it leaves the held steps' path."""
+    import torch
+    from act_tpu_torch.engine import runner_finetune as rf
+    from act_tpu_torch.engine.serve import load_model
+    cfg = ddp_f32(cut_depth(rf.finetune_config(CONFIG)))
+    model = load_model(cfg, seed=1, device=dev)
+    x = torch.randn(4, int(cfg.npoints), 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    model(x).float().sum().backward()
+    torch.cuda.synchronize(dev)
+    del model
+    torch.cuda.empty_cache()
+
+
 def ddp_f32(cfg):
     """``cfg`` computing in f32 (the held steps of legs (a) and (b))."""
     m = cfg.model
@@ -4219,7 +4770,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
         if part not in parts:
             continue
         t0 = time.perf_counter()
-        cfg = rf.finetune_config(CONFIG)
+        cfg = cut_depth(rf.finetune_config(CONFIG))
         cfg = cfg if part == "ft16" else ddp_f32(cfg)
         st = rf.build_state(cfg, inputs["ft_steps"], 0, dev)
         parallel.broadcast_module(st.model)
@@ -4241,7 +4792,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
     # Stage II: the probe's features, then the steps
     if "probe" in parts or "s2" in parts:
         t0 = time.perf_counter()
-        cfg = ddp_f32(load_config(PRETRAIN_CONFIG))
+        cfg = ddp_f32(cut_depth(load_config(PRETRAIN_CONFIG)))
         model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
         parallel.broadcast_module(tp.shard_module(model))
         if "probe" in parts:
@@ -4279,7 +4830,7 @@ def ddp_steps(dev, tmp, parts, replay=None):
         ddp_took("probe and s2", t0)
     if "s1" in parts:
         t0 = time.perf_counter()
-        cfg = ddp_f32(load_config(AUTOENCODER_CONFIG))
+        cfg = ddp_f32(cut_depth(load_config(AUTOENCODER_CONFIG)))
         model = ra.prepare_model(cfg, 0, dev)
         parallel.broadcast_module(model)
         optimizer, schedule = builder.build_optimizer(cfg, model, steps_per_epoch(cfg))
@@ -4347,7 +4898,7 @@ def ddp_seg_bert_steps(dev, tmp, inputs, parts, rows, begin):
             continue
         t0 = time.perf_counter()
         st = rs.build_seg_state("partseg" if part == "ps" else "semseg", 32, dtype="f32",
-                                device=dev)
+                                device=dev, widths=CUT_SEG_WIDTHS)
         parallel.broadcast_module(st.model)
         start = ddp_start(st.model)
         weight = inputs["ss_weight"].to(dev) if part == "ss" else None
@@ -4371,7 +4922,7 @@ def ddp_seg_bert_steps(dev, tmp, inputs, parts, rows, begin):
         ddp_took(part, t0)
     if "pb" not in parts:
         return out
-    cfg = ddp_f32(pointbert_config())
+    cfg = ddp_f32(cut_depth(pointbert_config()))
     model = rp.freeze_tokenizer(rp.build_pretrain_model(cfg.model, 0), cfg).to(dev)
     parallel.broadcast_module(tp.shard_module(model))
     start, clip, m = ddp_start(model), cfg.get("grad_norm_clip", None), rp.ema_momentum(cfg)
@@ -4411,7 +4962,7 @@ def ddp_run_nets(dev, tmp, tag):
     and steps."""
     from act_tpu_torch.engine import runner_finetune as rf
     from act_tpu_torch.engine import runner_pretrain as rp
-    ft = rf.run_net(rf.finetune_config(CONFIG), device=dev, epochs=1,
+    ft = rf.run_net(cut_depth(rf.finetune_config(CONFIG)), device=dev, epochs=1,
                     experiment_path=os.path.join(tmp, f"ft-{tag}"))
     s2 = rp.run_net(ddp_pretrain_config(), device=dev, epochs=1, allow_random_tokenizer=True,
                     experiment_path=os.path.join(tmp, f"s2-{tag}"))
@@ -4421,9 +4972,10 @@ def ddp_run_nets(dev, tmp, tag):
 
 def ddp_pretrain_config():
     """``pretrain_act_distill.yaml`` without the probe's datasets (leg (b)
-    checks the probe's gather) and without a Stage-I checkpoint."""
+    checks the probe's gather) and without a Stage-I checkpoint, cut
+    (``cut_depth``)."""
     from act_tpu_torch.engine.serve import load_config
-    cfg = load_config(PRETRAIN_CONFIG)
+    cfg = cut_depth(load_config(PRETRAIN_CONFIG))
     del cfg.dataset["val"], cfg.dataset["extra_train"]
     cfg.model.dvae_config.ckpt = None
     return cfg
@@ -4447,6 +4999,7 @@ def ddp_rank(tmp: str) -> None:
     if not parallel.is_distributed():
         fail("leg (b): no process group")
     _backend.build_kernels()
+    ddp_warm(dev)
     open(os.path.join(tmp, f"ready-b-{parallel.process_index()}"), "w").close()
     wait_for(os.path.join(tmp, "go-b"), "leg (b)'s start")
     r = parallel.process_index()
@@ -4624,6 +5177,8 @@ def ddp(dev, device_ms, kernel_events, measure):
     import torch
     tmp = os.environ[DDP_TMP_ENV]
     procs = ddp_start_b(tmp)
+    ddp_warm(dev)
+    open(os.path.join(tmp, "ready-one"), "w").close()
     try:
         wait_for(os.path.join(tmp, "go"), "the end of phase 37", timeout=1200)
     except SystemExit:
@@ -4843,6 +5398,7 @@ def ddp_side_start(tmp, started):
     os.makedirs(cfg_dir)
     with open(os.path.join(ROOT, CONFIG)) as f:
         text = f.read().replace("max_epoch: 300", "max_epoch: 1")
+    text = text.replace("  depth: 12\n", f"  depth: {CUT_DEPTH}\n")  # as cut_depth
     text = text.replace("_base_: cfgs/", f"_base_: {ROOT}/cfgs/")
     yaml = os.path.join(cfg_dir, "finetune_modelnet.yaml")
     with open(yaml, "w") as f:
@@ -4997,15 +5553,17 @@ TP_CLI_STEPS = 2
 
 # runs ``act_tpu_torch.part_segmentation`` with argv[3:] in a process group of
 # device argv[1] and backend argv[2] made first (two ranks share the one card: NCCL
-# takes one rank a card, so they join over gloo)
+# takes one rank a card, so they join over gloo), its backbone at CUT_SEG_WIDTHS
 SEG_CLI_WRAPPER = r"""
-import os, sys
+import functools, os, sys
 sys.path.insert(0, os.environ["ACT_ROOT"])
 from act_tpu_torch import parallel
 parallel.initialize_distributed(sys.argv[1], backend=sys.argv[2])
 from act_tpu_torch import part_segmentation
+from act_tpu_torch.engine import runner_segmentation as rs
+rs.build_seg_state = functools.partial(rs.build_seg_state, widths=%r)
 part_segmentation.main(sys.argv[3:])
-"""
+""" % CUT_SEG_WIDTHS
 
 
 def ddp_tp_cli_check(tmp, side) -> None:
@@ -5025,7 +5583,7 @@ def ddp_tp_cli_check(tmp, side) -> None:
         fail(f"ddp (t): the finetune CLI at --mesh_model_parallel {DDP_TP} exited {rc} "
              f"without a ckpt-best")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    model = MODELS.build(rf.finetune_config(CONFIG).model)
+    model = MODELS.build(cut_depth(rf.finetune_config(CONFIG)).model)
     model.load_state_dict(payload["base_model"], strict=True)
     print(f"[ddp] (t) finetune CLI under torch.distributed.run, 2 ranks at "
           f"--mesh_model_parallel {DDP_TP} on one card over {DDP_B[1]}: exit {rc}, done within "
@@ -5074,7 +5632,9 @@ def ddp_seg_cli_check(tmp, side) -> None:
 # where the profiler's windows are whole
 CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne": "tsne",
                 "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k",
-                "--parity": "parity"}
+                "--parity": "parity", "--plain-dvae": "plain_dvae",
+                "--plain-dvae-cli": "plain_dvae_cli", "--flops": "flops",
+                "--dvae-tsne": "dvae_tsne"}
 
 
 def stop_processes(procs) -> None:
@@ -5161,7 +5721,7 @@ def main() -> None:
     try:
         from act_tpu_torch import ops
         from act_tpu_torch.engine.serve import build_infer_fn, load_config, load_model
-        from act_tpu_torch.ops import _backend
+        from act_tpu_torch.ops import _backend, work
         from act_tpu_torch.ops import gather as gather_mod
         from act_tpu_torch.ops.fps import tie_swaps
         from act_tpu_torch.profiling import device_ms, kernel_events
@@ -5313,17 +5873,17 @@ def main() -> None:
                         lambda: ops.furthest_point_sample(clouds, npoints),
                         lambda: ops.furthest_point_sample_ref(clouds, npoints), None, 20, 1,
                         bound_ms(clouds.numel() * 4 + B * npoints * 4,
-                                 10.0 * B * (npoints - 1) * N_IN)),
+                                 work.fps(B, N_IN, npoints))),
                 measure(f"(1, {N_IN}, 3)->{npoints} (B=1 request)",
                         lambda: ops.furthest_point_sample(one, npoints),
                         lambda: ops.furthest_point_sample_ref(one, npoints), None, 20, 1,
                         bound_ms(one.numel() * 4 + npoints * 4,
-                                 10.0 * (npoints - 1) * N_IN)),
+                                 work.fps(1, N_IN, npoints))),
                 measure(f"({B}, {npoints}, 3)->{G}",
                         lambda: ops.furthest_point_sample(d_pts, G),
                         lambda: ops.furthest_point_sample_ref(d_pts, G), None, 50, 3,
                         bound_ms(d_pts.numel() * 4 + B * G * 4,
-                                 10.0 * B * (G - 1) * npoints)),
+                                 work.fps(B, npoints, G))),
             ],
             "k_smallest": [
                 measure(f"({B * G}, {npoints}) k={M}", lambda: ops.k_smallest(d, M),
@@ -5414,13 +5974,15 @@ def main() -> None:
     m8_rows, m8_errs, m8_launches = in_child("--modelnet8k")
     print(f"[time] phases 39-41 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(m8_errs)
-    # -- 36. t-SNE, in a process of its own, alone
+    # -- 43. Point-BERT's plain dVAE, then 36. t-SNE: a process of their own, each alone
     ref = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tsne_ref_"), "feats.npz")
-    ts_rows, ts_errs, ts_launches = in_child("--tsne", env={TSNE_REF_ENV: ref})
+    dt_rows, dt_errs, dt_launches = in_child("--dvae-tsne", env={TSNE_REF_ENV: ref})
+    ts_rows, pd_launches, ts_launches = dt_rows["tsne"], dt_launches["plain_dvae"], dt_launches[
+        "tsne"]
     ref_data = dict(np.load(ref))
     shutil.rmtree(os.path.dirname(ref), ignore_errors=True)
-    print(f"[time] phase 36 done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    errs.update(ts_errs)
+    print(f"[time] phases 43 and 36 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    errs.update(dt_errs)
     # -- 37. the exported artifacts, in a process of its own. Beside its tracing run
     # what is checked and not timed: phase 36's CPU t-SNE reference on a thread here,
     # phase 38's CLIs (legs (c) and (d)) and its run_net legs (``ddp_runs``); its
@@ -5436,16 +5998,20 @@ def main() -> None:
         # phase 37's end before their timed steps
         ddp_child = start_child("--ddp", env={DDP_TMP_ENV: ddp_dir})
         side_procs.append(ddp_child[0])
-        # -- 42. the MODEL_ZOO parity protocol, checked and untimed, beside the tracing
-        parity_child = start_child("--parity")
-        side_procs.append(parity_child[0])
+        # -- 42 and 46. the MODEL_ZOO parity protocol and the finetune variants, 44. the
+        # plain dVAE's CLI and its checkpoint served, 45. get_flops on every shipped model
+        # YAML: checked and untimed, beside the tracing
+        beside = {flag: start_child(flag) for flag in ("--parity", "--plain-dvae-cli",
+                                                       "--flops")}
+        side_procs += [c[0] for c in beside.values()]
         quiet = os.path.join(ddp_dir, "quiet")
 
-        def when_quiet():  # the side work has ended and leg (b)'s ranks wait, started
+        def when_quiet():  # the side work has ended; phase 38's processes wait, warmed up
             tsne_thread.join()
             side["thread"].join()
-            parity_child[0].wait()
-            ready = [os.path.join(ddp_dir, f"ready-b-{r}") for r in (0, 1)]
+            for c in beside.values():
+                c[0].wait()
+            ready = [os.path.join(ddp_dir, f"ready-{w}") for w in ("b-0", "b-1", "one")]
             while ddp_child[0].poll() is None and not all(map(os.path.exists, ready)):
                 time.sleep(0.2)
             open(quiet, "w").close()
@@ -5456,9 +6022,11 @@ def main() -> None:
         errs.update(ex_errs)
         if not tsne_ref.get("done"):
             fail("phase 36's CPU t-SNE reference failed")
-        _, par_errs, par_launches = finish_child(parity_child, timeout=600)
-        print(f"[time] phase 42 done at {time.perf_counter() - t_start:.1f} s (beside phase "
-              "37's tracing)", flush=True)
+        _, par_errs, par_launches = finish_child(beside["--parity"], timeout=600)
+        _, _, pd_cli_launches = finish_child(beside["--plain-dvae-cli"], timeout=600)
+        _, _, fl_launches = finish_child(beside["--flops"], timeout=600)
+        print(f"[time] phases 42, 44-46 done at {time.perf_counter() - t_start:.1f} s (beside "
+              "phase 37's tracing)", flush=True)
         errs.update(par_errs)
         # -- 38. data parallelism over ranks and preemption
         open(os.path.join(ddp_dir, "go"), "w").close()
@@ -5500,6 +6068,9 @@ def main() -> None:
             "launches_export": {tag: n[kernel] for tag, n in ex_launches.items()},
             "launches_ddp": {tag: n[kernel] for tag, n in ddp_launches.items()},
             "launches_parity": {tag: n[kernel] for tag, n in par_launches.items()},
+            "launches_plain_dvae": {tag: n[kernel] for tag, n in pd_launches.items()},
+            "launches_plain_dvae_cli": {tag: n[kernel] for tag, n in pd_cli_launches.items()},
+            "launches_flops": {tag: n[kernel] for tag, n in fl_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
