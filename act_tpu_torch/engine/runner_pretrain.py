@@ -59,12 +59,14 @@ from act_tpu_torch.parallel import (broadcast_module, gather_concat, local_devic
                                     reduce_mean_scalar, tp)
 from act_tpu_torch.utils.logger import print_log
 from act_tpu_torch.utils.meters import AccMetric, AverageMeter
+from act_tpu_torch.utils.profiling import StepTimer, TraceContext
 from act_tpu_torch.utils.svm import LinearSVC
 
 TOKENIZER = "dvae_tokenizer"
 # the frozen Stage-I tokenizer's name in each pretrain model
 TOKENIZERS = {"ACT_PointDistillation": TOKENIZER, "ACT_PointBERT": "dvae"}
 MOMENTUM_ENCODER = "transformer_k"  # ACT_PointBERT's EMA copy of transformer_q
+LOG_EVERY = 100  # batches between run_net's batch lines (runner_pretrain.py:364-372)
 
 
 def tokenizer_name(model_cfg) -> str:
@@ -322,9 +324,16 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     which ``resume`` restores with the weights. Once ``preemption.GUARD`` is
     set (checked after every step) it writes ckpt-last with the loader's
     cursor and returns with ``preempted`` set; ``resume`` re-enters that
-    epoch at that batch. ``train_writer`` gets the step's loss and lr at
-    every 100th batch of an epoch (``Loss/Batch/Loss``, ``Loss/Batch/LR`` at
-    the steps taken, ``runner_pretrain.py:373-375``)."""
+    epoch at that batch. At every ``LOG_EVERY``-th batch of an epoch
+    (batches 1, 101, ...) it prints JAX's line ``[Epoch e][Batch i/n]
+    BatchTime=...s Loss=... lr=...`` (``runner_pretrain.py:364-372``: the
+    ``StepTimer``'s mean, the running mean of the epoch's losses, fetched
+    from the device only there and at the epoch's end) and ``train_writer``
+    gets the step's loss and lr (``Loss/Batch/Loss``, ``Loss/Batch/LR`` at
+    the steps taken, ``runner_pretrain.py:373-375``). With
+    ``ACT_TPU_PROFILE`` set, steps [10, 15) of the run are traced
+    (``utils/profiling.TraceContext``, ``runner_pretrain.py:289-291, 331``);
+    a preemption or the run's end closes an open window."""
     cfg = load_config(config)
     if epochs is not None:
         cfg.max_epoch = int(epochs)
@@ -360,6 +369,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
     res = PretrainResult(model, optimizer, best, step)
     print_log(f"[PRETRAIN] {cfg.model.NAME}: {epoch_steps} steps/epoch, "
               f"{int(cfg.max_epoch)} epochs", logger=logger)
+    trace = TraceContext(device=dev)
     try:
         n_step = 0
         for epoch in range(start_epoch, int(cfg.max_epoch)):
@@ -367,8 +377,10 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
             train_loader.set_epoch(epoch, first)
             if bnm is not None:
                 builder.set_bn_momentum(model, bnm(epoch))
-            pending, t0 = [], time.time()
+            meters, timer = AverageMeter(["Loss"]), StepTimer()
+            pending, fetched, t0 = [], 0, time.time()
             for idx, (_, _, data) in enumerate(train_loader):
+                timer.data_loaded()
                 pts = torch.as_tensor(data[0] if isinstance(data, (tuple, list)) else data,
                                       dtype=torch.float32).to(dev)
                 pending.append(pretrain_step(model, optimizer, schedule, pts, res.step,
@@ -376,9 +388,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                                              m))
                 res.step += 1
                 n_step += 1
-                if train_writer is not None and idx % 100 == 0:
-                    train_writer.add_scalar("Loss/Batch/Loss", float(pending[-1]), res.step)
-                    train_writer.add_scalar("Loss/Batch/LR", schedule(res.step), res.step)
+                trace.step(n_step)
                 if GUARD.check(n_step):
                     ckpt_lib.save_checkpoint(
                         model, optimizer, res.step, epoch, None,
@@ -388,11 +398,22 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                     print_log(f"[PREEMPT] saved mid-epoch checkpoint at epoch {epoch} batch "
                               f"{first + idx + 1}; exiting gracefully", logger=logger)
                     res.preempted = True
-                    return res
+                    return res  # the finally closes an open trace window
+                timer.step_done()
+                if idx % LOG_EVERY == 0:  # the losses fetched only here and at the epoch's end
+                    for loss in pending[fetched:]:
+                        meters.update([float(loss)])
+                    fetched = len(pending)
+                    lr = schedule(res.step)
+                    print_log(f"[Epoch {epoch}][Batch {idx + 1}/{epoch_steps}] "
+                              f"BatchTime={timer.batch_time.avg(0):.3f}s "
+                              f"Loss={meters.avg(0):.4f} lr={lr:.6f}", logger=logger)
+                    if train_writer is not None:
+                        train_writer.add_scalar("Loss/Batch/Loss", float(pending[-1]), res.step)
+                        train_writer.add_scalar("Loss/Batch/LR", lr, res.step)
                 if max_steps and idx + 1 >= max_steps:
                     break
-            meters = AverageMeter(["Loss"])
-            for loss in pending:  # one host fetch an epoch, not one a step
+            for loss in pending[fetched:]:
                 meters.update([float(loss)])
             res.epoch_loss.append(reduce_mean_scalar(meters.avg(0)))
             print_log(f"[Epoch {epoch}] EpochTime={time.time() - t0:.3f}s "
@@ -414,6 +435,7 @@ def run_net(config, *, seed: int = 0, device="cuda", epochs: Optional[int] = Non
                                          res.best_metrics.state_dict(),
                                          f"ckpt-epoch-{epoch:03d}", experiment_path)
     finally:
+        trace.close()
         train_loader.close()
         if probe:
             val_loader.close()

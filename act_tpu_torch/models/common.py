@@ -163,8 +163,9 @@ def _global_stats(x32: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last axis with flax's arithmetic, in f32, emitted in
-    the compute dtype (else the promoted type of x and the parameters).
+    """BatchNorm over the last axis with flax's arithmetic, in f32 (f64 for f64
+    inputs, which flax keeps too), emitted in the compute dtype (else the
+    promoted type of x and the parameters).
 
     Training mode normalizes with the statistics over every other axis and
     updates the running ones as ``0.9 * running + 0.1 * batch`` with the
@@ -181,7 +182,7 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        x32 = x.to(torch.float32)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean, var = _global_stats(x32, tuple(range(x.dim() - 1)))
             with torch.no_grad():
@@ -196,8 +197,8 @@ class BatchNorm(nn.BatchNorm1d):
 
 class GroupNorm(nn.GroupNorm):
     """flax ``GroupNorm`` channels-last: statistics per batch element and
-    channel group over every non-batch axis, in f32, emitted in the compute
-    dtype (else the promoted type)."""
+    channel group over every non-batch axis, in f32 (f64 for f64), emitted
+    in the compute dtype (else the promoted type)."""
 
     def __init__(self, num_groups: int, num_channels: int,
                  dtype: Optional[torch.dtype] = None):
@@ -207,7 +208,8 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         G, C = self.num_groups, self.num_channels
-        x32 = x.to(torch.float32).reshape(x.shape[0], -1, G, C // G)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+            x.shape[0], -1, G, C // G)
         mean, var = _fast_stats(x32, (1, 3), keepdim=True)
         y = _normalize(x32, mean, var, self.eps, self.weight.reshape(G, C // G),
                        self.bias.reshape(G, C // G))

@@ -21,6 +21,7 @@ that ``torch.export`` of a forward on the card keeps each kernel as an
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +53,9 @@ KERNELS = {
     "row_gather_bwd": ("rows", "act_row_gather_bwd", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
+# the kernels whose wrappers are not ``act_tpu_torch::*`` ops (``custom_op``)
+PLAIN_WRAPPERS = ("gumbel_argmax", "chamfer_nn", "chamfer_nn_min", "chamfer_bwd",
+                  "row_gather_bwd")
 # launches of each kernel wrapper: plain counters, read and reset by callers
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # ptxas resource report of each source's build (registers, shared memory, spills)
@@ -157,7 +161,10 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s launch function on the current CUDA stream,
-    raise if the launch failed, and count it in ``LAUNCHES``.
+    raise if the launch failed, and count it in ``LAUNCHES``. A kernel of
+    ``PLAIN_WRAPPERS`` launches inside a profiler range
+    ``act_tpu_torch::<name>``, which names it in a profile as its op names
+    a registered kernel (a range costs host time only while a profiler runs).
 
     ``args`` are tensors (passed by data pointer) and ints, in the order of
     the C signature without the trailing stream."""
@@ -167,7 +174,9 @@ def launch(name: str, *args) -> None:
         fn = _FNS[name]
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
               for a in args]
-    err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    with (torch.profiler.record_function(f"act_tpu_torch::{name}") if name in PLAIN_WRAPPERS
+          else contextlib.nullcontext()):
+        err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = _LIBS[name].act_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")

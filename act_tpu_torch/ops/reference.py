@@ -82,10 +82,10 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows_bwd_ref(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
     """The backward of a row gather, summed in a fixed order: grad (B, M, C),
     idx (B, M) int -> (B, rows, C) with out[b, s] the sum over m ascending
-    with idx[b, m] == s of grad[b, m], accumulated in f32 from +0 and rounded
-    once to grad's dtype; an index outside [0, rows) adds nothing. The plain
-    version of ``csrc/rows.cu`` (the same sum in the same order, on any
-    device); in f32 on the CPU it equals ``torch.gather``'s and
+    with idx[b, m] == s of grad[b, m], accumulated in f32 (f64 for f64) from
+    +0 and rounded once to grad's dtype; an index outside [0, rows) adds
+    nothing. The plain version of ``csrc/rows.cu`` (the same sum in the same
+    order, on any device); in f32 on the CPU it equals ``torch.gather``'s and
     ``index_select``'s own backward bit for bit. A stable sort lists each
     destination's sources in ascending order, and slot j of every list is
     added at once (a destination with fewer sources adds +0, which leaves a
@@ -99,10 +99,11 @@ def gather_rows_bwd_ref(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> tor
     counts = torch.bincount(dest, minlength=B * rows + 1)[:B * rows]
     starts = torch.cumsum(counts, 0) - counts
     g = grad.reshape(B * M, C)
-    out = torch.zeros(B * rows, C, dtype=torch.float32, device=dev)
+    acc = torch.promote_types(grad.dtype, torch.float32)
+    out = torch.zeros(B * rows, C, dtype=acc, device=dev)
     for j in range(int(counts.max()) if counts.numel() else 0):
         src = order[torch.clamp(starts + j, max=B * M - 1)]
-        out += torch.where((counts > j)[:, None], g[src].float(), 0.0)
+        out += torch.where((counts > j)[:, None], g[src].to(acc), 0.0)
     return out.reshape(B, rows, C).to(grad.dtype)
 
 

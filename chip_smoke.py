@@ -124,6 +124,13 @@ version at the shapes the path gives it:
 - ``act_tpu_torch.get_flops`` on every shipped model YAML, on the card and
   on the CPU, the counts equal exactly (phase 45, ``--flops``, beside phase
   37's tracing);
+- the per-op device profile of the full-width Stage-II step
+  (``act_tpu_torch.profile_step``: its kernel table's launches against
+  ``STAGE2_PER_STEP``, its total against ``device_ms``), Stage II's
+  ``run_net`` with ``ACT_TPU_PROFILE`` set (one trace of the steps of JAX's
+  window [10, 15), bit-equal to the run without it) and
+  ``utils.misc.random_dropping`` against its plain version (phase 47,
+  ``--profile``, a child alone on the card);
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -258,11 +265,9 @@ SEG_HTTP_BATCH = 2
 # votes by 0.79 (seeded weights, 256 points, on the CPU)
 SEG_VOTE_ATOL = 1e-3
 # ACT_PointBERT (phases 29-32): pretrain_act_distill.yaml with the overrides of
-# tools/bench_suite.py's PointBERT setup (B=128 clouds of 1024 points, the two
-# 384 x 12 MaskTransformers with an 8192-way lm_head, the frozen tokenizer in bf16)
-POINTBERT_MODEL = dict(NAME="ACT_PointBERT", m=0.999, T=0.07, K=16384)
-POINTBERT_TC = dict(mask_ratio=[0.25, 0.45], moco_loss=False, dvae_loss=True,
-                    cutmix_loss=True)
+# tools/bench_suite.py's PointBERT setup (``profile_step.pointbert_config``: B=128
+# clouds of 1024 points, the two 384 x 12 MaskTransformers with an 8192-way lm_head,
+# the frozen tokenizer in bf16)
 PB_FEAT_B, PB_HTTP_N = 32, 2048  # the features request's batch; HTTP clouds are resampled
 # a train step: group_points' FPS, k=32 kNN and two gathers once (the q, mixup
 # and k passes reuse the groups), then the tokenizer's dgcnn_1 k=4 kNN
@@ -307,6 +312,18 @@ EXPORT_B, EXPORT_RTOL, EXPORT_ITERS = 32, 1e-5, 20
 # depend on depth and whose gloo steps' times are not what DP and TP cost on NVLink
 CUT_DEPTH = 2
 CUT_SEG_WIDTHS = dict(depth=4, fetch_idx=[1, 2, 3])
+# phase 47, the per-op profile and the trace window: the device functions of the
+# Stage-II kernels as a trace names them; run_net's batch (512 synthetic clouds:
+# 16 steps an epoch, past JAX's window of steps [10, 15)); random_dropping's shape
+PROFILE_FUNCTIONS = {"fps": ("fps_kernel",),
+                     "k_smallest": ("ksmallest_kernel", "ksmallest_small_kernel"),
+                     "gather": ("gather_tile", "gather_element"),
+                     "gumbel_argmax": ("gumbel_screen_kernel", "gumbel_exact_kernel")}
+PROFILE_TOP, PROFILE_RTOL, PROFILE_SUM_RTOL = 15, 0.10, 0.01
+TRACE_B, TRACE_WINDOW = 32, (10, 15)
+DROP_SHAPE, DROP_G, DROP_M = (128, 1024, 3), 64, 32
+DROP_PER_CALL = {"fps": 1, "k_smallest": 1, "gather": 2}
+ADAMW_RANGE = "Optimizer.step#AdamW.step"
 # the file whose existence tells phase 37's child that the work the parent ran
 # beside its tracing (phase 36's CPU t-SNE, phase 38's CLIs) has ended, so that
 # its timed requests run alone (an environment variable holding a path)
@@ -2306,14 +2323,11 @@ def _segmentation(dev, device_ms, kernel_events, measure, tmp):
 
 
 def pointbert_config():
-    """``pretrain_act_distill.yaml`` as ACT_PointBERT (``POINTBERT_MODEL``,
-    ``POINTBERT_TC``), with no Stage-I checkpoint: seeded weights."""
-    from act_tpu_torch.engine.serve import load_config
-    cfg = load_config(PRETRAIN_CONFIG)
-    cfg.model.update(POINTBERT_MODEL)
-    cfg.model.transformer_config.update(POINTBERT_TC)
-    cfg.model.dvae_config.ckpt = None
-    return cfg
+    """``pretrain_act_distill.yaml`` as ACT_PointBERT
+    (``profile_step.pointbert_config``), with no Stage-I checkpoint: seeded
+    weights."""
+    from act_tpu_torch.profile_step import pointbert_config as config
+    return config(PRETRAIN_CONFIG)
 
 
 def pointbert(dev, device_ms, kernel_events, measure):
@@ -2340,7 +2354,7 @@ def pointbert(dev, device_ms, kernel_events, measure):
 def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     import numpy as np
     import torch
-    from act_tpu_torch import ops, serve_http
+    from act_tpu_torch import ops, profile_step, serve_http
     from act_tpu_torch.datasets import build_dataset_from_cfg, synthetic_batch
     from act_tpu_torch.engine import checkpoint as ckpt_lib
     from act_tpu_torch.engine import runner_pretrain as rp
@@ -2381,7 +2395,8 @@ def _pointbert(dev, device_ms, kernel_events, measure, tmp):
     model = rp.freeze_tokenizer(rp.build_pretrain_model(mc, seed=0), cfg).to(dev).eval()
     n_all = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
-    print(f"[model] ACT_PointBERT ({PRETRAIN_CONFIG} with {POINTBERT_MODEL}, {POINTBERT_TC}): "
+    print(f"[model] ACT_PointBERT ({PRETRAIN_CONFIG} with {profile_step.POINTBERT_MODEL}, "
+          f"{profile_step.POINTBERT_TC}): "
           f"{n_all} params ({n_train} trainable: transformer_q), queue "
           f"{tuple(model.queue.shape)}, built in {time.perf_counter() - t0:.2f} s", flush=True)
     features = build_features_fn(model, npts)
@@ -3533,6 +3548,174 @@ def dvae_tsne(dev, device_ms, kernel_events, measure):
     return {n: r[0] for n, r in out.items()}, errs, {n: r[2] for n, r in out.items()}
 
 
+def profile_kernel(name: str):
+    """The Stage-II kernel (``PROFILE_FUNCTIONS``) whose device function a
+    trace's kernel ``name`` is, else None."""
+    import re
+    ident = re.sub(r"\(anonymous namespace\)::", "", name)
+    ident = re.split(r"[<(]", ident.replace("void ", "", 1), maxsplit=1)[0].split("::")[-1]
+    return next((k for k, fns in PROFILE_FUNCTIONS.items() if ident.strip() in fns), None)
+
+
+def trace_counts(tr) -> dict:
+    """The launches of each Stage-II kernel in a trace (``profile_step.read_trace``)."""
+    counts = {k: 0 for k in PROFILE_FUNCTIONS}
+    for name, _, _ in tr.kernels:
+        k = profile_kernel(name)
+        if k is not None:
+            counts[k] += 1
+    return counts
+
+
+def profiled(dev, device_ms, kernel_events, measure):
+    """Phase 47 (``chip_smoke.py --profile``, a child alone on the card). (i)
+    ``python -m act_tpu_torch.profile_step``'s capture of the full-width
+    Stage-II step (``setup_pretrain``, B=128): 2 warm steps, a window of
+    ``STEPS`` = 3; its kernel table counts exactly ``STEPS`` x
+    ``STAGE2_PER_STEP`` of the four kernels and the framework table as many
+    calls of their ``act_tpu_torch::<kernel>`` rows, the framework table's rows sum
+    to the kernel table's total within ``PROFILE_SUM_RTOL``, and that total a
+    step lies within ``PROFILE_RTOL`` of ``device_ms`` of the step; both
+    tables' top ``PROFILE_TOP`` rows printed. (ii) Stage II's ``run_net``
+    (phase 21's config at ``cut_depth``, no probe, a random tokenizer) at
+    B=``TRACE_B`` for one epoch of the synthetic ShapeNet-55, with
+    ``ACT_TPU_PROFILE`` set and without: one trace of exactly the steps of
+    ``TRACE_WINDOW`` (their kernels and ``ADAMW_RANGE`` ranges), the losses,
+    weights and statistics bit-equal. (iii) ``utils.misc.random_dropping``
+    at ``DROP_SHAPE``, G=``DROP_G``, M=``DROP_M`` through the kernels against
+    its plain version. Returns (no timing rows, errors, launches)."""
+    import tempfile
+    import torch
+    from act_tpu_torch import ops, profile_step
+    from act_tpu_torch.engine import runner_pretrain
+    from act_tpu_torch.engine.serve import load_config
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+    from act_tpu_torch.utils import misc, profiling as trace_mod
+
+    t_phase, errs, launches = time.perf_counter(), {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        # -- (i) the per-op profile of the full-width Stage-II step
+        wl = profile_step.setup_pretrain(dev)
+        torch.cuda.synchronize()
+        _backend.reset_launches()
+        path = profile_step.capture(wl, os.path.join(tmp, "step"), dev)
+        launches["profile capture"] = dict(_backend.LAUNCHES)
+        check_launches("profile capture", launches["profile capture"], STAGE2_PER_STEP,
+                       profile_step.WARM + profile_step.STEPS)
+        tr = profile_step.read_trace(path)
+        krows, orows = profile_step.kernel_rows(tr), profile_step.op_rows(tr)
+        total, op_total = sum(r[2] for r in krows), sum(r[2] for r in orows)
+        counts = trace_counts(tr)
+        batch = wl.batch(99)
+        dm = device_ms(lambda: wl.step(99, batch), profile_step.STEPS)
+        per_step = total / profile_step.STEPS
+        for tool in profile_step.TOOLS:
+            print(f"[profile] {tool}, top {PROFILE_TOP}:\n"
+                  + profile_step.report(path, tool, PROFILE_TOP), flush=True)
+        print(f"[profile] Stage-II step B={wl.B}: {tr.steps} steps in the window; kernel table "
+              f"{len(krows)} names, {sum(r[1] for r in krows)} launches, {total:.6f} ms "
+              f"({per_step:.6f} ms a step); framework table {len(orows)} ops, {op_total:.6f} ms "
+              f"(tolerance {PROFILE_SUM_RTOL}); device_ms of the step {dm} (tolerance "
+              f"{PROFILE_RTOL}); Stage-II kernels in the window {counts}", flush=True)
+        want = {k: v * profile_step.STEPS for k, v in STAGE2_PER_STEP.items()}
+        named = {k: next((c for n, c, _ in orows if n == f"act_tpu_torch::{k}"), 0)
+                 for k in STAGE2_PER_STEP}
+        print(f"[profile] the framework table's act_tpu_torch::<kernel> rows (the ops of FPS, "
+              f"k-smallest and the gather, the Gumbel wrapper's range), calls: {named}",
+              flush=True)
+        if tr.steps != profile_step.STEPS or counts != want or named != want:
+            fail(f"profile: the window holds {tr.steps} steps, kernels {counts} and op rows "
+                 f"{named}, expected {profile_step.STEPS} and {want}")
+        if abs(op_total - total) > PROFILE_SUM_RTOL * total:
+            fail(f"profile: the framework table sums to {op_total} ms, the kernels to {total}")
+        if dm is None or abs(per_step - dm) > PROFILE_RTOL * dm:
+            fail(f"profile: {per_step} ms a step in the trace against device_ms {dm}")
+        del wl, batch
+
+        # -- (ii) run_net's trace window, bit-equal to the run without it
+        cfg = cut_depth(load_config(PRETRAIN_CONFIG))
+        del cfg.dataset["val"], cfg.dataset["extra_train"]
+        cfg.model.dvae_config.ckpt = None
+        cfg.total_bs = TRACE_B
+        runs, out = {}, os.path.join(tmp, "run_net")
+        for tag, env in (("plain", None), ("traced", out)):
+            if env is None:
+                os.environ.pop(trace_mod.ENV, None)
+            else:
+                os.environ[trace_mod.ENV] = env
+            try:
+                _backend.reset_launches()
+                t0 = time.perf_counter()
+                runs[tag] = runner_pretrain.run_net(
+                    cfg, device=dev, epochs=1, experiment_path=os.path.join(tmp, tag))
+                torch.cuda.synchronize()
+                launches[f"run_net {tag}"] = dict(_backend.LAUNCHES)
+                print(f"[profile] Stage-II run_net ({tag}): {runs[tag].step} steps at "
+                      f"B={TRACE_B}, {time.perf_counter() - t0:.2f} s", flush=True)
+            finally:
+                os.environ.pop(trace_mod.ENV, None)
+            check_launches(f"run_net {tag}", launches[f"run_net {tag}"], STAGE2_PER_STEP,
+                           runs[tag].step)
+        traces = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        if len(traces) != 1:
+            fail(f"run_net with {trace_mod.ENV} wrote {traces}, not one trace")
+        path = os.path.join(out, traces[0])
+        tr = profile_step.read_trace(path)
+        with open(path) as f:
+            adamw = sum(e.get("cat") == "user_annotation" and e.get("name") == ADAMW_RANGE
+                        for e in json.load(f)["traceEvents"])
+        n = TRACE_WINDOW[1] - TRACE_WINDOW[0]
+        counts = trace_counts(tr)
+        want = {k: v * n for k, v in STAGE2_PER_STEP.items()}
+        a, b = runs["plain"], runs["traced"]
+        same = a.epoch_loss == b.epoch_loss and all(
+            torch.equal(t, b.model.state_dict()[k]) for k, t in a.model.state_dict().items())
+        print(f"[profile] run_net with {trace_mod.ENV}: one trace of {tr.steps} steps, "
+              f"Stage-II kernels {counts}, {adamw} AdamW ranges; losses {b.epoch_loss}, weights "
+              f"and statistics bit-equal to the run without it: {same}", flush=True)
+        print("[profile] run_net window, framework_op_stats top 5:\n"
+              + profile_step.report(path, "framework_op_stats", 5), flush=True)
+        if tr.steps != n or counts != want or adamw != n:
+            fail(f"run_net trace: {tr.steps} steps, {counts}, {adamw} AdamW ranges; expected "
+                 f"{n}, {want}, {n}")
+        if not same or a.step < TRACE_WINDOW[1] + 1:
+            fail("run_net with the trace window differs from the run without it")
+        del runs, a, b
+
+        # -- (iii) random_dropping through the kernels against its plain version
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(*DROP_SHAPE, generator=gen).to(dev)
+        _backend.reset_launches()
+        got = misc.random_dropping(x, torch.Generator(device=dev).manual_seed(0),
+                                   DROP_M, num_group=DROP_G)
+        torch.cuda.synchronize()
+        launches["random_dropping"] = dict(_backend.LAUNCHES)
+        check_launches("random_dropping", launches["random_dropping"], DROP_PER_CALL, 1)
+        plain_knn = lambda ref, q, k: ops.k_smallest_ref(ops.square_distance(q, ref), k)  # noqa: E731
+        with patched(ops, furthest_point_sample=ops.furthest_point_sample_ref,
+                     gather_coords=ops.gather_points, knn=plain_knn):
+            _backend.reset_launches()
+            want = misc.random_dropping(x, torch.Generator(device=dev).manual_seed(0),
+                                        DROP_M, num_group=DROP_G)
+            torch.cuda.synchronize()
+            if any(_backend.LAUNCHES.values()):
+                fail("the plain random_dropping launched kernels")
+        swaps = tie_swaps(ops.furthest_point_sample(x, DROP_G),
+                          ops.furthest_point_sample_ref(x, DROP_G))
+        errs["random_dropping"] = (got - want).abs().max().item()
+        print(f"[profile] random_dropping {DROP_SHAPE}, G={DROP_G}, M={DROP_M}: launches "
+              f"{launches['random_dropping']}; against the plain version max |diff| "
+              f"{errs['random_dropping']} (bit-equal: {torch.equal(got, want)}; {swaps} FPS tie "
+              f"swaps); phase 47 {time.perf_counter() - t_phase:.1f} s", flush=True)
+        if tuple(got.shape) != DROP_SHAPE or (swaps == 0 and not torch.equal(got, want)):
+            fail("random_dropping: the kernel path differs from the plain version")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {}, errs, launches
+
+
 def finetune_variants(dev):
     """Phase 46 (in phase 42's child, checked and untimed): each config of
     ``VARIANT_CONFIGS`` at full width from its file (the few-shot ones at
@@ -4514,17 +4697,26 @@ DDP_PARTS = {"a": ("s1", "ps", "ss", "pb"),
 # without a group within DDP_RTOL (the kinds of DDP_HELD)
 DDP_TP = 2
 PREEMPT_AT = 2  # the finetune CLI gets its SIGTERM after this step, Stage II its hook
+# the synthetic ModelNet40 of phase 38's finetune CLIs (legs (c) and (t)) and of the
+# finetune run_net legs that leg (c) is held to: 4 steps an epoch at B=32 and 2
+# validation batches (the dataset's 512 made 16 and 8, and these processes run beside
+# phase 37's tracing); the part-seg CLI of leg (d) takes SEG_CLI_STEPS steps
+DDP_FT_CLOUDS, DDP_FT_ENV = 128, "CHIP_SMOKE_FT_CLOUDS"
+SEG_CLI_STEPS = 2
 # leg (b)'s device and backend: gloo, both ranks on card 0 (NCCL takes one rank a card)
 DDP_B = ("cuda:0", "gloo")
 # the parent's directory for phase 38 (its CLIs run there beside phase 37), passed
 # to phase 38's child (an environment variable holding a path)
 DDP_TMP_ENV = "CHIP_SMOKE_DDP_DIR"
 DDP_CLI_DEVICE = "cuda"
-# runs ``act_tpu_torch.main`` with argv[2:]; after step argv[1] (0: never) it
-# waits for the signal, so that the SIGTERM lands at that step boundary
+# runs ``act_tpu_torch.main`` with argv[2:] on DDP_FT_CLOUDS synthetic ModelNet
+# clouds; after step argv[1] (0: never) it waits for the signal, so that the
+# SIGTERM lands at that step boundary
 CLI_WRAPPER = r"""
 import os, sys, time
 sys.path.insert(0, os.environ["ACT_ROOT"])
+from act_tpu_torch.datasets import pointcloud_datasets
+pointcloud_datasets.ModelNet.synthetic_len = int(os.environ["CHIP_SMOKE_FT_CLOUDS"])
 from act_tpu_torch.engine import preemption, runner_finetune
 stop_at, done, step = int(sys.argv[1]), [0], runner_finetune.train_step
 
@@ -5344,9 +5536,11 @@ def ddp_runs(tmp: str) -> None:
     import torch
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
+    from act_tpu_torch.datasets import pointcloud_datasets
     from act_tpu_torch.ops import _backend
     dev = _backend.resolve_device("cuda")
     _backend.build_kernels()
+    pointcloud_datasets.ModelNet.synthetic_len = DDP_FT_CLOUDS  # as leg (c)'s CLI
     t0 = time.perf_counter()
     out = {"one": ddp_run_nets(dev, tmp, "one")}
     with one_nccl_rank():
@@ -5382,13 +5576,13 @@ def ddp_run_net_check(tmp, side) -> None:
 def ddp_side_start(tmp, started):
     """Start phase 38's checked, untimed work on a thread, in ``tmp`` (it
     runs beside phase 37's tracing): the ``run_net`` legs (``ddp_runs``, a
-    process of their own), leg (c)'s finetune CLI for one epoch
-    (``--scratch_model``) stopped by a real SIGTERM after step
-    ``PREEMPT_AT`` and then ``--resume``d to the epoch's end, leg (d)'s
-    part-seg CLI under ``torch.distributed.run`` with 2 ranks on the card,
-    and beside it leg (t)'s finetune CLI under ``torch.distributed.run`` at
-    ``--mesh_model_parallel 2`` (``TP_CLI_STEPS`` steps; its output to
-    ``tp_cli.log``); each process
+    process of their own), leg (c)'s finetune CLI for one epoch of
+    ``DDP_FT_CLOUDS`` clouds (``--scratch_model``) stopped by a real SIGTERM
+    after step ``PREEMPT_AT`` and then ``--resume``d to the epoch's end, leg
+    (d)'s part-seg CLI under ``torch.distributed.run`` with 2 ranks on the
+    card (``SEG_CLI_STEPS`` steps), and beside it leg (t)'s finetune CLI
+    under ``torch.distributed.run`` at ``--mesh_model_parallel 2``
+    (``TP_CLI_STEPS`` steps; its output to ``tp_cli.log``); each process
     appended to ``started``. Returns {"thread", and once it ends "cut",
     "rest" (each the CLI's exit code, output lines and seconds), "seg" and
     "tp" (each torchrun process's exit code, output and seconds, the TP
@@ -5408,7 +5602,7 @@ def ddp_side_start(tmp, started):
         f.write(SEG_CLI_WRAPPER)
     with open(tp_wrapper, "w") as f:
         f.write(TP_CLI_WRAPPER)
-    env, side = {**os.environ, "ACT_ROOT": ROOT}, {}
+    env, side = {**os.environ, "ACT_ROOT": ROOT, DDP_FT_ENV: str(DDP_FT_CLOUDS)}, {}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
 
@@ -5435,7 +5629,7 @@ def ddp_side_start(tmp, started):
         seg = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
              wrapper, DDP_B[0], DDP_B[1], "--device", DDP_B[0],
-             "--steps", str(SEG_RUN_STEPS), "--epoch", "1", "--batch_size", str(SEG_PART_B),
+             "--steps", str(SEG_CLI_STEPS), "--epoch", "1", "--batch_size", str(SEG_PART_B),
              "--npoint", str(SEG_NPOINT), "--root", "no_data", "--log_dir", "ddp",
              "--num_workers", "0"], cwd=tmp, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
@@ -5537,10 +5731,13 @@ def ddp_preempt_check(tmp, side) -> None:
 
 
 # runs ``act_tpu_torch.main`` with argv[3:] in a process group of device argv[1]
-# and backend argv[2] made first, its finetune ``run_net`` capped at 2 steps an epoch
+# and backend argv[2] made first, its finetune ``run_net`` capped at 2 steps an epoch,
+# on DDP_FT_CLOUDS synthetic ModelNet clouds
 TP_CLI_WRAPPER = r"""
 import functools, os, sys
 sys.path.insert(0, os.environ["ACT_ROOT"])
+from act_tpu_torch.datasets import pointcloud_datasets
+pointcloud_datasets.ModelNet.synthetic_len = int(os.environ["CHIP_SMOKE_FT_CLOUDS"])
 from act_tpu_torch import parallel
 parallel.initialize_distributed(sys.argv[1], backend=sys.argv[2])
 from act_tpu_torch import main
@@ -5595,7 +5792,7 @@ def ddp_tp_cli_check(tmp, side) -> None:
 
 def ddp_seg_cli_check(tmp, side) -> None:
     """Leg (d): the part-seg CLI under ``torch.distributed.run`` with 2 ranks
-    on the card (``--steps SEG_RUN_STEPS``: as many steps of the global B=16
+    on the card (``--steps SEG_CLI_STEPS``: as many steps of the global B=16
     and evaluation batches) wrote exactly one ckpt-best and one log; the
     whole-scene CLI with torchrun's ``WORLD_SIZE`` of 2 raises before it
     loads anything."""
@@ -5613,8 +5810,8 @@ def ddp_seg_cli_check(tmp, side) -> None:
         print(out[-3000:], flush=True)
         fail("ddp (d): the 2-rank part-seg CLI did not write exactly one ckpt-best and one log")
     steps = torch.load(os.path.join(exp, "ckpt-best.pth"), weights_only=True)["step"]
-    if steps != SEG_RUN_STEPS:
-        fail(f"ddp (d): the part-seg CLI's ckpt-best is at step {steps}, not {SEG_RUN_STEPS}")
+    if steps != SEG_CLI_STEPS:
+        fail(f"ddp (d): the part-seg CLI's ckpt-best is at step {steps}, not {SEG_CLI_STEPS}")
     os.environ["WORLD_SIZE"] = "2"
     try:
         semantic_segmentation_test.main(["--root", os.path.join(tmp, "no_data")])
@@ -5634,7 +5831,7 @@ CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne"
                 "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k",
                 "--parity": "parity", "--plain-dvae": "plain_dvae",
                 "--plain-dvae-cli": "plain_dvae_cli", "--flops": "flops",
-                "--dvae-tsne": "dvae_tsne"}
+                "--dvae-tsne": "dvae_tsne", "--profile": "profiled"}
 
 
 def stop_processes(procs) -> None:
@@ -5983,6 +6180,11 @@ def main() -> None:
     shutil.rmtree(os.path.dirname(ref), ignore_errors=True)
     print(f"[time] phases 43 and 36 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(dt_errs)
+    # -- 47. the per-op profile of the Stage-II step, run_net's trace window and
+    # random_dropping, a process of their own (its profiler windows whole)
+    _, pr_errs, pr_launches = in_child("--profile")
+    print(f"[time] phase 47 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    errs.update(pr_errs)
     # -- 37. the exported artifacts, in a process of its own. Beside its tracing run
     # what is checked and not timed: phase 36's CPU t-SNE reference on a thread here,
     # phase 38's CLIs (legs (c) and (d)) and its run_net legs (``ddp_runs``); its
@@ -6071,6 +6273,7 @@ def main() -> None:
             "launches_plain_dvae": {tag: n[kernel] for tag, n in pd_launches.items()},
             "launches_plain_dvae_cli": {tag: n[kernel] for tag, n in pd_cli_launches.items()},
             "launches_flops": {tag: n[kernel] for tag, n in fl_launches.items()},
+            "launches_profile": {tag: n[kernel] for tag, n in pr_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),
