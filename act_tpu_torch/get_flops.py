@@ -18,13 +18,14 @@ product's multiply and add are two) plus each kernel's formula
 (``ops/work.py``): ``FlopCounterMode`` counts the kernels of the registered
 ops (FPS, k-smallest, the gather) on the card, and the wrappers record the
 same formulas on the plain path and for the Gumbel and Chamfer kernels, so a
-count does not depend on the device. The run is on the card unless
+count does not depend on the device (``counted``, which
+``act_tpu_torch.bench`` also uses to count a whole train step). The run is on the card unless
 ``--device cpu`` is given. Prints the JAX tool's four lines.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -84,13 +85,16 @@ def build(config, seed: int = 0, device="cuda") -> torch.nn.Module:
     return model.train(model_cfg.NAME in TRAIN_MODE).requires_grad_(False)
 
 
-def count(model: torch.nn.Module, npoints: int = 1024, seed: int = 0) -> FlopCount:
-    """One forward of ``model`` (``build``) on a (1, npoints, 3) cloud from
-    ``seed``, on the model's device, counted."""
-    dev = next(model.parameters()).device
-    pts = torch.randn(1, npoints, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
+def counted(fn: Callable[[], object]) -> Tuple[int, Dict[str, int]]:
+    """Run ``fn()`` once, counted: (``FlopCounterMode``'s count of the aten
+    ops, each kernel's formula summed over its launches). A registered
+    kernel op that ``FlopCounterMode`` counts on the card goes to the kernels
+    with what its wrapper records on the plain path, so the two parts do not
+    depend on the device. A backward or an optimizer step inside ``fn`` is
+    counted as it runs: products of the backward, nothing of the optimizer's
+    elementwise updates."""
     with work.Work() as w, FlopCounterMode(display=False) as fc:
-        model(pts, rngs=step_rngs(seed, 0, dev))
+        fn()
     kernels, aten = dict(w.flops), 0
     for op, n in fc.get_flop_counts().get("Global", {}).items():
         name = str(op)
@@ -99,6 +103,15 @@ def count(model: torch.nn.Module, npoints: int = 1024, seed: int = 0) -> FlopCou
             kernels[k] = kernels.get(k, 0) + n
         else:
             aten += n
+    return aten, kernels
+
+
+def count(model: torch.nn.Module, npoints: int = 1024, seed: int = 0) -> FlopCount:
+    """One forward of ``model`` (``build``) on a (1, npoints, 3) cloud from
+    ``seed``, on the model's device, counted (``counted``)."""
+    dev = next(model.parameters()).device
+    pts = torch.randn(1, npoints, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
+    aten, kernels = counted(lambda: model(pts, rngs=step_rngs(seed, 0, dev)))
     return FlopCount(type(model).__name__, npoints, params(model),
                      aten + sum(kernels.values()), aten, kernels)
 

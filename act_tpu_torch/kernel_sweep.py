@@ -62,7 +62,7 @@ from act_tpu_torch.ops import gather as gather_mod
 from act_tpu_torch.ops import sampling
 from act_tpu_torch.ops.fps import MAX_PPT, _max_clusters, _sms, launch_geometry, tie_swaps
 from act_tpu_torch.ops.reference import gumbel_chunk
-from act_tpu_torch.profiling import device_ms
+from act_tpu_torch.profiling import card_line, device_ms
 
 # the serving resample at B=32 and B=1, Stage II's centers (Stage I's at B=64
 # take the same geometry), the SVM probe's resample, the largest clouds
@@ -447,9 +447,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
     old = build_parent(args.parent) if args.parent else {}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}", flush=True)
     sms = _sms(dev.index or 0)
     rows, bad = [], []

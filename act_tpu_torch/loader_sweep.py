@@ -26,7 +26,6 @@ import os
 import pickle
 import shutil
 import statistics
-import subprocess
 import tempfile
 import time
 from pathlib import Path
@@ -36,6 +35,7 @@ import numpy as np
 from act_tpu_torch.datasets import DataLoader, build_dataset_from_cfg
 from act_tpu_torch.engine import runner_finetune
 from act_tpu_torch.ops import _backend
+from act_tpu_torch.profiling import card_line
 from act_tpu_torch.utils.config import ConfigDict
 
 CONFIG = "cfgs/finetune_classification/full/finetune_modelnet.yaml"
@@ -83,9 +83,7 @@ def main() -> None:
     args = ap.parse_args()
     dev = _backend.resolve_device("cuda")
     _backend.build_kernels()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}", flush=True)
     cfg = runner_finetune.finetune_config(CONFIG)
     (train_loader,) = runner_finetune.loaders(cfg, 0, ("train",))

@@ -1,5 +1,6 @@
 """Device times of a call from ``torch.profiler`` (CUPTI), for ``chip_smoke.py``
-and ``act_tpu_torch.kernel_sweep``.
+and ``act_tpu_torch.kernel_sweep``, and the card's name and power limit
+(``card_line``) that the port's measurements print beside their numbers.
 
 On the H100 machines the profiler often drops the records of the first
 kernels of a window (in one run of ``chip_smoke.py``, all three sentinels
@@ -12,6 +13,7 @@ call.
 """
 from __future__ import annotations
 
+import subprocess
 import time
 from collections import Counter
 from typing import Callable, List, Optional
@@ -22,6 +24,15 @@ from torch.profiler import ProfilerActivity, profile
 
 SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
 SENTINELS, SENTINEL_CYCLES, PAUSE_S = 3, 200_000, 0.005
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    first line, e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_events(fn: Callable[[], object], iters: int) -> List:

@@ -131,6 +131,13 @@ version at the shapes the path gives it:
   window [10, 15), bit-equal to the run without it) and
   ``utils.misc.random_dropping`` against its plain version (phase 47,
   ``--profile``, a child alone on the card);
+- the measurement tools (phase 48, ``--bench``, a child alone on the card):
+  ``act_tpu_torch.bench``'s headline line at full width (its ``mfu``, its
+  FLOP count against the CPU's at B=1), ``bench_suite``'s two forwards and
+  three microbenches (each against its plain version), ``bench_sustained``
+  on a small ShapeNet-55 tree (the loader at 0 and 8 workers, ``run_net``),
+  ``graft_entry.entry()`` at full width and ``dryrun_multichip(2)`` on two
+  gloo ranks sharing the card;
 
 and times the kernels (the probe's and the Stage-I validation's launch shapes
 too), their plain versions, the matching library calls, the requests and the
@@ -324,6 +331,19 @@ TRACE_B, TRACE_WINDOW = 32, (10, 15)
 DROP_SHAPE, DROP_G, DROP_M = (128, 1024, 3), 64, 32
 DROP_PER_CALL = {"fps": 1, "k_smallest": 1, "gather": 2}
 ADAMW_RANGE = "Optimizer.step#AdamW.step"
+# phase 48, the measurement tools: bench's short run (the count's step, the warm-up and
+# timed steps, then a device window of bench.DEVICE_STEPS and the first call outside it),
+# the suite's rows that build no train step, the sustained tool on a small tree (256
+# train + 128 test clouds: 3 steps an epoch at B=128), the dry run's ranks
+BENCH_ARGS, BENCH_ENV = ["--warmup", "1"], {"BENCH_STEPS": "3"}
+BENCH_MFU = (0.0, 1.05)
+SUITE_ARGS = ["--only", "finetune_infer,semseg_eval,fps,knn,chamfer", "--steps", "3",
+              "--warmup", "1", "--iters", "20"]
+SUITE_KERNELS = ("fps", "k_smallest", "gather", "chamfer_nn_min")
+SUSTAINED_ARGS = ["--files", "256", "--loader_batches", "2", "--epochs", "2"]
+SUSTAINED_STEPS = 2 * ((256 + 128) // 128)
+DRYRUN_RANKS = 2
+MICRO_ATOL = 1e-6  # the kNN distances and the Chamfer loss against their plain versions
 # the file whose existence tells phase 37's child that the work the parent ran
 # beside its tracing (phase 36's CPU t-SNE, phase 38's CLIs) has ended, so that
 # its timed requests run alone (an environment variable holding a path)
@@ -415,12 +435,9 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as the port's measurements print them."""
+    from act_tpu_torch.profiling import card_line as query
+    return query()
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0):
@@ -3716,6 +3733,170 @@ def profiled(dev, device_ms, kernel_events, measure):
     return {}, errs, launches
 
 
+def tool_output(main, argv) -> str:
+    """What ``main(argv)`` prints, printed here too."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue()
+
+
+def bench_tools(dev, device_ms, kernel_events, measure):
+    """Phase 48 (``chip_smoke.py --bench``, a child alone on the card): the
+    port's measurement tools as a user runs them. (i) ``act_tpu_torch.bench``
+    at full width (``BENCH_ARGS``, ``BENCH_ENV``): its one JSON line parsed,
+    ``mfu`` within ``BENCH_MFU``, the card named, its launches a whole number
+    of Stage-II steps, and ``step_flops`` equal to 128 times the count of one step at
+    B=1 on the CPU (the count depends on shapes alone and is linear in B),
+    counted beside (v).
+    (ii) ``act_tpu_torch.bench_suite`` (``SUITE_ARGS``): the rows of the two
+    forwards and the three microbenches, each microbench's output against
+    its plain version on the suite's input (FPS up to tie swaps, kNN indices
+    exactly and distances, the Chamfer loss within ``MICRO_ATOL``).
+    (iii) ``act_tpu_torch.bench_sustained`` (``SUSTAINED_ARGS``, the record
+    to a temporary file): the loader at 0 and 8 workers and ``run_net`` over
+    the tree, ``SUSTAINED_STEPS`` steps of launches. (iv)
+    ``graft_entry.entry()`` once at full width: a finite loss through the
+    Stage-II kernels. (v) ``graft_entry.dryrun_multichip(DRYRUN_RANKS)``,
+    gloo ranks sharing the card, on a thread that waits for the ranks while
+    this one counts (i)'s step on the CPU (both untimed): JAX's lines, every
+    rank's kernels launched. Prints each part's seconds. Returns (no timing
+    rows, errors, launches)."""
+    import tempfile
+
+    import torch
+    from act_tpu_torch import bench, bench_suite, bench_sustained, graft_entry, profile_step
+    from act_tpu_torch.ops import _backend
+    from act_tpu_torch.ops.fps import tie_swaps
+
+    t_phase, errs, launches, part_s = time.perf_counter(), {}, {}, {}
+
+    def part_done(name):  # the seconds of each part, printed at the phase's end
+        part_s[name] = round(time.perf_counter() - t_phase - sum(part_s.values()), 1)
+
+    # -- (i) the headline
+    _backend.reset_launches()
+    os.environ.update(BENCH_ENV)  # this child's own environment, as a user sets it
+    out = tool_output(bench.main, BENCH_ARGS)
+    launches["bench"] = dict(_backend.LAUNCHES)
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("{")]
+    rec = json.loads(line)
+    steps = launches["bench"]["fps"] // STAGE2_PER_STEP["fps"]
+    check_launches("bench", launches["bench"], STAGE2_PER_STEP, steps)
+    want = 1 + 1 + 3 + 1 + bench.DEVICE_STEPS
+    if not BENCH_MFU[0] < (rec["mfu"] or 0) < BENCH_MFU[1] or rec["device"]["platform"] != "gpu" \
+            or rec["power_limit"] is None or steps < want:
+        fail(f"bench: mfu {rec['mfu']}, device {rec['device']}, power limit "
+             f"{rec['power_limit']}, {steps} steps launched (at least {want})")
+    torch.cuda.empty_cache()
+    part_done("bench")
+
+    # -- (ii) the suite's forwards and microbenches
+    _backend.reset_launches()
+    out = tool_output(bench_suite.main, SUITE_ARGS)
+    launches["bench_suite"] = dict(_backend.LAUNCHES)
+    keys = SUITE_ARGS[1].split(",")
+    rows = {c[1]: c for c in ([x.strip() for x in ln.split("|")] for ln in out.splitlines()
+                              if ln.startswith("| "))}
+    for key in keys:  # the host ms of a request (forwards) or a launch (microbenches)
+        ms = rows.get(key, [""] * 5)[4 if key in bench_suite.FORWARDS else 3]
+        if not ms.replace(".", "", 1).isdigit() or not float(ms) > 0:
+            fail(f"bench_suite: no measured row {key!r} in its table")
+    for key in ("fps", "knn", "chamfer"):
+        _, _, fn, plain = bench_suite.MICROBENCHES[key]
+        x = bench_suite.microbench_input(key, dev)
+        got, ref = fn(x), plain(x)
+        torch.cuda.synchronize()
+        if key == "fps":
+            swaps = tie_swaps(got, ref)
+            ok, err = swaps >= 0, 0.0 if swaps >= 0 else math.inf
+        elif key == "knn":
+            err = float((got[0] - ref[0]).abs().max())
+            ok = torch.equal(got[1], ref[1]) and err <= MICRO_ATOL
+        else:
+            err = float((got - ref).abs())
+            ok = err <= MICRO_ATOL
+        errs[f"bench_suite {key}"] = err
+        print(f"[bench] suite microbench {key}: against its plain version max |diff| {err} "
+              f"(tolerance {MICRO_ATOL}), agree {ok}", flush=True)
+        if not ok:
+            fail(f"bench_suite {key}: the kernel's output differs from its plain version")
+    if not all(launches["bench_suite"][k] > 0 for k in SUITE_KERNELS):
+        fail(f"bench_suite: launches {launches['bench_suite']}")
+    part_done("suite")
+
+    # -- (iii) the loader and run_net over a small tree
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        record = os.path.join(tmp, "sustained.json")
+        _backend.reset_launches()
+        with patched(bench_sustained, RECORD=record):
+            tool_output(bench_sustained.main, SUSTAINED_ARGS + ["--root", os.path.join(tmp, "tree")])
+        launches["bench_sustained"] = dict(_backend.LAUNCHES)
+        with open(record) as f:
+            sus = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_launches("bench_sustained", launches["bench_sustained"], STAGE2_PER_STEP,
+                   SUSTAINED_STEPS)
+    if sorted(sus["loader"]) != ["0", "8"] or not min(sus["loader"].values()) > 0 \
+            or not sus["e2e"] > 0 or len(sus["epoch_times_s"]) != 2:
+        fail(f"bench_sustained: record {sus}")
+    part_done("sustained")
+
+    # -- (iv) the flagship forward
+    _backend.reset_launches()
+    forward, (model, pts) = graft_entry.entry(dev)
+    with torch.no_grad():
+        loss = forward(model, pts)
+    torch.cuda.synchronize()
+    launches["entry"] = dict(_backend.LAUNCHES)
+    print(f"[bench] graft_entry.entry(): loss {float(loss)} on {tuple(pts.shape)}, launches "
+          f"{launches['entry']}", flush=True)
+    check_launches("entry", launches["entry"], STAGE2_PER_STEP, 1)
+    if loss.dim() != 0 or not torch.isfinite(loss):
+        fail(f"graft_entry.entry(): loss {loss}")
+    del model, pts, loss
+    torch.cuda.empty_cache()
+    part_done("entry")
+
+    # -- (v) the dry run, gloo ranks sharing the card, and beside it (i)'s count on the CPU
+    dry = {}
+
+    def dry_run():
+        try:
+            dry["run"] = graft_entry.dryrun_multichip(DRYRUN_RANKS, dev)
+        except Exception as e:  # reported after the count below
+            dry["error"] = repr(e)
+    ranks = threading.Thread(target=dry_run)
+    ranks.start()
+    torch.set_num_threads(FLOPS_CPU_THREADS)
+    cpu = bench.count_step(profile_step.setup_pretrain("cpu", B=1))
+    ranks.join()
+    print(f"[bench] step_flops {rec['step_flops']} at B=128 on the card, {cpu} at B=1 on the "
+          f"CPU: 128 x {cpu} = {128 * cpu} (equal: {rec['step_flops'] == 128 * cpu}); mfu "
+          f"{rec['mfu']}, {rec['value']} clouds/s, step {rec['step_ms']} ms, device "
+          f"{rec['device_ms']} ms, idle {rec['idle']}, peak {rec['peak_gib']} GiB", flush=True)
+    if rec["step_flops"] != 128 * cpu:
+        fail(f"bench: step_flops {rec['step_flops']} is not 128 x the CPU's B=1 count {cpu}")
+    if "error" in dry:
+        fail(f"dryrun_multichip({DRYRUN_RANKS}): {dry['error']}")
+    run = dry["run"]
+    for r, n in enumerate(run["launches"]):
+        launches[f"dryrun rank {r}"] = n
+    if not all(n[k] > 0 for n in run["launches"] for k in n if k != "chamfer_nn_min"):
+        fail(f"dryrun_multichip: rank launches {run['launches']}")
+    part_done("dry run and CPU count")
+    print(f"[bench] dryrun_multichip({DRYRUN_RANKS}): losses "
+          f"{ {leg: rec['losses'] for leg, rec in run['legs'].items()} }; rank launches "
+          f"{run['launches']}; phase 48 {time.perf_counter() - t_phase:.1f} s ({part_s})",
+          flush=True)
+    return {}, errs, launches
+
+
 def finetune_variants(dev):
     """Phase 46 (in phase 42's child, checked and untimed): each config of
     ``VARIANT_CONFIGS`` at full width from its file (the few-shot ones at
@@ -5831,7 +6012,7 @@ CHILD_PHASES = {"--pointbert": "pointbert", "--tokenizer": "tokenizer", "--tsne"
                 "--export": "export", "--ddp": "ddp", "--modelnet8k": "modelnet8k",
                 "--parity": "parity", "--plain-dvae": "plain_dvae",
                 "--plain-dvae-cli": "plain_dvae_cli", "--flops": "flops",
-                "--dvae-tsne": "dvae_tsne", "--profile": "profiled"}
+                "--dvae-tsne": "dvae_tsne", "--profile": "profiled", "--bench": "bench_tools"}
 
 
 def stop_processes(procs) -> None:
@@ -6185,6 +6366,11 @@ def main() -> None:
     _, pr_errs, pr_launches = in_child("--profile")
     print(f"[time] phase 47 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     errs.update(pr_errs)
+    # -- 48. the measurement tools (bench, bench_suite, bench_sustained, graft_entry),
+    # a process of its own
+    _, bn_errs, bn_launches = in_child("--bench")
+    print(f"[time] phase 48 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    errs.update(bn_errs)
     # -- 37. the exported artifacts, in a process of its own. Beside its tracing run
     # what is checked and not timed: phase 36's CPU t-SNE reference on a thread here,
     # phase 38's CLIs (legs (c) and (d)) and its run_net legs (``ddp_runs``); its
@@ -6274,6 +6460,7 @@ def main() -> None:
             "launches_plain_dvae_cli": {tag: n[kernel] for tag, n in pd_cli_launches.items()},
             "launches_flops": {tag: n[kernel] for tag, n in fl_launches.items()},
             "launches_profile": {tag: n[kernel] for tag, n in pr_launches.items()},
+            "launches_bench": {tag: n[kernel] for tag, n in bn_launches.items()},
             "max_abs_err": max(v for k, v in errs.items() if k.split()[0] == name),
             "ms": sum(r["ms"] * r["n"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["n"] for r in rows),

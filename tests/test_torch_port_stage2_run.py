@@ -50,7 +50,10 @@ from tests.test_torch_port_ops import one_torch_thread  # noqa: F401  (autouse)
 FEW_SHOT = {"NAME": "ModelNetFewShot", "DATA_PATH": "data/absent", "N_POINTS": 256,
             "way": 5, "shot": 10, "fold": 0}  # 50 train and 100 test clouds
 PROBE_NPOINTS = 128  # the probe resamples the 256-point clouds by FPS
-FORBIDDEN = {"jax", "flax", "orbax", "sklearn", "matplotlib", "act_tpu"}
+# the JAX package, its root tools (``bench.py``, ``__graft_entry__.py``, ``tools/``) and what
+# only the JAX side or the tests may import
+FORBIDDEN = {"jax", "flax", "orbax", "sklearn", "matplotlib", "act_tpu", "bench",
+             "__graft_entry__", "tools"}
 
 
 def probe_node(subset):
@@ -399,7 +402,7 @@ def test_entry_points_default_to_the_card():
 
 def test_the_port_imports_nothing_of_jax_sklearn_or_matplotlib():
     """No module of the package and nothing in ``chip_smoke.py`` imports JAX,
-    flax, orbax, sklearn, matplotlib or the JAX package."""
+    flax, orbax, sklearn, matplotlib, the JAX package or its root tools."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "act_tpu_torch"))
              for f in fs if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
