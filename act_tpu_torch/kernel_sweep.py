@@ -6,8 +6,10 @@ card, beside an earlier version of the redesigned kernels.
 
 For each FPS shape of the port's paths it runs ``csrc/fps.cu`` at every
 cluster size (1, 2, 4, 8) and the points a thread (1-16) that keep a block
-small, checks the picks against the plain version (equal up to adjacent tie
-swaps) and prints the profiler device time of each geometry beside the one
+small (above 16384 points: clusters of 2-16 blocks of 128-1024 threads, the
+shared or streamed body as ``ops/fps.py`` ``fps_body`` derives it), checks
+the picks against the plain version (equal up to adjacent tie swaps) and
+prints the profiler device time of each geometry beside the one
 ``launch_geometry`` picks, and the SM clock while the picked one runs. It times ``csrc/topk.cu`` at the path's shapes against its plain
 version (indices equal, values bit-equal) and ``torch.topk``. It runs
 ``chamfer_nn`` and ``chamfer_nn_min`` (``csrc/chamfer.cu``) at the
@@ -60,14 +62,16 @@ from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
 from act_tpu_torch.ops import gather as gather_mod
 from act_tpu_torch.ops import sampling
-from act_tpu_torch.ops.fps import MAX_PPT, _max_clusters, _sms, launch_geometry, tie_swaps
+from act_tpu_torch.ops.fps import (BIG_CLUSTERS, MAX_PPT, REGISTER_POINTS, _max_clusters,
+                                   _sms, fps_body, launch_geometry, launch_kernel, query_args,
+                                   tie_swaps)
 from act_tpu_torch.ops.reference import gumbel_chunk
 from act_tpu_torch.profiling import card_line, device_ms
 
 # the serving resample at B=32 and B=1, Stage II's centers (Stage I's at B=64
 # take the same geometry), the SVM probe's resample, the largest clouds
 FPS_SHAPES = [(32, 8192, 1024), (1, 8192, 1024), (128, 1024, 64), (256, 8192, 1024),
-              (8, 16384, 512)]
+              (8, 16384, 512), (2, 16385, 512), (4, 131072, 1024), (1, 1 << 20, 256)]
 TOPK_SHAPES = [(8192, 1024, 32), (8192, 64, 4), (2048, 1024, 32), (4096, 1024, 32),
                (4096, 64, 4)]
 # Chamfer shape (B, N, M) -> the tilings (tq, tt, r, threads, pack) swept
@@ -168,7 +172,13 @@ def call(fn, *args) -> None:
 
 def fps_geometries(N: int):
     """Cluster sizes 1, 2, 4, 8 at the points a thread that keep a block within 256
-    threads (or the fewest threads that cover the slice)."""
+    threads (or the fewest threads that cover the slice); above
+    ``REGISTER_POINTS`` clusters of 2-16 blocks of 128-1024 threads."""
+    if N > REGISTER_POINTS:
+        for c in BIG_CLUSTERS:
+            for threads in (128, 256, 512, 1024):
+                yield c, threads, -(-N // (c * threads))
+        return
     for c in (1, 2, 4, 8):
         slice_ = -(-N // c)
         ppt = 1
@@ -462,11 +472,12 @@ def main() -> None:
         times = {}
         for geo in sorted(set(fps_geometries(N)) | {picked}):
             c, threads, ppt = geo
-            if _max_clusters(N, c, threads, ppt) <= 0:
+            room = _max_clusters(*query_args(N, *geo))
+            if room <= 0:
                 continue
 
             def run(geo=geo):
-                _backend.launch("fps", pts, start, out, B, N, S, *geo)
+                launch_kernel(pts, start, out, geo)
             run()
             torch.cuda.synchronize()
             n_sw = tie_swaps(out, want)
@@ -477,7 +488,7 @@ def main() -> None:
             ms = device_ms(run, iters)
             rows.append(dict(kernel="fps", shape=[B, N, S], c=c, threads=threads, ppt=ppt,
                              ms=ms, picked=geo == picked, tie_swaps=n_sw,
-                             max_clusters=_max_clusters(N, c, threads, ppt)))
+                             max_clusters=room))
             if ms is None:
                 print(f"    fps {geo}: device records incomplete, not measured")
             else:
@@ -486,14 +497,15 @@ def main() -> None:
             continue
         best = min(times, key=times.get)
         line = (f"[fps] ({B}, {N}, 3)->{S}: picked C={picked[0]} threads={picked[1]} "
-                f"ppt={picked[2]} {times[picked]:.5f} ms "
+                f"ppt={picked[2]} ({fps_body(N, picked[0], picked[1])}) {times[picked]:.5f} ms "
                 f"({times[picked] * 1e3 / (S - 1):.4f} us a step); best {best} "
                 f"{times[best]:.5f} ms")
         clock = sm_clock_mhz(lambda: ops.furthest_point_sample(pts, S))
         rows.append(dict(kernel="fps_clock", shape=[B, N, S], sm_clock_power=clock))
         print(line + f"; SM clock, power while it runs: {clock}", flush=True)
         for geo, t in sorted(times.items()):
-            print(f"    C={geo[0]} threads={geo[1]} ppt={geo[2]}: {fmt(t)} ms", flush=True)
+            print(f"    C={geo[0]} threads={geo[1]} ppt={geo[2]} ({fps_body(N, *geo[:2])}): "
+                  f"{fmt(t)} ms", flush=True)
     for R, N, k in TOPK_SHAPES:
         d = torch.rand(R, N, generator=gen).to(dev)
         wv, wi = ops.k_smallest_ref(d, k)

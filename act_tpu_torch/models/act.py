@@ -153,7 +153,8 @@ class VisableOnlyMaskTransformer(nn.Module):
         self.cls_pos = nn.Parameter(torch.empty(1, 1, C))
         self.pos_embed = PosEmbedMLP(C, dtype=dtype)
         self.blocks = TransformerEncoder(C, tc.depth, tc.num_heads, dtype=dtype,
-                                         drop_path_rate=tc.drop_path_rate)
+                                         drop_path_rate=tc.drop_path_rate,
+                                         remat=bool(tc.get("remat", False)))
         self.norm = LayerNorm(C, eps=1e-5)
         # flax's default nn.gelu is the tanh form (act.py:122-123), in f32
         self.cls_head = nn.Sequential(Dense(C, tc.cls_dim), nn.GELU(approximate="tanh"),

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from act_tpu_torch import ops
 from act_tpu_torch.parallel import all_reduce_sum, data_count, rand_local
@@ -236,12 +237,23 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, rngs: Rngs = None) -> torch.Tensor:
+    def draw(self, x: torch.Tensor, rngs: Rngs = None) -> Optional[torch.Tensor]:
+        """The uniforms of a call on ``x``, one a sample; None where the call
+        keeps every sample (eval mode, rate 0)."""
         if not self.training or self.rate == 0.0:
+            return None
+        return rand_local((x.shape[0],) + (1,) * (x.dim() - 1), rng(rngs, "droppath"))
+
+    def scale(self, x: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
+        """``x`` with the samples whose uniform ``u`` is at least 1 - rate
+        dropped and the others scaled by 1 / (1 - rate)."""
+        if u is None:
             return x
         keep = 1.0 - self.rate
-        u = rand_local((x.shape[0],) + (1,) * (x.dim() - 1), rng(rngs, "droppath"))
         return torch.where(u < keep, x / scalar(keep, x), scalar(0.0, x))
+
+    def forward(self, x: torch.Tensor, rngs: Rngs = None) -> torch.Tensor:
+        return self.scale(x, self.draw(x, rngs))
 
 
 class Dropout(nn.Module):
@@ -363,11 +375,16 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, q_keep_from: int = 0, rngs: Rngs = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, q_keep_from: int = 0, rngs: Rngs = None,
+                drawn: Optional[Tuple[Optional[torch.Tensor], ...]] = None) -> torch.Tensor:
+        """``drawn``: the drop path's two uniforms (the attention's, then the
+        MLP's, :meth:`DropPath.draw`) drawn beforehand, in place of drawing
+        them from ``rngs`` here."""
+        dp = self.drop_path
         h = self.attn(self.norm1(x), q_keep_from)
-        x = x[:, q_keep_from:] + self.drop_path(h, rngs)
-        return x + self.drop_path(self.mlp(self.norm2(x)), rngs)
+        x = x[:, q_keep_from:] + (dp(h, rngs) if drawn is None else dp.scale(h, drawn[0]))
+        h = self.mlp(self.norm2(x))
+        return x + (dp(h, rngs) if drawn is None else dp.scale(h, drawn[1]))
 
 
 class CLIPAttention(nn.Module):
@@ -473,22 +490,36 @@ class TransformerEncoder(nn.Module):
     """Stack of Blocks with the pos embedding added at every block input,
     ``x = block(x + pos)`` (reference models/act.py:109-112), drop path
     rising linearly from 0 to ``drop_path_rate``. The unrolled stack; a
-    scanned JAX checkpoint is unstacked by the weight bridge."""
+    scanned JAX checkpoint is unstacked by the weight bridge.
+
+    ``remat`` (JAX's ``nn.remat`` of each block, ``common.py:271``): with
+    gradients on, each block runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward pass. Its drop-path uniforms are drawn before
+    the call, in the block's own order, and passed in: the recompute keeps
+    them, and the step equals the one without ``remat`` bit for bit
+    (``preserve_rng_state`` restores the global generators only, not the
+    ``rngs`` streams)."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = False,
-                 dtype: Optional[torch.dtype] = None, drop_path_rate: float = 0.0):
+                 dtype: Optional[torch.dtype] = None, drop_path_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, drop_path=r)
             for r in drop_path_rates(drop_path_rate, depth))
+        self.remat = remat
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, rngs: Rngs = None,
                 return_hidden: Sequence[int] = ()) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """-> (output, the outputs of the blocks listed in ``return_hidden``)."""
         hidden = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x + pos, rngs=rngs)
+            if self.remat and torch.is_grad_enabled():
+                drawn = (blk.drop_path.draw(x, rngs), blk.drop_path.draw(x, rngs))
+                x = checkpoint(blk, x + pos, 0, None, drawn, use_reentrant=False)
+            else:
+                x = blk(x + pos, rngs=rngs)
             if i in return_hidden:
                 hidden.append(x)
         return x, hidden

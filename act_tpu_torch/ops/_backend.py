@@ -43,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source csrc/<stem>.cu, C launch function, its argument types)
 KERNELS = {
-    "fps": ("fps", "act_fps", [_P, _P, _P] + [_I] * 6 + [_P]),
+    "fps": ("fps", "act_fps", [_P] * 4 + [_I] * 6 + [_P]),
     "k_smallest": ("topk", "act_ksmallest", [_P, _P, _P, _I, _I, _I, _P]),
     "gather": ("gather", "act_gather", [_P, _P, _P] + [_I] * 6 + [_P]),
     "gumbel_argmax": ("gumbel", "act_gumbel_argmax", [_P, _P, _P] + [_I] * 6 + [_P]),

@@ -68,13 +68,16 @@ version at the shapes the path gives it:
   CLIP and BERT teachers and Stage II on the CLIP tokenizer (phases 33-35);
 - ModelNet40 at 8192 points (phases 39-41, ``--modelnet8k``): the offline FPS
   cache of a written synthetic ``modelnet40_normal_resampled`` tree built
-  through the FPS kernel, its picks held to the plain version; the shipped
-  ``finetune_modelnet_8k.yaml`` (384 x 12, G=128, B=32) through the kernels
-  at its shapes against the plain versions, train steps, validation, a vote
-  round, ``test_net``, requests at B=1 and 32, and a step each of its linear
-  and mlp-3 variants; SGD with StepLR and ``step_per_update`` 2, its weights
-  still between updates, stopped by the preemption guard between updates and
-  resumed bit-equal;
+  through the FPS kernel, its picks held to the plain version, and the cache
+  of 4 raw scans of 131072 points; FPS above 16384 points (the kernel's
+  shared and streamed bodies, up to 2^20 points) against its plain version;
+  the shipped ``finetune_modelnet_8k.yaml`` (384 x 12, G=128, B=32) through
+  the kernels at its shapes against the plain versions, train steps,
+  validation, a vote round, ``test_net``, requests at B=1 and 32 and on
+  131072-point clouds at B=1 and 8 (held to the plain path), and a step each
+  of its linear and mlp-3 variants; SGD with StepLR and ``step_per_update``
+  2, its weights still between updates, stopped by the preemption guard
+  between updates and resumed bit-equal;
 - t-SNE at ``tsne_scan_hardest.yaml`` (two 384 x 12 PointTransformers, 2048
   points, seeded weights): both models' features through the kernels and the
   plain versions, ``tsne_net``, the embedding of 2882 features on the card,
@@ -359,9 +362,10 @@ TK_S1_STEPS, TK_S2_STEPS = 3, 2
 # phases 39-41 (``--modelnet8k``, a child process): 39, the ModelNet offline FPS
 # cache of a written synthetic modelnet40_normal_resampled tree (CACHE_CLOUDS files
 # of CACHE_FILE_POINTS x 6 rows) through the card's FPS kernel, projected to
-# ModelNet40's MODELNET_CLOUDS; 40, finetune_modelnet_8k.yaml at full width (and
-# its linear and mlp-3 variants for a step each); 41, SGD + StepLR with
-# step_per_update 2 on finetune_modelnet.yaml, stopped and resumed
+# ModelNet40's MODELNET_CLOUDS, then raw scans and FPS above 16384 points (LARGE_*);
+# 40, finetune_modelnet_8k.yaml at full width (and its linear and mlp-3 variants for
+# a step each), requests on raw scans; 41, SGD + StepLR with step_per_update 2 on
+# finetune_modelnet.yaml, stopped and resumed
 CONFIG_8K = "cfgs/finetune_classification/full/finetune_modelnet_8k.yaml"
 CONFIGS_8K_HEADS = ("cfgs/finetune_classification/linear/finetune_modelnet_8k_linear.yaml",
                     "cfgs/finetune_classification/mlp3/finetune_modelnet_8k_mlp3.yaml")
@@ -373,6 +377,13 @@ M8_STEPS, M8_VAL_BATCHES, M8_REQ_ITERS = 3, 2, (20, 10)
 # resamples by FPS 8192 -> 8192 first
 FT8K_PER_STEP = {"fps": 1, "k_smallest": 1, "gather": 3}
 FT8K_PER_EVAL = {"fps": 2, "k_smallest": 1, "gather": 3}
+# above 16384 points (phases 39-40): FPS at the shapes the kernel's shared and streamed
+# bodies take, each against its plain version ((B, N, S); the (4, 131072) launch is the
+# cache's), LARGE_FILES raw scans of LARGE_POINTS points through the FPS cache, and
+# requests of LARGE_POINTS-point clouds at LARGE_REQ_B through build_infer_fn of the
+# full-width 8k model, each held to the plain path
+LARGE_FPS = ((2, 16385, 512), (1, 1 << 20, 1024))
+LARGE_POINTS, LARGE_FILES, LARGE_REQ_B, LARGE_REQ_ITERS = 131072, 4, (1, 8), 5
 OPT_STEPS, OPT_EVERY, OPT_STOP = 4, 2, 3
 # phase 42 (``--parity``, a child process beside phase 37's tracing): every
 # MODEL_ZOO row of ``act_tpu_torch.parity_protocol`` on fabricated full-width
@@ -559,7 +570,8 @@ def timed(fn, iters, warm=3):
     return e0.elapsed_time(e1) / iters
 
 
-def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1, plain_events=False):
+def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1, plain_events=False,
+            plain_ms=None):
     """Times of one launch shape; ``n`` launches of it a step or request.
 
     A kernel's time is its device time from torch.profiler (CUPTI): at these
@@ -568,13 +580,16 @@ def measure(shape, fn, plain, library, iters, plain_iters, bound, n=1, plain_eve
     there gives no device time (act_tpu_torch/profiling.py); the row then
     keeps the CUDA-event time and says so. ``plain_events`` times the plain
     version on CUDA events only (an FPS of 8191 steps launches ~65 000
-    kernels, more than a profiler window should hold)."""
+    kernels, more than a profiler window should hold); ``plain_ms`` is a
+    time of the plain version already taken on CUDA events, which the row
+    keeps in place of timing it again."""
     from act_tpu_torch.profiling import device_ms
     call = timed(fn, iters)
     dev_ms = device_ms(fn, iters)
     return dict(shape=shape, n=n, ms=call if dev_ms is None else dev_ms, call_ms=call,
                 timing="cuda_events" if dev_ms is None else "profiler",
-                plain_ms=(timed(plain, plain_iters, 1) if plain_events else
+                plain_ms=(plain_ms if plain_ms is not None else
+                          timed(plain, plain_iters, 1) if plain_events else
                           device_ms(plain, plain_iters) or timed(plain, plain_iters, 1)),
                 library_ms=None if library is None else
                 (device_ms(library, iters) or timed(library, iters)),
@@ -3007,13 +3022,16 @@ def modelnet8k(dev, device_ms, kernel_events, measure):
     """Phases 39-41, ModelNet40 at 8192 points: 39, the offline FPS cache of a
     written synthetic tree built through the card's FPS kernel (``ModelNet``
     with ``FPS_DEVICE`` the card), its picks held to the plain version on
-    every cloud, the parse and FPS clouds/s; 40, ``finetune_modelnet_8k.yaml``
+    every cloud, the parse and FPS clouds/s, the same for LARGE_FILES raw
+    scans of LARGE_POINTS points, and FPS at LARGE_FPS against its plain
+    version and timed; 40, ``finetune_modelnet_8k.yaml``
     at full width (384 x 12, G=128 x M=32, B=32, bf16, seeded weights,
     synthetic clouds): FPS 8192 -> 8192 and -> 128, k-smallest (4096, 8192)
     and the gathers against their plain versions and timed,
     ``run_finetune_steps``, ``validate`` and a vote round through the kernels
     against the plain path, ``test_net``, a step of the linear and mlp-3
-    variants, requests at B=1 and 32; 41, SGD with StepLR and
+    variants, requests at B=1 and 32, and at LARGE_REQ_B on LARGE_POINTS-point
+    clouds held to the plain path; 41, SGD with StepLR and
     ``step_per_update`` 2 on ``finetune_modelnet.yaml``: weights unchanged
     between updates, and a ``run_net`` stopped by the preemption guard
     between updates and resumed, bit-equal to the uninterrupted run. Returns
@@ -3057,7 +3075,7 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
     import numpy as np
     import torch
     from act_tpu_torch import ops
-    from act_tpu_torch.datasets.pointcloud_datasets import CACHE_BATCH, ModelNet
+    from act_tpu_torch.datasets.pointcloud_datasets import CACHE_BATCH, ModelNet, fps_cache
     from act_tpu_torch.datasets.transforms import scale_and_translate
     from act_tpu_torch.engine import checkpoint as ckpt_lib
     from act_tpu_torch.engine import serve
@@ -3077,10 +3095,18 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
     errs, launches = {}, {}
     card = card_line()
 
+    plain_once = {}  # (shape, S) -> CUDA-event ms of check_fps's plain call
+
     def check_fps(p, S, tag, say=True):
         """Kernel picks against the plain version's: up to adjacent tie swaps,
         the same set; returns (the plain picks, the swaps)."""
-        k, r = ops.furthest_point_sample(p, S), ops.furthest_point_sample_ref(p, S)
+        k = ops.furthest_point_sample(p, S)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = ops.furthest_point_sample_ref(p, S)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_once[tuple(p.shape), S] = e0.elapsed_time(e1)
         n_sw = tie_swaps(k, r)
         if n_sw < 0 or not torch.equal(k.sort(-1).values, r.sort(-1).values):
             fail(f"fps {tag} {tuple(p.shape)}->{S}: kernel picks differ beyond tie swaps")
@@ -3091,13 +3117,18 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
                   f"swaps, same set", flush=True)
         return r, n_sw
 
-    def fps_row(p, S, n, tag):
+    def fps_row(p, S, n, tag, iters=10, plain_ms=None):
         B_, N_ = p.shape[:2]
         rows["fps"].append(measure(
             f"({B_}, {N_}, 3)->{S} ({tag})", lambda: ops.furthest_point_sample(p, S),
-            lambda: ops.furthest_point_sample_ref(p, S), None, 10, 1,
+            lambda: ops.furthest_point_sample_ref(p, S), None, iters, 1,
             bound_ms(p.numel() * 4 + B_ * S * 4, work.fps(B_, N_, S)), n,
-            plain_events=True))
+            plain_events=True, plain_ms=plain_ms))
+
+    def large_fps_row(p, S, n, tag):
+        """A row above 16384 points: 3 timed launches, the plain version's time
+        from check_fps's one call (a plain walk takes ~1 s at 131072 points)."""
+        fps_row(p, S, n, tag, 3, plain_once[tuple(p.shape), S])
 
     # -- 39. the offline FPS cache through the card's FPS kernel -------------------
     t_phase = time.perf_counter()
@@ -3147,6 +3178,38 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
           f"geometry (CUDA context, module load) {first_s:.2f} s before it ({card})", flush=True)
     fps_row(xyz, npts, 0, "the cache's launch")
     del stack, xyz, ds, again
+
+    # raw scans above 16384 points: the cache's one launch through the shared body, and
+    # FPS at the edge of the registers body and through the streamed body
+    t_large = time.perf_counter()
+    root = os.path.join(tmp, "raw_scans")
+    os.makedirs(root)
+    paths = write_modelnet_tree(root, LARGE_FILES, LARGE_POINTS, LARGE_FILES)
+    _backend.reset_launches()
+    clouds_c, parse_s, fps_s = fps_cache(paths, npts, dev)
+    torch.cuda.synchronize()
+    launches["cache of raw scans"] = dict(_backend.LAUNCHES)
+    check_launches("cache of raw scans", launches["cache of raw scans"], {"fps": 1}, 1)
+    stack = np.stack([np.loadtxt(p, delimiter=",").astype(np.float32) for p in paths])
+    xyz = torch.from_numpy(stack[..., :3]).to(dev).contiguous()
+    picks = ops.furthest_point_sample(xyz, npts).long().cpu().numpy()
+    check_fps(xyz, npts, "cache of raw scans")
+    if not all(np.array_equal(got, cloud[ix]) for got, cloud, ix in
+               zip(clouds_c, stack, picks)):
+        fail("cache of raw scans: a cloud is not its file's rows at the kernel's picks")
+    print(f"[cache] {LARGE_FILES} raw scans of {LARGE_POINTS} x 6 rows -> {npts}: one FPS "
+          f"launch; every cloud its file's rows at the kernel's picks; parse {parse_s:.3f} s, "
+          f"FPS on the card (with transfers) {fps_s:.3f} s = {LARGE_FILES / fps_s:.1f} "
+          f"clouds/s ({card})", flush=True)
+    large_fps_row(xyz, npts, 0, "the cache of raw scans")
+    gen = torch.Generator().manual_seed(23)
+    for B_, N_, S in LARGE_FPS:
+        p = torch.randn(B_, N_, 3, generator=gen).to(dev)
+        check_fps(p, S, "above 16384 points")
+        large_fps_row(p, S, 0, "above 16384 points")
+    del stack, xyz, clouds_c
+    print(f"[m8k] raw scans and FPS above 16384 points {time.perf_counter() - t_large:.1f} s",
+          flush=True)
     print(f"[m8k] phase 39 {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- 40. finetune_modelnet_8k at full width ------------------------------------
@@ -3325,6 +3388,47 @@ def _modelnet8k(dev, device_ms, kernel_events, measure, tmp):
               f"min {min(lat):.3f}, max {max(lat):.3f} over {iters}; {b_ / req[b_] * 1e3:.1f} "
               f"clouds/s; device busy {'not measured' if busy is None else f'{busy:.3f} ms'} "
               f"({card})", flush=True)
+
+    # requests of raw scans: LARGE_POINTS-point clouds resampled to 8192 by FPS's shared body
+    t_large = time.perf_counter()
+    gen = torch.Generator().manual_seed(29)
+    for b_ in LARGE_REQ_B:
+        x = torch.randn(b_, LARGE_POINTS, 3, generator=gen).to(dev)
+        tag = f"8k request B={b_} of {LARGE_POINTS} points"
+        _backend.reset_launches()
+        out = infer(x)
+        torch.cuda.synchronize()
+        launches[tag] = dict(_backend.LAUNCHES)
+        check_launches(tag, launches[tag], FT8K_PER_EVAL, 1)
+        if tuple(out.shape) != (b_, int(cfg.model.cls_dim)) or not bool(torch.isfinite(out).all()):
+            fail(f"{tag}: logits {tuple(out.shape)} not finite or misshapen")
+        r, n_sw = check_fps(x, npoints, f"{tag} resample", False)
+        n_sw += check_fps(ops.gather_points(x, r), G, f"{tag} groups", False)[1]
+        # the plain path on the plain version's picks, just taken
+        with patched(serve, furthest_point_sample=lambda p, n: r, gather_coords=ops.gather_points), \
+                patched(ops, group_points=ops.group_points_ref):
+            t0 = time.perf_counter()
+            plain = infer(x)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 + plain_once[tuple(x.shape), npoints]
+        diff = float((out - plain).abs().max())
+        print(f"[check] {tag}: logits through the kernels against the plain path max |diff| "
+              f"{diff} (tolerance: bit-equal, or {LOGIT_ATOL} with FPS tie swaps; {n_sw} "
+              f"counted); launches {launches[tag]}", flush=True)
+        if not (torch.equal(out, plain) or (n_sw and diff <= LOGIT_ATOL)):
+            fail(f"{tag}: kernel path and plain path disagree")
+        lat = request_ms(lambda: infer(x), LARGE_REQ_ITERS)
+        med = statistics.median(lat)
+        busy = busy_line(kernel_events, tag, lambda: infer(x), med)
+        print(f"[time] {tag}: median {med:.3f} ms, min {min(lat):.3f}, max {max(lat):.3f} over "
+              f"{LARGE_REQ_ITERS}; {b_ / med * 1e3:.1f} clouds/s; device busy "
+              f"{'not measured' if busy is None else f'{busy:.3f} ms'}; the plain path "
+              f"{plain_ms:.1f} ms (its FPS on CUDA events, the rest by host) ({card})",
+              flush=True)
+        large_fps_row(x, npoints, 1, f"B={b_} request of {LARGE_POINTS} points")
+    print_times("8k ", {"fps": rows["fps"][-len(LARGE_REQ_B):]})
+    print(f"[m8k] requests of {LARGE_POINTS} points {time.perf_counter() - t_large:.1f} s",
+          flush=True)
     del model, st, run, infer
     torch.cuda.empty_cache()
 
@@ -6121,7 +6225,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _backend.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 print(f"[build] {name}: {line.strip()}")
 
     # -- 2. kernels vs plain versions at the path shapes ---------------------

@@ -14,12 +14,14 @@ from act_tpu_torch import ops
 from act_tpu_torch.engine.serve import build_infer_fn, load_model
 from act_tpu_torch.ops import _backend
 from act_tpu_torch.ops import chamfer as chamfer_mod
+from act_tpu_torch.ops import fps as fps_mod
 from act_tpu_torch.ops import gather as gather_mod
 from act_tpu_torch.kernel_sweep import (BWD_RTOL, CHAMFER_SHAPES, GATHER_GEOMETRIES,
                                         GATHER_SHAPES, GUMBEL_SHAPES, chamfer_runs,
                                         gumbel_geometries, gumbel_launch)
+from act_tpu_torch.kernel_sweep import fps_geometries as big_geometries
 from act_tpu_torch.ops import sampling
-from act_tpu_torch.ops.fps import _sms, tie_swaps
+from act_tpu_torch.ops.fps import _sms, launch_kernel, tie_swaps
 from act_tpu_torch.utils.config import ConfigDict
 
 pytestmark = pytest.mark.gpu
@@ -78,9 +80,8 @@ def fps_geometries(N):
 
 
 def launch_fps(pts, S, start, geometry):
-    B, N, _ = pts.shape
-    out = torch.empty(B, S, dtype=torch.int32, device=pts.device)
-    _backend.launch("fps", pts, start.int(), out, B, N, S, *geometry)
+    out = torch.empty(pts.shape[0], S, dtype=torch.int32, device=pts.device)
+    launch_kernel(pts, start.int(), out, geometry)
     return out
 
 
@@ -111,6 +112,77 @@ def test_fps_kernel_ties_across_cluster_blocks(cuda, N):
         want = ops.furthest_point_sample_ref(pts, 64, start)
         assert torch.equal(ops.furthest_point_sample(pts, 64, start_idx=start), want)
         for geo in fps_geometries(N):
+            assert torch.equal(launch_fps(pts, 64, start, geo), want), geo
+
+
+@pytest.mark.parametrize("B,N,S,body", [(2, 16385, 512, "shared"), (4, 131072, 2048, "shared"),
+                                        (1, 300000, 256, "streamed"),
+                                        (1, 1 << 20, 1024, "streamed")])
+def test_fps_kernel_large_clouds_match_plain(cuda, B, N, S, body):
+    """Above 16384 points the launch takes the shared body (the slice in
+    shared memory, a cluster of up to 16 blocks) or, past what a cluster
+    holds, the streamed body; both from per-cloud starts (and index 0 at
+    (2, 16385)), picks equal up to adjacent tie swaps, the same set."""
+    pts = cloud(50, B, N, 3, device=cuda)
+    c, threads, ppt = fps_mod.launch_geometry(B, N, _sms(cuda.index or 0), fps_mod._max_clusters)
+    assert fps_mod.fps_body(N, c, threads) == body
+    starts = [None, torch.randint(0, N, (B,), generator=torch.Generator().manual_seed(N))]
+    for start in starts[B == 4:]:
+        start = None if start is None else start.to(cuda)
+        _backend.reset_launches()
+        got = ops.furthest_point_sample(pts, S, start_idx=start)
+        torch.cuda.synchronize()
+        assert _backend.LAUNCHES["fps"] == 1
+        want = ops.furthest_point_sample_ref(pts, S, start)
+        assert tie_swaps(got, want) >= 0
+        assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+
+
+@pytest.mark.parametrize("N", [1, 2, 33, 16384, 16385, 20001, 65537, 211000, 262143,
+                               (1 << 20) - 3, 1 << 20])
+def test_fps_kernel_takes_every_size(cuda, N):
+    """Every size from 1 to 2^20 points launches the kernel (no size limit
+    below 2^31), each body at its edges, and walks like the plain version."""
+    pts = cloud(53, 1, N, 3, device=cuda)
+    S = min(N, 24)
+    _backend.reset_launches()
+    got = ops.furthest_point_sample(pts, S)
+    torch.cuda.synchronize()
+    assert _backend.LAUNCHES["fps"] == 1
+    assert tie_swaps(got, ops.furthest_point_sample_ref(pts, S)) >= 0
+
+
+def test_fps_kernel_every_cluster_geometry_at_131072(cuda):
+    """At 131072 points, each cluster size of 2-16 blocks at each block size
+    walks like the plain version: the shared body where the slice fits
+    (C = 16), the streamed body otherwise."""
+    N = 131072
+    pts = cloud(51, 2, N, 3, device=cuda)
+    start = torch.tensor([0, N - 1], device=cuda)
+    want = ops.furthest_point_sample_ref(pts, 128, start)
+    bodies = set()
+    for geo in big_geometries(N):
+        bodies.add(fps_mod.fps_body(N, geo[0], geo[1]))
+        got = launch_fps(pts, 128, start, geo)
+        assert tie_swaps(got, want) >= 0, geo
+        assert torch.equal(got.sort(-1).values, want.sort(-1).values), geo
+    assert bodies == {"shared", "streamed"}
+
+
+@pytest.mark.parametrize("N", [131072, 40000])
+def test_fps_kernel_ties_across_16_block_clusters(cuda, N):
+    """A cloud of duplicated points and an all-equal cloud at every big
+    geometry, 16-block clusters included: each distance tie, also between
+    points of different blocks, goes to the smaller index as the plain
+    version's first argmax."""
+    half = cloud(52, 2, N // 2, 3, device=cuda)
+    dup = torch.cat([half, half], 1).contiguous()
+    same = torch.full((2, N, 3), 0.25, device=cuda)
+    start = torch.tensor([0, N - 1], device=cuda)
+    for pts in (dup, same):
+        want = ops.furthest_point_sample_ref(pts, 64, start)
+        assert torch.equal(ops.furthest_point_sample(pts, 64, start_idx=start), want)
+        for geo in big_geometries(N):
             assert torch.equal(launch_fps(pts, 64, start, geo), want), geo
 
 
